@@ -7,8 +7,9 @@
    count);
 2. builds every CUDA kernel of the port from ``eop_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (and the JAX package's test cases), and
-   times kernel, plain version and the PyTorch library call;
+   shapes the serving path gives it (and the JAX package's test cases), with
+   and without the fused scale + shift + SiLU epilogue, and times kernel,
+   plain version and the PyTorch library calls;
 4. serves the 24p-s detector (depth 0.33, width 0.50, 80 classes, 640 px)
    with seeded random weights behind the threaded HTTP front end, answers
    concurrent raw-body requests and checks every kernel of the path ran;
@@ -34,7 +35,10 @@ import torch
 
 # peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12   # CUDA cores, no tensor cores
+PEAK_TF32_FLOPS = 495e12  # tensor cores, dense; fp32 accuracy takes 3 products
+PEAK_BF16_FLOPS = 989e12  # tensor cores, dense
 PEAK_BYTES = 3.35e12      # HBM3
+BN_EPS = 1e-3
 FP32_TOL, BF16_TOL = 1e-4, 1e-2  # max |kernel - plain| / max(1, max |plain|)
 
 # the JAX package's phase_conv cases (tests/test_pallas_conv.py), batch 2:
@@ -86,9 +90,43 @@ def conv_inputs(case, batch, dtype, seed):
     return x.to(dtype), (wgt / (k * k * c) ** 0.5).to(dtype)
 
 
+def sass_summary(_build):
+    """What the built libraries hold, from ``cuobjdump -sass``: counts and one
+    sample of the tensor-core (HGMMA), TMA (UTMALDG), bulk-copy (UBLKCP) and
+    mbarrier (SYNCS) instructions.  The tensor-core library must have the
+    first two."""
+    import os
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = {}
+    for name in sorted(_build.BUILD_INFO):
+        sass = subprocess.run([tool, "-sass", str(_build._target(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout.splitlines()
+        row = {}
+        for op in ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "FFMA"):
+            hits = [ln for ln in sass if f" {op}" in ln]
+            row[op] = len(hits)
+            if hits and op != "FFMA":
+                row[f"{op}_sample"] = " ".join(hits[0].split("/*")[1].split()[1:])
+        out[name] = row
+    if not (out["phase_conv"]["HGMMA"] and out["phase_conv"]["UTMALDG"]):
+        raise AssertionError(f"no tensor-core or TMA instructions: {out}")
+    return out
+
+
+def epilogue_inputs(co, seed):
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    scale = torch.rand(co, generator=g, device="cuda") * 1.5 + 0.5   # 0.5 .. 2
+    shift = torch.rand(co, generator=g, device="cuda") * 2.0 - 1.0   # -1 .. 1
+    return scale, shift
+
+
 def check_phase_conv():
-    """Kernel vs plain version on every shape, fp32 and bf16; times at the
-    main-path shapes in fp32 (the serving path's type)."""
+    """Kernel vs plain version on every shape, fp32 and bf16, with and
+    without the fused epilogue; times at the main-path shapes."""
     import torch.nn.functional as F
 
     from eop_tpu_torch.ops.phase_conv import (
@@ -103,40 +141,67 @@ def check_phase_conv():
     for seed, (name, case, batch) in enumerate(cases):
         k, s, p, h, w, c, co = case
         row = {"name": name, "case": list(case), "batch": batch}
+        scale, shift = epilogue_inputs(co, seed)
+        fused = {"scale": scale, "shift": shift, "act": "silu"}
         for dtype, tol, key in ((torch.float32, FP32_TOL, "fp32"),
                                 (torch.bfloat16, BF16_TOL, "bf16")):
             x, wgt = conv_inputs(case, batch, dtype, seed)
-            got = phase_conv(x, wgt, s, p)
-            want = phase_conv_reference(x, wgt, s, p)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
-            row[f"max_abs_err_{key}"] = err
-            row[f"scale_{key}"] = scale
-            if not err <= tol * max(1.0, scale):
-                raise AssertionError(f"phase_conv {name} {key}: max abs err "
-                                     f"{err} > {tol} x {max(1.0, scale)}")
-            if key == "fp32":
-                err32 = max(err32, err)
-            else:
-                err16 = max(err16, err)
+            for tag, kwargs in (("", {}), ("_fused", fused)):
+                got = phase_conv(x, wgt, s, p, **kwargs)
+                want = phase_conv_reference(x, wgt, s, p, **kwargs)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                row[f"max_abs_err_{key}{tag}"] = err
+                row[f"scale_{key}{tag}"] = ref
+                if not err <= tol * max(1.0, ref):
+                    raise AssertionError(
+                        f"phase_conv {name} {key}{tag}: max abs err {err} > "
+                        f"{tol} x {max(1.0, ref)}")
+                if key == "fp32":
+                    err32 = max(err32, err)
+                else:
+                    err16 = max(err16, err)
+            row[f"variant_{key}"] = phase_conv.last_variant
+        row["variant"] = row["variant_fp32"]
         if batch == SERVE_BATCH:
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
+            x16, wgt16 = x.bfloat16(), wgt.bfloat16()
             x_nchw = x.permute(0, 3, 1, 2)           # channels_last view
             w_oihw = wgt.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
+            # an eval-mode BatchNorm with the same folded scale and shift
+            var = torch.ones_like(scale)
+            gamma, mean = scale * (1.0 + BN_EPS) ** 0.5, torch.zeros_like(scale)
+
+            def library_fused():
+                y = F.conv2d(x_nchw, w_oihw, stride=s, padding=p)
+                return F.silu(F.batch_norm(y, mean, var, gamma, shift, False,
+                                           0.0, BN_EPS))
+
             row["ms"] = cuda_ms(lambda: phase_conv(x, wgt, s, p))
+            row["ms_fused"] = cuda_ms(lambda: phase_conv(x, wgt, s, p, **fused))
+            row["ms_bf16"] = cuda_ms(lambda: phase_conv(x16, wgt16, s, p))
             row["plain_ms"] = cuda_ms(
                 lambda: phase_conv_reference(x, wgt, s, p))
             row["library_ms"] = cuda_ms(
                 lambda: F.conv2d(x_nchw, w_oihw, stride=s, padding=p))
+            row["library_fused_ms"] = cuda_ms(library_fused)
             ho, wo = out_hw(h, w, k, s, p)
             flops = 2.0 * batch * ho * wo * co * k * k * c
-            nbytes = 4.0 * (x.numel() + wgt.numel() + batch * ho * wo * co)
-            t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
-            row.update(flops=flops, bytes=nbytes,
-                       bound_ms=1e3 * max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+            elems = x.numel() + wgt.numel() + batch * ho * wo * co
+            t_bytes = 4.0 * elems / PEAK_BYTES
+            t_cores = flops / PEAK_FP32_FLOPS
+            # the least the card could take: fp32 on the CUDA cores, or three
+            # TF32 products on the tensor cores, whichever is faster
+            t_ops = min(t_cores, 3.0 * flops / PEAK_TF32_FLOPS)
+            row.update(
+                flops=flops, bytes=4.0 * elems,
+                bound_cuda_core_ms=1e3 * max(t_cores, t_bytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                bound_bf16_ms=1e3 * max(flops / PEAK_BF16_FLOPS,
+                                        2.0 * elems / PEAK_BYTES))
         rows.append(row)
     return rows, err32, err16
 
@@ -273,19 +338,24 @@ def serving_stages(smi: str, exp, model, iters: int = 10):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
+    calls = {e.key: e.count for e in prof.key_averages()}
     return {"phase": "stages", "card": smi, "batch": SERVE_BATCH,
             "iters": iters, "h2d_letterbox_ms": float(med[0]),
             "forward_ms": float(med[1]), "postprocess_ms": float(med[2]),
             "call_wall_ms": float(med[3]),
             "profiled_call_wall_ms": wall, "profiled_device_busy_ms": busy_ms,
+            "batch_norm_calls": calls.get("aten::batch_norm", 0),
+            "silu_calls": (calls.get("aten::silu", 0)
+                           + calls.get("aten::silu_", 0)),
             "top_kernels": [{"name": e.key[:80], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
 
 
 def card_vs_cpu(exp):
-    """One image through the port on the card (kernels) and on the CPU
-    (plain versions), same seeded weights."""
+    """One image through the port on the card (kernels, BN and SiLU fused
+    into their epilogue) and on the CPU (plain versions with the same folded
+    epilogue), same seeded weights."""
     from eop_tpu_torch.data.transforms import letterbox_batch_device
     from eop_tpu_torch.eval.postprocess import postprocess_24p_heads
 
@@ -336,7 +406,7 @@ def main() -> int:
     t0 = time.perf_counter()
     info = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": info})
+          "kernels": info, "sass": sass_summary(_build)})
 
     shapes, err32, err16 = check_phase_conv()
     for row in shapes:
@@ -353,6 +423,10 @@ def main() -> int:
     bound = {"operations": 0.0, "bytes": 0.0}
     for r in main_rows:
         bound[r["bound_by"]] += r["bound_ms"]
+
+    def total(key):
+        return sum(r[key] for r in main_rows)
+
     emit({"kernels": [{
         "name": "phase_conv",
         "route": "cuda",
@@ -361,12 +435,19 @@ def main() -> int:
         "launches": launches["phase_conv"],
         "max_abs_err": err32,
         "max_abs_err_bf16": err16,
-        # per forward at B=8, 640 px: the 8 main-path convs summed
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(r["bound_ms"] for r in main_rows),
+        # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
+        # the conv alone, "ms_fused" with scale, shift and SiLU as served
+        "ms": total("ms"),
+        "ms_fused": total("ms_fused"),
+        "ms_bf16": total("ms_bf16"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
         "bound_by": max(bound, key=bound.get),
-        "library_ms": sum(r["library_ms"] for r in main_rows),
+        "bound_cuda_core_ms": total("bound_cuda_core_ms"),
+        "bound_bf16_ms": total("bound_bf16_ms"),
+        "library_ms": total("library_ms"),
+        "library_fused_ms": total("library_fused_ms"),
+        "variants": {r["name"]: r["variant"] for r in main_rows},
         "card": smi,
     }]})
     emit({"ok": True, "device": device})

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``eop_tpu_torch/_build/`` on first use; the
-file name carries a hash of the source and flags, so an edited source builds
-anew and an unchanged one loads at once.  Nothing is built at import time.
+file name carries a hash of the source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source builds anew and an unchanged one loads at once.
+Nothing is built at import time.
 
 Only the repository's own sources are built: no PyTorch headers, so a build
 takes seconds (``torch.utils.cpp_extension.load`` takes minutes).
@@ -44,10 +45,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    parts = [(SRC_DIR / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh"))]
+    parts.append(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"\0".join(parts)).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -70,7 +71,8 @@ def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
     BUILD_INFO[name] = {
         "seconds": time.perf_counter() - t0,
         "cached": False,
-        "ptxas": [ln.strip() for ln in log.splitlines() if "ptxas" in ln],
+        "ptxas": [ln.strip() for ln in log.splitlines()
+                  if "ptxas" in ln or "spill" in ln],
     }
 
 

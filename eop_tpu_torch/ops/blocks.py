@@ -10,7 +10,10 @@ a JAX export loads with ``strict=True``.
   :func:`eop_tpu_torch.ops.phase_conv.phase_conv`: the Hopper kernel on a
   CUDA tensor, its plain version on a CPU tensor.  Activations are NCHW
   tensors in channels_last memory, so ``x.permute(0, 2, 3, 1)`` is the
-  kernel's contiguous NHWC input at no cost.
+  kernel's contiguous NHWC input at no cost.  In eval mode without autograd
+  the BatchNorm (folded to ``scale``, ``shift``; the form of
+  ``eop_tpu/utils/model_utils.py::fuse_conv_bn``) and the SiLU go into the
+  kernel's epilogue; in train mode ``bn`` and ``act`` run as modules.
 * ``Focus`` computes the exact 6x6/s2 fold of space-to-depth + 3x3 conv
   (JAX ``_FoldedFocusConv``) while keeping the reference parameter shape
   ``[32, 12, 3, 3]``.
@@ -33,8 +36,10 @@ class BaseConv(nn.Module):
     """Conv2d -> BatchNorm -> SiLU, torch-"same" padding ``(k-1)//2``.
 
     ``phase_conv`` routes the convolution through the ``phase_conv`` kernel.
-    The kernel's HWIO weight is derived from the OIHW parameter once and
-    cached while the module runs without autograd.
+    The kernel's HWIO weight and the folded BatchNorm are derived from the
+    parameters once and cached while the module runs in eval mode without
+    autograd; the caches follow the tensors' versions, so ``load_state_dict``
+    refreshes them.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
@@ -48,6 +53,8 @@ class BaseConv(nn.Module):
         self.phase_conv = phase_conv
         self._hwio_key = None
         self._hwio_cached = None
+        self._bn_key = None
+        self._bn_cached = None
 
     def conv_args(self):
         """(OIHW weight, stride, padding) of the convolution computed."""
@@ -65,11 +72,30 @@ class BaseConv(nn.Module):
             self._hwio_key, self._hwio_cached = key, args
         return args
 
+    def _folded_bn(self):
+        """Eval-mode BatchNorm as fp32 (scale, shift):
+        ``scale = gamma / sqrt(running_var + eps)``,
+        ``shift = beta - running_mean * scale``."""
+        bn = self.bn
+        key = tuple((t.data_ptr(), t._version) for t in (
+            bn.weight, bn.bias, bn.running_mean, bn.running_var))
+        if self._bn_key != key:
+            scale = bn.weight.float() * torch.rsqrt(
+                bn.running_var.float() + bn.eps)
+            shift = bn.bias.float() - bn.running_mean.float() * scale
+            self._bn_key = key
+            self._bn_cached = (scale.contiguous(), shift.contiguous())
+        return self._bn_cached
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.phase_conv:
             w, stride, pad = self._hwio_args()
             x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
                 0, 2, 3, 1)
+            if not self.training and not torch.is_grad_enabled():
+                scale, shift = self._folded_bn()
+                return _phase_conv(x_nhwc, w, stride, pad, scale, shift,
+                                   "silu").permute(0, 3, 1, 2)
             y = _phase_conv(x_nhwc, w, stride, pad).permute(0, 3, 1, 2)
         else:
             w, stride, pad = self.conv_args()

@@ -1,25 +1,38 @@
-"""Small-channel NHWC convolution: the Hopper kernel and its plain version.
+"""Small-channel NHWC convolution: the Hopper kernels and their plain version.
 
 Counterpart of ``eop_tpu/ops/pallas/conv_small_c.py`` (the repository's one
 TPU kernel).  ``phase_conv(x_nhwc, w_hwio, stride, padding)`` has the JAX
 signature and support predicate and computes ``lax.conv_general_dilated``
-with symmetric padding:
+with symmetric padding; ``scale``, ``shift`` and ``act`` append a per-channel
+affine (an eval-mode BatchNorm, folded) and SiLU, which XLA fuses on the JAX
+side and the kernels apply in their epilogue:
 
-* a CUDA tensor goes to the hand-written kernel (``csrc/phase_conv.cu``, a
-  direct implicit-GEMM conv over contiguous NHWC) or raises;
+* a CUDA tensor goes to a hand-written kernel or raises.  The variant is
+  chosen from shape and type alone (:func:`kernel_variant`):
+  ``wgmma_taps`` (``csrc/phase_conv.cu``: TMA ring, tensor cores, 1x1 and 3x3
+  convs on multiples of 32 channels), ``wgmma_rows`` (same file: the 6x6/s2
+  stem on 3 channels) or ``direct`` (``csrc/phase_conv_direct.cu``: CUDA
+  cores, any shape the predicate admits).  ``phase_conv.last_variant`` names
+  the one that ran last;
 * a CPU tensor goes to :func:`phase_conv_reference`, which reproduces the
   JAX re-expression step by step — space-to-depth, the scattered phase
   kernel, then a stride-1 convolution — so the CPU tests hold the port's
   phase math to JAX's.
 
-The kernel does not use the phase form: on the card, stride and padding are
-index arithmetic, so it needs no padded or space-to-depth copy.
+The kernels do not use the phase form as a copy: on the card, stride and
+padding are the tensor map's (or index) arithmetic.
+
+fp32 data runs on the TF32 tensor cores at fp32 accuracy by the split
+``a = hi + lo`` (:func:`split_tf32`): three products into fp32 accumulators.
+Weights are split and laid out K-major once per weight tensor and cached
+(:func:`packed_weights`); activations are split in the kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -87,11 +100,121 @@ def out_hw(h: int, w: int, k: int, stride: int, padding: int):
             (w + 2 * padding - k) // stride + 1)
 
 
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``x = hi + lo`` with ``hi = tf32(x)`` and ``lo = tf32(x - hi)``: both
+    fp32 tensors whose low 13 mantissa bits are clear (TF32 keeps 10), rounded
+    to nearest with ties away from zero like ``cvt.rna.tf32.f32``."""
+
+    def rna(v: torch.Tensor) -> torch.Tensor:
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    x = x.float()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+# K order of one run of 32 floats in the packed fp32 weights: position q holds
+# the run's logical index K_ORDER[variant][q].  A wgmma K step j reads
+# positions 8j .. 8j + 7; thread t of a quad feeds positions 8j + t and
+# 8j + t + 4 from its A registers.  wgmma_taps: thread t loads floats
+# 8t .. 8t + 7 of the run (two 16-byte loads) and feeds floats 2j, 2j + 1 of
+# them to step j.  wgmma_rows: thread t loads floats 8j + 2t, 8j + 2t + 1
+# (one 8-byte load) for step j; its runs are consecutive 32s of the flat K.
+K_ORDER = {
+    "wgmma_taps": [8 * (q % 4) + 2 * j + q // 4
+                   for j in range(4) for q in range(8)],
+    "wgmma_rows": [8 * j + 2 * (q % 4) + q // 4
+                   for j in range(4) for q in range(8)],
+}
+
+
+def _pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[k, k, C, Co]`` -> per (tap, run of channels) K-major tiles.
+    fp32: ``[k*k, C/32, 2 (hi, lo), Co, 32]``, K permuted by ``K_ORDER``;
+    bf16: ``[k*k, C/run, Co, run]`` with run 64 when C allows, else 32."""
+    k, _, c, co = w.shape
+    if w.dtype == torch.float32:
+        both = torch.stack(split_tf32(w)).reshape(2, k * k, c // 32, 32, co)
+        both = both[:, :, :, K_ORDER["wgmma_taps"], :]
+        return both.permute(1, 2, 0, 4, 3).contiguous()
+    run = 64 if c % 64 == 0 else 32
+    return w.reshape(k * k, c // run, run, co).permute(0, 1, 3, 2).contiguous()
+
+
+def _pack_rows(w: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[6, 6, 3, 32]`` -> K-major runs over the flat K index
+    ``18 ky + 3 kx + c`` (within one ky, the order an NHWC row has), 108
+    values zero-padded to 128.  fp32: ``[4, 2 (hi, lo), Co, 32]``, each run K
+    permuted by ``K_ORDER``; bf16: ``[2, Co, 64]``."""
+    k, _, c, co = w.shape
+    flat = w.new_zeros((128, co))
+    flat[: k * k * c] = w.reshape(k * k * c, co)
+    if w.dtype != torch.float32:
+        return flat.reshape(2, 64, co).permute(0, 2, 1).contiguous()
+    both = torch.stack(split_tf32(flat)).reshape(2, 4, 32, co)
+    both = both[:, :, K_ORDER["wgmma_rows"], :]
+    return both.permute(1, 0, 3, 2).contiguous()
+
+
+def kernel_variant(x_shape, w_shape, stride: int, padding: int,
+                   dtype: torch.dtype) -> str:
+    """Which hand-written kernel a CUDA tensor of this shape and type takes."""
+    _, _, wd, c = x_shape
+    k, _, _, co = w_shape
+    if k in (1, 3) and c % 32 == 0 and co in (32, 64, 128):
+        return "wgmma_taps"
+    row_bytes = wd * c * (4 if dtype == torch.float32 else 2)
+    if ((k, stride, padding, c, co) == (6, 2, 2, 3, 32)
+            and row_bytes % 16 == 0 and wd <= 1024):
+        return "wgmma_rows"
+    return "direct"
+
+
+_PACKERS = {"wgmma_taps": _pack_taps, "wgmma_rows": _pack_rows}
+# id(w) -> (weak reference to w, its version, packed weights)
+_packed: Dict[int, tuple] = {}
+
+
+def packed_weights(w: torch.Tensor, variant: str) -> torch.Tensor:
+    """The tensor-core layout of HWIO ``w``, made once per weight tensor and
+    kept while that tensor lives and is not written to in place."""
+    version = 0 if w.is_inference() else w._version
+    hit = _packed.get(id(w))
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        return hit[2]
+    out = _PACKERS[variant](w)
+    key = id(w)
+    _packed[key] = (weakref.ref(w, lambda _: _packed.pop(key, None)),
+                    version, out)
+    return out
+
+
+def _check_epilogue(co: int, scale, shift, act, device=None) -> None:
+    if (scale is None) != (shift is None):
+        raise ValueError("scale and shift come together")
+    if act not in (None, "silu"):
+        raise ValueError(f"act must be None or 'silu', got {act!r}")
+    for name, v in (("scale", scale), ("shift", shift)):
+        if v is None:
+            continue
+        if v.dtype != torch.float32 or tuple(v.shape) != (co,):
+            raise ValueError(f"{name} must be float32 [{co}], got "
+                             f"{v.dtype} {tuple(v.shape)}")
+        if device is not None and (v.device != device
+                                   or not v.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous on {device}")
+
+
 def phase_conv_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
-                         padding: int) -> torch.Tensor:
+                         padding: int, scale: Optional[torch.Tensor] = None,
+                         shift: Optional[torch.Tensor] = None,
+                         act: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch version: the JAX phase re-expression, computed in fp32
-    (the kernel's accumulation type) and returned in the input type."""
+    (the kernel's accumulation type), then ``* scale + shift`` and SiLU where
+    given, and returned in the input type."""
     _check_args(x, w, stride, padding)
+    _check_epilogue(w.shape[3], scale, shift, act)
     xf, wf = x.float(), w.float()
     k = w.shape[0]
     if stride == 1:
@@ -102,38 +225,60 @@ def phase_conv_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
         xf, wf = _space_to_depth(xf), _phase_weights(wf, padding)
         pads = (pt, pb, pt, pb)
     x_nchw = F.pad(xf.permute(0, 3, 1, 2), pads)
-    y = F.conv2d(x_nchw, wf.permute(3, 2, 0, 1))
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    y = F.conv2d(x_nchw, wf.permute(3, 2, 0, 1)).permute(0, 2, 3, 1)
+    if scale is not None:
+        y = y * scale + shift
+    if act == "silu":
+        y = F.silu(y)
+    return y.to(x.dtype)
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_fn = None
+_SHAPE_ARGS = [ctypes.c_int] * 10  # B, H, W, C, Co, k, stride, pad, Ho, Wo
+_EPILOGUE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+# C function of each variant: (library, symbol, argument types)
+_SYMBOLS = {
+    "wgmma_taps": ("phase_conv", "phase_conv_taps",
+                   [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
+                   + _SHAPE_ARGS + [ctypes.c_void_p]),
+    "wgmma_rows": ("phase_conv", "phase_conv_rows",
+                   [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "direct": ("phase_conv_direct", "phase_conv_direct",
+               [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
+               + _SHAPE_ARGS + [ctypes.c_void_p]),
+}
+_fns: Dict[str, object] = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
+def _kernel(variant: str):
+    fn = _fns.get(variant)
+    if fn is None:
         from .. import _build
 
-        fn = _build.load("phase_conv").phase_conv_nhwc
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib, symbol, argtypes = _SYMBOLS[variant]
+        fn = getattr(_build.load(lib), symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[variant] = fn
+    return fn
 
 
-def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
-               padding: int) -> torch.Tensor:
+def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+               scale: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None,
+               act: Optional[str] = None) -> torch.Tensor:
     """NHWC x HWIO conv with symmetric ``padding``; semantics of
-    ``lax.conv_general_dilated`` (and of the JAX ``phase_conv``).
+    ``lax.conv_general_dilated`` (and of the JAX ``phase_conv``), then
+    ``* scale + shift`` (fp32 ``[Co]``) and ``act`` (``"silu"``) where given.
 
     Supported: stride 1 with odd k and p=(k-1)//2; stride 2 with odd k and
     p=(k-1)//2 or even k and p=k/2-1, on even H and W.  Anything else
-    raises.  ``phase_conv.launches`` counts kernel launches.
+    raises.  ``phase_conv.launches`` counts kernel launches and
+    ``phase_conv.last_variant`` names the kernel of the last one.
     """
     if x.device.type == "cpu" and w.device.type == "cpu":
-        return phase_conv_reference(x, w, stride, padding)
+        return phase_conv_reference(x, w, stride, padding, scale, shift, act)
     _check_args(x, w, stride, padding)
     if x.device.type != "cuda" or w.device != x.device:
         raise ValueError(f"x and w must share one CUDA device, got "
@@ -147,19 +292,32 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int,
         raise NotImplementedError("phase_conv has no backward kernel yet")
     b, h, wd, c = x.shape
     k, co = w.shape[0], w.shape[3]
+    _check_epilogue(co, scale, shift, act, x.device)
     ho, wo = out_hw(h, wd, k, stride, padding)
     y = torch.empty((b, ho, wo, co), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
+    variant = kernel_variant(x.shape, w.shape, stride, padding, x.dtype)
+    if variant != "direct" and x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned for the bulk copies")
+    epilogue = (scale.data_ptr() if scale is not None else None,
+                shift.data_ptr() if shift is not None else None,
+                1 if act == "silu" else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(_DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(),
-                        y.data_ptr(), b, h, wd, c, co, k, stride, padding,
-                        ho, wo, stream)
+        wp = w if variant == "direct" else packed_weights(w, variant)
+        shape = ((b, h, wd, ho, wo) if variant == "wgmma_rows" else
+                 (b, h, wd, c, co, k, stride, padding, ho, wo))
+        err = _kernel(variant)(_DTYPE_CODES[x.dtype], x.data_ptr(),
+                               wp.data_ptr(), y.data_ptr(), *epilogue, *shape,
+                               stream)
     if err != 0:
-        raise RuntimeError(f"phase_conv kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"phase_conv kernel ({variant}) launch failed: "
+                           f"error {err}")
     phase_conv.launches += 1
+    phase_conv.last_variant = variant
     return y
 
 
 phase_conv.launches = 0
+phase_conv.last_variant = None

@@ -129,3 +129,88 @@ def test_inference_outputs_match_jax(bridged):
     want = jax_inference_outputs(want_heads, reg_dim=26)
     got = inference_outputs(heads, reg_dim=26)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# --- BaseConv with the kernel's fused BN + SiLU epilogue
+
+def _baseconv_pair(cin, cout, k, s, seed):
+    """A JAX BaseConv with non-trivial BN statistics and the port's
+    BaseConv(phase_conv=True) carrying the same parameters."""
+    from eop_tpu.ops.blocks import BaseConv as JaxBaseConv
+    from eop_tpu_torch.ops.blocks import BaseConv
+
+    jmod = JaxBaseConv(cout, k, s)
+    variables = perturbed(jmod.init(jax.random.PRNGKey(seed),
+                                    jnp.zeros((1, 16, 16, cin))), seed)
+    rng = np.random.RandomState(seed)
+    kernel = (rng.randn(k, k, cin, cout) / np.sqrt(k * k * cin)).astype(
+        np.float32)
+    variables["params"]["conv"]["kernel"] = kernel
+    sd = {
+        "conv.weight": torch.from_numpy(kernel.transpose(3, 2, 0, 1).copy()),
+        "bn.weight": torch.from_numpy(variables["params"]["bn"]["scale"]),
+        "bn.bias": torch.from_numpy(variables["params"]["bn"]["bias"]),
+        "bn.running_mean": torch.from_numpy(variables["batch_stats"]["bn"]["mean"]),
+        "bn.running_var": torch.from_numpy(variables["batch_stats"]["bn"]["var"]),
+    }
+    mod = BaseConv(cin, cout, k, s, phase_conv=True)
+    mod.load_state_dict(sd, strict=False)
+    return jmod, variables, mod, sd
+
+
+@pytest.mark.parametrize("cin,cout,k,s", [
+    (32, 32, 3, 1), (64, 32, 1, 1), (32, 64, 3, 2), (4, 8, 3, 1)])
+def test_baseconv_folded_epilogue_equals_unfused_and_jax(cin, cout, k, s):
+    from eop_tpu_torch.ops import blocks
+
+    jmod, variables, mod, _ = _baseconv_pair(cin, cout, k, s, seed=cin + k)
+    x = np.random.RandomState(5).randn(2, 16, 16, cin).astype(np.float32)
+    want = np.asarray(jmod.apply(variables, jnp.asarray(x), False))
+    calls = []
+    real = blocks._phase_conv
+
+    def spy(*args):
+        calls.append(args[4:])
+        return real(*args)
+
+    blocks._phase_conv = spy
+    try:
+        mod.eval()
+        with torch.no_grad():
+            fused = mod(nchw(x))
+        # with autograd on, BN and SiLU stay modules (the unfused path)
+        unfused = mod(nchw(x)).detach()
+    finally:
+        blocks._phase_conv = real
+    assert len(calls) == 2
+    assert calls[0][2] == "silu" and calls[0][0].shape == (cout,)
+    assert calls[1] == ()
+    np.testing.assert_allclose(fused.numpy(), unfused.numpy(), **TOL)
+    np.testing.assert_allclose(fused.permute(0, 2, 3, 1).numpy(), want, **TOL)
+
+
+def test_baseconv_folded_cache_follows_load_state_dict_and_train_mode():
+    _, _, mod, sd = _baseconv_pair(32, 32, 3, 1, seed=1)
+    x = nchw(np.random.RandomState(6).randn(2, 8, 8, 32).astype(np.float32))
+    mod.eval()
+    with torch.no_grad():
+        first = mod(x)
+        assert mod._folded_bn() is mod._folded_bn()     # cached
+        changed = dict(sd)
+        changed["bn.running_mean"] = sd["bn.running_mean"] + 0.5
+        changed["bn.weight"] = sd["bn.weight"] * 1.5
+        mod.load_state_dict(changed, strict=False)
+        second = mod(x)
+        want = mod.act(mod.bn(torch.nn.functional.conv2d(
+            x, mod.conv.weight, None, 1, 1)))
+    assert (first - second).abs().max().item() > 1e-2
+    np.testing.assert_allclose(second.numpy(), want.numpy(), **TOL)
+    # train mode: the BatchNorm module runs (batch statistics, running stats move)
+    mod.train()
+    before = mod.bn.running_mean.clone()
+    seen = []
+    handle = mod.bn.register_forward_hook(lambda *a: seen.append(1))
+    out = mod(x)
+    handle.remove()
+    assert seen == [1] and out.requires_grad
+    assert (mod.bn.running_mean - before).abs().max().item() > 0
