@@ -7,14 +7,26 @@
    count);
 2. builds every CUDA kernel of the port from ``eop_tpu_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it (and the JAX package's test cases), with
-   and without the fused scale + shift + SiLU epilogue, and times kernel,
-   plain version and the PyTorch library calls;
+   shapes the serving path (batch 8) and the training path (batch 32) give
+   it (and the JAX package's test cases), with and without the fused scale +
+   shift + SiLU epilogue, and times kernel, plain version and the PyTorch
+   library calls;
 4. serves the 24p-s detector (depth 0.33, width 0.50, 80 classes, 640 px)
    with seeded random weights behind the threaded HTTP front end, answers
    concurrent raw-body requests and checks every kernel of the path ran;
 5. times the stages of one serving call on the device;
-6. runs one image through the port on the card and on the CPU and compares.
+6. runs one image through the port on the card and on the CPU and compares;
+7. holds the backward kernels of ``phase_conv`` (data and weight gradient)
+   against their plain versions at the main-path shapes, at the training
+   step's batch 32 and at batch 8, and at ragged ones, checks that the
+   weight gradient is the same bits twice, and times them beside the plain
+   versions and ``aten::convolution_backward``;
+8. trains the 24p-s detector for a few steps through ``Trainer24P`` (batch
+   32, 640 px, fp32, seeded weights, one seeded synthetic batch repeated),
+   checks the losses and the kernel launches of every step, and splits the
+   step's device time into forward, loss, backward and optimizer + EMA;
+9. takes one training step's loss, assignment and gradients on the card and
+   on the CPU from one state and compares.
 
 Every phase raises on failure.  Each phase prints one JSON line; the line
 before the last holds the kernels, the last line is the result.  Exits
@@ -24,10 +36,13 @@ non-zero, printing no result, where there is no card or no ``eop_tpu_torch``.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -63,6 +78,22 @@ MAIN_PATH = [
 ]
 SERVE_BATCH = 8
 N_REQUESTS, N_CLIENTS = 32, 16
+# shapes off the tensor-core predicates, odd sizes, parity classes without
+# taps: the backward kernels' ragged cases, batch 3
+RAGGED_BACKWARD = [
+    (3, 1, 1, 12, 20, 32, 33),
+    (3, 2, 1, 16, 12, 48, 64),
+    (5, 1, 2, 9, 11, 32, 32),
+    (6, 2, 2, 12, 10, 3, 32),
+    (1, 2, 0, 8, 6, 16, 24),
+    (3, 2, 1, 26, 38, 32, 32),
+    (3, 1, 1, 5, 7, 70, 130),
+]
+TRAIN_BATCH, TRAIN_GTS = 32, 8
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+# launches of one training step: 8 forward convs, 8 weight gradients, 7 data
+# gradients (the stem's input is the image and takes none)
+STEP_LAUNCHES = {"forward": 8, "wgrad": 8, "dgrad": 7}
 
 
 def emit(obj) -> None:
@@ -126,7 +157,8 @@ def epilogue_inputs(co, seed):
 
 def check_phase_conv():
     """Kernel vs plain version on every shape, fp32 and bf16, with and
-    without the fused epilogue; times at the main-path shapes."""
+    without the fused epilogue; times at the main-path shapes, at the
+    serving batch and at the training step's."""
     import torch.nn.functional as F
 
     from eop_tpu_torch.ops.phase_conv import (
@@ -136,7 +168,8 @@ def check_phase_conv():
     )
 
     cases = ([(f"jax_case_{i}", c, 2) for i, c in enumerate(JAX_CASES)]
-             + [(n, c, SERVE_BATCH) for n, c in MAIN_PATH])
+             + [(n, c, SERVE_BATCH) for n, c in MAIN_PATH]
+             + [(n, c, TRAIN_BATCH) for n, c in MAIN_PATH])
     rows, err32, err16 = [], 0.0, 0.0
     for seed, (name, case, batch) in enumerate(cases):
         k, s, p, h, w, c, co = case
@@ -164,7 +197,8 @@ def check_phase_conv():
                     err16 = max(err16, err)
             row[f"variant_{key}"] = phase_conv.last_variant
         row["variant"] = row["variant_fp32"]
-        if batch == SERVE_BATCH:
+        del got, want
+        if batch in (SERVE_BATCH, TRAIN_BATCH):
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
             x16, wgt16 = x.bfloat16(), wgt.bfloat16()
             x_nchw = x.permute(0, 3, 1, 2)           # channels_last view
@@ -384,6 +418,334 @@ def card_vs_cpu(exp):
     return report
 
 
+def conv_bound(flops: float, n_bytes: float):
+    """(bound ms, what binds): the larger of bytes over the memory rate and
+    the operations at fp32 accuracy, on the CUDA cores or as three TF32
+    products on the tensor cores, whichever is faster."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = min(flops / PEAK_FP32_FLOPS, 3.0 * flops / PEAK_TF32_FLOPS)
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_phase_conv_backward():
+    """dgrad and wgrad against their plain versions on the main-path shapes
+    (at the training step's batch 32, which is what the path gives them, and
+    at batch 8) and ragged ones, fp32 and bf16; wgrad twice, bit-equal; times
+    at the main-path shapes beside the plain versions and
+    ``aten::convolution_backward`` (TF32 off; measured only)."""
+    from eop_tpu_torch.ops.phase_conv import (
+        dgrad_variant,
+        out_hw,
+        phase_conv,
+        phase_conv_dgrad,
+        phase_conv_dgrad_reference,
+        phase_conv_wgrad,
+        phase_conv_wgrad_reference,
+    )
+
+    cases = ([(n, c, TRAIN_BATCH) for n, c in MAIN_PATH]
+             + [(n, c, SERVE_BATCH) for n, c in MAIN_PATH]
+             + [(f"ragged_{i}", c, 3) for i, c in enumerate(RAGGED_BACKWARD)])
+    rows = []
+    worst = {"dgrad": {"fp32": 0.0, "bf16": 0.0},
+             "wgrad": {"fp32": 0.0, "bf16": 0.0}}
+    for seed, (name, case, batch) in enumerate(cases):
+        k, s, p, h, w, c, co = case
+        ho, wo = out_hw(h, w, k, s, p)
+        row = {"name": name, "case": list(case), "batch": batch}
+        for dtype, tol, key in ((torch.float32, FP32_TOL, "fp32"),
+                                (torch.bfloat16, BF16_TOL, "bf16")):
+            x, wgt = conv_inputs(case, batch, dtype, seed)
+            g = torch.Generator(device="cuda").manual_seed(500 + seed)
+            dy = torch.randn((batch, ho, wo, co), generator=g,
+                             device="cuda").to(dtype)
+            dw = phase_conv_wgrad(x, dy, k, s, p)
+            dw2 = phase_conv_wgrad(x, dy, k, s, p)
+            dx = phase_conv_dgrad(dy, wgt, x.shape, s, p)
+            torch.cuda.synchronize()
+            if not torch.equal(dw, dw2):
+                raise AssertionError(f"wgrad {name} {key}: two launches on "
+                                     f"one input differ")
+            for kind, got, want in (
+                    ("wgrad", dw, phase_conv_wgrad_reference(x, dy, k, s, p)),
+                    ("dgrad", dx, phase_conv_dgrad_reference(
+                        dy, wgt, x.shape, s, p))):
+                err = (got.float() - want.float()).abs().max().item()
+                ref = want.float().abs().max().item()
+                row[f"{kind}_max_abs_err_{key}"] = err
+                row[f"{kind}_scale_{key}"] = ref
+                if not err <= tol * max(1.0, ref):
+                    raise AssertionError(
+                        f"{kind} {name} {key}: max abs err {err} > {tol} x "
+                        f"{max(1.0, ref)}")
+                worst[kind][key] = max(worst[kind][key], err)
+            row[f"dgrad_variant_{key}"] = phase_conv.last_dgrad_variant
+        del dw, dw2, dx, got, want
+        if batch in (SERVE_BATCH, TRAIN_BATCH):
+            x, wgt = conv_inputs(case, batch, torch.float32, seed)
+            g = torch.Generator(device="cuda").manual_seed(500 + seed)
+            dy = torch.randn((batch, ho, wo, co), generator=g, device="cuda")
+            x_nchw, dy_nchw = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+            w_oihw = wgt.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+
+            def library(mask):
+                return torch.ops.aten.convolution_backward(
+                    dy_nchw, x_nchw, w_oihw, None, [s, s], [p, p], [1, 1],
+                    False, [0, 0], 1, mask)
+
+            flops = 2.0 * batch * ho * wo * co * k * k * c
+            row["flops"] = flops
+            row["wgrad_ms"] = cuda_ms(lambda: phase_conv_wgrad(x, dy, k, s, p))
+            row["wgrad_plain_ms"] = cuda_ms(
+                lambda: phase_conv_wgrad_reference(x, dy, k, s, p), iters=5,
+                warmup=1)
+            row["wgrad_library_ms"] = cuda_ms(
+                lambda: library([False, True, False]))
+            row["wgrad_bytes"] = 4.0 * (x.numel() + dy.numel() + wgt.numel())
+            row["wgrad_bound_ms"], row["wgrad_bound_by"] = conv_bound(
+                flops, row["wgrad_bytes"])
+            # the stem's input is the image: no data gradient on the path
+            row["dgrad_on_path"] = name != "stem"
+            row["dgrad_variant"] = dgrad_variant(dy.shape, wgt.shape, s, p,
+                                                 torch.float32)
+            row["dgrad_ms"] = cuda_ms(
+                lambda: phase_conv_dgrad(dy, wgt, x.shape, s, p))
+            row["dgrad_plain_ms"] = cuda_ms(
+                lambda: phase_conv_dgrad_reference(dy, wgt, x.shape, s, p),
+                iters=5, warmup=1)
+            row["dgrad_library_ms"] = cuda_ms(
+                lambda: library([True, False, False]))
+            row["dgrad_bytes"] = 4.0 * (x.numel() + dy.numel() + wgt.numel())
+            row["dgrad_bound_ms"], row["dgrad_bound_by"] = conv_bound(
+                flops, row["dgrad_bytes"])
+        rows.append(row)
+    return rows, worst
+
+
+def training_exp():
+    """24p-s at full width whose loader repeats one seeded synthetic batch
+    that already lies on the card."""
+    from eop_tpu_torch.exp import Exp24P
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    class RepeatLoader:
+        def __init__(self, batch_size):
+            g = torch.Generator(device="cuda").manual_seed(0)
+            self.batch = synthetic_24p_batch(g, batch_size, size=640,
+                                             ngt=TRAIN_GTS)
+
+        def __len__(self):
+            return TRAIN_WARMUP + TRAIN_TIMED
+
+        def __iter__(self):
+            while True:
+                yield (*self.batch, None, None)
+
+    class SmokeTrainExp(Exp24P):
+        def get_data_loader(self, batch_size, is_distributed=False, rank=0,
+                            world_size=1):
+            self.loader = RepeatLoader(batch_size)
+            return self.loader
+
+    exp = SmokeTrainExp()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.50, 80
+    exp.seed = 0
+    exp.max_epoch, exp.L1_epoch = 1, 0
+    exp.ema = True
+    exp.print_interval = 10 ** 9  # no host fetch inside the loop
+    exp.exp_name = "chip_smoke_train"
+    return exp
+
+
+def _launch_counts():
+    from eop_tpu_torch.ops.phase_conv import packed_weights, phase_conv
+
+    return {"forward": phase_conv.launches, "wgrad": phase_conv.wgrad_launches,
+            "dgrad": phase_conv.dgrad_launches,
+            "weight_packs": packed_weights.packs,
+            "dy_copies": phase_conv.dy_copies}
+
+
+def train_main_path(smi: str):
+    """A few steps of ``Trainer24P`` on the card; returns the report and the
+    launch counts of this run."""
+    from eop_tpu_torch.ops.phase_conv import packed_weights, phase_conv
+    from eop_tpu_torch.train.steps import make_train_step_24p
+    from eop_tpu_torch.train.trainer_24p import Trainer24P
+    from eop_tpu_torch.losses import Loss24PConfig
+
+    exp = training_exp()
+    exp.output_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    events, steps = [], []
+
+    def hook(name, metrics=None):
+        if name == "step":
+            steps.append((metrics, _launch_counts()))
+            return
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((name, ev))
+
+    phase_conv.launches = phase_conv.wgrad_launches = 0
+    phase_conv.dgrad_launches = phase_conv.dy_copies = 0
+    packed_weights.packs = 0
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        trainer = Trainer24P(exp, types.SimpleNamespace(
+            batch_size=TRAIN_BATCH, device="cuda"))
+        trainer.hook = hook
+        t0 = time.perf_counter()
+        state = trainer.train()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(exp.output_dir, ignore_errors=True)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n = TRAIN_WARMUP + TRAIN_TIMED
+    if len(steps) != n or state.step != n:
+        raise AssertionError(f"{len(steps)} steps ran, state.step "
+                             f"{state.step}, expected {n}")
+    per_step, prev = [], {k: 0 for k in launches}
+    for _, counts in steps:
+        per_step.append({k: counts[k] - prev[k] for k in counts})
+        prev = counts
+    for i, d in enumerate(per_step):
+        if {k: d[k] for k in STEP_LAUNCHES} != STEP_LAUNCHES:
+            raise AssertionError(f"step {i} launched {d}, expected "
+                                 f"{STEP_LAUNCHES}")
+    host = [{k: v.float().cpu() for k, v in m.items()} for m, _ in steps]
+    losses = [float(m["total_loss"]) for m in host]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+
+    names = ["start", "forward", "loss", "backward", "optimizer"]
+    if [nm for nm, _ in events] != names * n:
+        raise AssertionError("unexpected phase marks")
+    split = []
+    for i in range(TRAIN_WARMUP, n):
+        ev = [e for _, e in events[5 * i: 5 * i + 5]]
+        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)]
+                     + [ev[0].elapsed_time(ev[4])])
+    med = np.median(np.asarray(split), axis=0)
+
+    # one more step under the profiler: device time by kernel name
+    step_fn = make_train_step_24p(
+        Loss24PConfig(num_classes=exp.num_classes), ema_decay=exp.ema_decay)
+    imgs, labels = exp.loader.batch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step_fn(state, imgs, labels)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+
+    def own(fragment):
+        hits = [e for e in kernels if fragment in e.key]
+        return {"count": sum(e.count for e in hits),
+                "ms": sum(e.self_device_time_total for e in hits) / 1e3}
+
+    # "::name<": the port's kernels are templates in an anonymous namespace
+    own_kernels = {f: own(f"::{f}<") for f in (
+        "conv_taps_kernel", "conv_rows_kernel", "wgrad_partial_kernel",
+        "wgrad_reduce_kernel", "dgrad_kernel")}
+    # 8 forward convs and 5 stride-1 data gradients run the tensor-core
+    # kernels, 2 stride-2 data gradients the gather kernel
+    want = {"conv_taps_kernel": 12, "conv_rows_kernel": 1,
+            "wgrad_partial_kernel": 8, "wgrad_reduce_kernel": 8,
+            "dgrad_kernel": 2}
+    if {k: v["count"] for k, v in own_kernels.items()} != want:
+        raise AssertionError(f"profiled kernels {own_kernels}, expected "
+                             f"counts {want}")
+    report = {
+        "phase": "train", "card": smi, "model": "yolox_24p_s",
+        "depth": exp.depth, "width": exp.width,
+        "num_classes": exp.num_classes, "input_size": list(exp.input_size),
+        "batch": TRAIN_BATCH, "gts_per_image": TRAIN_GTS,
+        "steps": n, "warmup_steps": TRAIN_WARMUP,
+        "losses": losses,
+        "num_fg": [float(m["num_fg"]) for m in host],
+        "cand_dropped": [int(m["cand_dropped"]) for m in host],
+        "step_ms": float(med[4]), "forward_ms": float(med[0]),
+        "loss_ms": float(med[1]), "backward_ms": float(med[2]),
+        "optimizer_ema_ms": float(med[3]),
+        "step_ms_all": [r[4] for r in split],
+        "launches_per_step": per_step[-1],
+        "launches": launches,
+        "max_memory_allocated_bytes": peak,
+        "wall_s": wall_s,
+        "profiled_device_busy_ms": busy_ms,
+        "own_kernels": own_kernels,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "ms": e.self_device_time_total / 1e3} for e in top],
+    }
+    return report, launches
+
+
+def train_card_vs_cpu():
+    """Forward, assignment, loss and backward of one batch (B = 2, 640 px)
+    on the card and on the CPU from the same seeded state."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import (
+        DWAState,
+        Loss24PConfig,
+        loss_24p,
+        simota_assign_24p,
+    )
+    from eop_tpu_torch.models.yolox import training_outputs
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    exp = get_exp("yolox_24p_s")
+    config = Loss24PConfig(num_classes=exp.num_classes)
+    imgs, labels = synthetic_24p_batch(torch.Generator().manual_seed(1), 2,
+                                       size=640, ngt=TRAIN_GTS)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = exp.get_model(dev, seed=0).train()
+        heads, _ = model(imgs.to(dev).permute(0, 3, 1, 2))
+        decoded, origin, grids, strides = training_outputs(heads, reg_dim=26)
+        lab = labels.to(dev)
+        with torch.no_grad():
+            d = decoded.float()
+            assign = simota_assign_24p(
+                lab[..., 1:], lab[..., 0], lab.sum(dim=2) > 0, d[..., :26],
+                d[..., 26], d[..., 27:], grids, strides, config)
+        total, _, _ = loss_24p(decoded, origin, lab, grids, strides,
+                               DWAState.init(dev), config)
+        total.backward()
+        out[dev] = (total.item(), assign.fg_mask.cpu(),
+                    assign.matched_gt.cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    same = (torch.equal(out["cuda"][1], out["cpu"][1])
+            and torch.equal(out["cuda"][2], out["cpu"][2]))
+    worst, worst_name = 0.0, None
+    for name, g in out["cpu"][3].items():
+        err = ((out["cuda"][3][name] - g).abs().max()
+               / g.abs().max().clamp(min=1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, name
+    report = {"phase": "train_card_vs_cpu", "batch": 2,
+              "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
+              "loss_rel_err": rel, "loss_tol": 1e-4,
+              "assignment_equal": same,
+              "num_fg": int(out["cpu"][1].sum()),
+              "grad_tensors": len(out["cpu"][3]),
+              "grad_worst_rel_to_max": worst, "grad_worst_tensor": worst_name,
+              "grad_tol": 1e-3}
+    if not (rel <= 1e-4 and same and worst <= 1e-3
+            and report["num_fg"] > 0):
+        raise AssertionError(f"card and CPU disagree: {report}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -418,14 +780,62 @@ def main() -> int:
     emit(serve_report)
     emit(serving_stages(smi, exp, model))
     emit(card_vs_cpu(exp))
+    del model
 
-    main_rows = [r for r in shapes if "ms" in r]
+    back_rows, back_err = check_phase_conv_backward()
+    for row in back_rows:
+        emit({"phase": "phase_conv_backward", "card": smi, **row})
+    train_report, train_launches = train_main_path(smi)
+    emit(train_report)
+    emit(train_card_vs_cpu())
+
+    # the serving path launches the forward at batch 8, the training step
+    # all three kernels at batch 32
+    main_rows = [r for r in shapes if "ms" in r and r["batch"] == SERVE_BATCH]
+    train_rows = [r for r in shapes if "ms" in r and r["batch"] == TRAIN_BATCH]
     bound = {"operations": 0.0, "bytes": 0.0}
     for r in main_rows:
         bound[r["bound_by"]] += r["bound_ms"]
 
-    def total(key):
-        return sum(r[key] for r in main_rows)
+    def total(key, rows_=main_rows):
+        return sum(r[key] for r in rows_)
+
+    def on_path(kind, batch):
+        return [r for r in back_rows if "wgrad_ms" in r and r["batch"] == batch
+                and (kind == "wgrad" or r["dgrad_on_path"])]
+
+    def backward_row(kind, source_note):
+        rows_, rows_b8 = on_path(kind, TRAIN_BATCH), on_path(kind, SERVE_BATCH)
+        by = {"operations": 0.0, "bytes": 0.0}
+        for r in rows_:
+            by[r[f"{kind}_bound_by"]] += r[f"{kind}_bound_ms"]
+        if source_note is None:
+            source_note = {r["name"]: r["dgrad_variant"] for r in rows_}
+        return {
+            "name": f"phase_conv_{kind}",
+            "route": "cuda",
+            "source": "eop_tpu_torch/csrc/phase_conv_backward.cu",
+            # JAX differentiates the conv; the Pallas kernel has no VJP
+            "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
+            "launches": train_launches[kind],
+            "max_abs_err": back_err[kind]["fp32"],
+            "max_abs_err_bf16": back_err[kind]["bf16"],
+            # per training step (B=32, 640 px): the main-path shapes summed
+            "batch": TRAIN_BATCH,
+            "ms": sum(r[f"{kind}_ms"] for r in rows_),
+            "plain_ms": sum(r[f"{kind}_plain_ms"] for r in rows_),
+            "bound_ms": sum(r[f"{kind}_bound_ms"] for r in rows_),
+            "bound_by": max(by, key=by.get),
+            "library_ms": sum(r[f"{kind}_library_ms"] for r in rows_),
+            # the same shapes at B=8
+            "ms_b8": sum(r[f"{kind}_ms"] for r in rows_b8),
+            "plain_ms_b8": sum(r[f"{kind}_plain_ms"] for r in rows_b8),
+            "bound_ms_b8": sum(r[f"{kind}_bound_ms"] for r in rows_b8),
+            "library_ms_b8": sum(r[f"{kind}_library_ms"] for r in rows_b8),
+            "shapes": len(rows_),
+            "note": source_note,
+            "card": smi,
+        }
 
     emit({"kernels": [{
         "name": "phase_conv",
@@ -433,6 +843,7 @@ def main() -> int:
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
         "launches": launches["phase_conv"],
+        "launches_train": train_launches["forward"],
         "max_abs_err": err32,
         "max_abs_err_bf16": err16,
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
@@ -447,9 +858,17 @@ def main() -> int:
         "bound_bf16_ms": total("bound_bf16_ms"),
         "library_ms": total("library_ms"),
         "library_fused_ms": total("library_fused_ms"),
+        # the same 8 convs as the training step's forward launches them
+        # (B=32, no epilogue)
+        "ms_b32": total("ms", train_rows),
+        "plain_ms_b32": total("plain_ms", train_rows),
+        "bound_ms_b32": total("bound_ms", train_rows),
+        "library_ms_b32": total("library_ms", train_rows),
         "variants": {r["name"]: r["variant"] for r in main_rows},
         "card": smi,
-    }]})
+    }, backward_row("dgrad", None),
+        backward_row("wgrad", "partial sums + ordered reduction"),
+    ]})
     emit({"ok": True, "device": device})
     return 0
 

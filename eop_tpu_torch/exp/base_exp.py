@@ -8,6 +8,12 @@ import ast
 
 
 class BaseExp:
+    def __init__(self):
+        self.seed = None
+        self.output_dir = "./eop_outputs"
+        self.print_interval = 100
+        self.eval_interval = 10
+
     def _nms_iters(self):
         """``nms_mode`` -> a ``_suppress`` fixpoint argument: ``"exact"``
         -> the stationarity-checked loop; an int -> that fixed budget;

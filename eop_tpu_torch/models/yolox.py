@@ -1,8 +1,9 @@
 """Top-level YOLOX model (counterpart of ``eop_tpu/models/yolox.py``).
 
 ``forward`` returns ``(head_outs, fpn_outs)``: the raw per-scale head maps
-and the neck's 6-tuple.  Decode and postprocess are functions applied by
-the caller.
+and the neck's 6-tuple.  Decode (:func:`inference_outputs`,
+:func:`training_outputs`) and postprocess are functions applied by the
+caller.
 """
 
 from __future__ import annotations
@@ -71,3 +72,17 @@ def inference_outputs(head_outs: Sequence[torch.Tensor],
         flat.dtype)
     return decode_outputs(flat, grids, strides_flat, reg_dim,
                           apply_sigmoid=True)
+
+
+def training_outputs(head_outs: Sequence[torch.Tensor],
+                     strides: Sequence[int] = (8, 16, 32), reg_dim: int = 4):
+    """Raw per-scale maps -> (decoded ``[B, A, C]`` with decoded regression
+    and logit obj/cls, raw regression ``[B, A, reg_dim]`` for the L1 loss,
+    grids ``[A, 2]``, strides ``[A]``): what the training loss consumes."""
+    flat = flatten_head_outputs(head_outs)
+    grids, strides_flat = make_grids_and_strides(
+        [tuple(o.shape[2:4]) for o in head_outs], strides, flat.device,
+        flat.dtype)
+    decoded = decode_outputs(flat, grids, strides_flat, reg_dim,
+                             apply_sigmoid=False)
+    return decoded, flat[..., :reg_dim], grids, strides_flat

@@ -5,7 +5,9 @@ attribute names (``conv``, ``bn``, ``m.0``, ...) so a reference ``.pth`` or
 a JAX export loads with ``strict=True``.
 
 * BatchNorm uses eps 1e-3 and momentum 0.03, the values the reference stamps
-  on every BN (JAX: ``BN_EPS``, ``BN_MOMENTUM`` in flax's convention).
+  on every BN (JAX: ``BN_EPS``, ``BN_MOMENTUM`` in flax's convention).  In
+  train mode :class:`BatchNorm2d` updates the running variance with the
+  biased batch variance, as flax's ``nn.BatchNorm`` does.
 * ``BaseConv(phase_conv=True)`` computes its convolution through
   :func:`eop_tpu_torch.ops.phase_conv.phase_conv`: the Hopper kernel on a
   CUDA tensor, its plain version on a CPU tensor.  Activations are NCHW
@@ -13,7 +15,12 @@ a JAX export loads with ``strict=True``.
   kernel's contiguous NHWC input at no cost.  In eval mode without autograd
   the BatchNorm (folded to ``scale``, ``shift``; the form of
   ``eop_tpu/utils/model_utils.py::fuse_conv_bn``) and the SiLU go into the
-  kernel's epilogue; in train mode ``bn`` and ``act`` run as modules.
+  kernel's epilogue; in train mode, or with autograd on, ``bn`` and ``act``
+  run as modules and the convolution goes through
+  :class:`eop_tpu_torch.ops.phase_conv.PhaseConvFunction`, whose backward
+  launches the hand-written data- and weight-gradient kernels, so the
+  gradient reaches ``conv.weight`` through the differentiable HWIO
+  permutation (and the Focus fold).
 * ``Focus`` computes the exact 6x6/s2 fold of space-to-depth + 3x3 conv
   (JAX ``_FoldedFocusConv``) while keeping the reference parameter shape
   ``[32, 12, 3, 3]``.
@@ -32,6 +39,86 @@ BN_EPS = 1e-3
 SPP_KERNELS = (5, 9, 13)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode forward updates ``running_var``
+    with the **biased** batch variance (flax's ``nn.BatchNorm``;
+    ``nn.BatchNorm2d`` uses the unbiased one, a factor n/(n-1) per step that
+    compounds into the running statistics, the EMA and eval).  Same
+    parameters, buffers and normalisation as the parent."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        if n <= 1:
+            raise ValueError("batch statistics need more than one value per "
+                             f"channel, got input {tuple(x.shape)}")
+        # F.batch_norm blends momentum * var * n / (n - 1) into a variance
+        # buffer; hand it a scratch one and blend the biased variance
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var, alpha=(n - 1) / n)
+            self.num_batches_tracked += 1
+        return y
+
+
+class _MaxPool1dSame(torch.autograd.Function):
+    """Stride-1 max pool of window ``ksize`` along ``dim`` with ``ksize//2``
+    padding, whose backward splits the gradient **equally across tied
+    maxima** of a window (the JAX ``_maxpool1d`` custom VJP;
+    ``nn.MaxPool2d`` sends it to one position).  Padding never ties."""
+
+    @staticmethod
+    def forward(ctx, x, ksize, dim):
+        pad = ksize // 2
+        n = x.shape[dim]
+        xp = _pad_dim(x, dim, pad, float("-inf"))
+        y = xp.narrow(dim, 0, n)
+        for u in range(1, ksize):
+            y = torch.maximum(y, xp.narrow(dim, u, n))
+        ctx.save_for_backward(x, y)
+        ctx.pool = (ksize, dim)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        ksize, dim = ctx.pool
+        pad = ksize // 2
+        n = x.shape[dim]
+        # ties[w] = #{i in window w : x[i] == y[w]} >= 1; NaN never compares
+        # equal, so padding contributes nothing
+        xp = _pad_dim(x, dim, pad, float("nan"))
+        ties = torch.zeros_like(y)
+        for u in range(ksize):
+            ties = ties + (xp.narrow(dim, u, n) == y).to(y.dtype)
+        gp = _pad_dim(g / ties, dim, pad, 0.0)
+        yp = _pad_dim(y, dim, pad, float("nan"))
+        dx = torch.zeros_like(x)
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        for u in range(ksize):
+            dx = dx + torch.where(x == yp.narrow(dim, u, n),
+                                  gp.narrow(dim, u, n), zero)
+        return dx, None, None
+
+
+def _pad_dim(x: torch.Tensor, dim: int, pad: int, value: float):
+    shape = list(x.shape)
+    shape[dim] = pad
+    edge = x.new_full(shape, value)
+    return torch.cat([edge, x, edge], dim=dim)
+
+
+def maxpool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:
+    """Stride-1 ``ksize x ksize`` max pool of an NCHW tensor with
+    ``ksize//2`` padding, separably: along W, then along H (the order of the
+    JAX ``_maxpool_same``, which decides how tied gradients split)."""
+    return _MaxPool1dSame.apply(_MaxPool1dSame.apply(x, ksize, 3), ksize, 2)
+
+
 class BaseConv(nn.Module):
     """Conv2d -> BatchNorm -> SiLU, torch-"same" padding ``(k-1)//2``.
 
@@ -47,8 +134,7 @@ class BaseConv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                               (ksize - 1) // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_channels, eps=BN_EPS,
-                                 momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU()
         self.phase_conv = phase_conv
         self._hwio_key = None
@@ -64,11 +150,13 @@ class BaseConv(nn.Module):
         """(HWIO weight, stride, padding) for the kernel."""
         p = self.conv.weight
         key = (p.data_ptr(), p._version, p.dtype)
-        if self._hwio_key == key:
+        # the cached tensor carries no graph: only for eval without autograd
+        cacheable = not self.training and not torch.is_grad_enabled()
+        if cacheable and self._hwio_key == key:
             return self._hwio_cached
         w, stride, pad = self.conv_args()
         args = (w.permute(2, 3, 1, 0).contiguous(), stride, pad)
-        if not self.training and not torch.is_grad_enabled():
+        if cacheable:
             self._hwio_key, self._hwio_cached = key, args
         return args
 
@@ -120,9 +208,10 @@ class Bottleneck(nn.Module):
 
 
 class SPPBottleneck(nn.Module):
-    """Spatial pyramid pooling (reference ``SPPBottleneck``).  Forward
-    values equal the JAX separable pools with ``k//2`` padding; the JAX
-    tie-splitting backward is not needed for serving."""
+    """Spatial pyramid pooling (reference ``SPPBottleneck``).  Without
+    autograd the pools are ``nn.MaxPool2d``; with it they are
+    :func:`maxpool_same`, the same values with the JAX backward that splits
+    the gradient equally across tied maxima."""
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -134,7 +223,11 @@ class SPPBottleneck(nn.Module):
 
     def forward(self, x):
         x = self.conv1(x)
-        return self.conv2(torch.cat([x] + [m(x) for m in self.m], dim=1))
+        if torch.is_grad_enabled() and x.requires_grad:
+            pools = [maxpool_same(x, m.kernel_size) for m in self.m]
+        else:
+            pools = [m(x) for m in self.m]
+        return self.conv2(torch.cat([x] + pools, dim=1))
 
 
 class CSPLayer(nn.Module):

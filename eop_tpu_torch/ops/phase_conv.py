@@ -22,6 +22,17 @@ side and the kernels apply in their epilogue:
 The kernels do not use the phase form as a copy: on the card, stride and
 padding are the tensor map's (or index) arithmetic.
 
+With autograd on, ``phase_conv`` goes through :class:`PhaseConvFunction`,
+whose backward launches hand-written kernels too (JAX differentiates
+``lax.conv_general_dilated`` there and XLA supplies the gradients):
+:func:`phase_conv_wgrad` (``csrc/phase_conv_backward.cu``: partial sums per
+block, then an ordered reduction, so the result is the same bits on every
+run) and :func:`phase_conv_dgrad` (same file, gather form; a stride-1 data
+gradient whose shape a tensor-core variant takes is instead the forward
+kernel on the flipped, transposed weights).  Each has its plain version,
+:func:`phase_conv_wgrad_reference` and :func:`phase_conv_dgrad_reference`,
+which CPU tensors take.
+
 fp32 data runs on the TF32 tensor cores at fp32 accuracy by the split
 ``a = hi + lo`` (:func:`split_tf32`): three products into fp32 accumulators.
 Weights are split and laid out K-major once per weight tensor and cached
@@ -184,10 +195,14 @@ def packed_weights(w: torch.Tensor, variant: str) -> torch.Tensor:
     if hit is not None and hit[0]() is w and hit[1] == version:
         return hit[2]
     out = _PACKERS[variant](w)
+    packed_weights.packs += 1
     key = id(w)
     _packed[key] = (weakref.ref(w, lambda _: _packed.pop(key, None)),
                     version, out)
     return out
+
+
+packed_weights.packs = 0  # packings made (cache misses)
 
 
 def _check_epilogue(co: int, scale, shift, act, device=None) -> None:
@@ -206,16 +221,22 @@ def _check_epilogue(co: int, scale, shift, act, device=None) -> None:
             raise ValueError(f"{name} must be contiguous on {device}")
 
 
+def _compute_type(x: torch.Tensor) -> torch.dtype:
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def phase_conv_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
                          padding: int, scale: Optional[torch.Tensor] = None,
                          shift: Optional[torch.Tensor] = None,
                          act: Optional[str] = None) -> torch.Tensor:
     """Plain PyTorch version: the JAX phase re-expression, computed in fp32
-    (the kernel's accumulation type), then ``* scale + shift`` and SiLU where
-    given, and returned in the input type."""
+    (the kernel's accumulation type; float64 inputs stay float64), then
+    ``* scale + shift`` and SiLU where given, and returned in the input
+    type."""
     _check_args(x, w, stride, padding)
     _check_epilogue(w.shape[3], scale, shift, act)
-    xf, wf = x.float(), w.float()
+    ct = _compute_type(x)
+    xf, wf = x.to(ct), w.to(ct)
     k = w.shape[0]
     if stride == 1:
         p = (k - 1) // 2
@@ -233,10 +254,57 @@ def phase_conv_reference(x: torch.Tensor, w: torch.Tensor, stride: int,
     return y.to(x.dtype)
 
 
+def phase_conv_wgrad_reference(x: torch.Tensor, dy: torch.Tensor, k: int,
+                               stride: int, padding: int) -> torch.Tensor:
+    """Plain PyTorch weight gradient, from the definition:
+    ``dw[ky,kx,c,co] = sum_{b,ho,wo} x[b, s*ho+ky-p, s*wo+kx-p, c] *
+    dy[b,ho,wo,co]`` with out-of-range ``x`` read as zero; computed in fp32
+    and returned ``[k, k, C, Co]`` in the input type."""
+    b, h, wd, c = x.shape
+    _, ho, wo, co = dy.shape
+    ct = _compute_type(x)
+    # bottom and right may need less than `padding`; more never hurts
+    xp = F.pad(x.to(ct), (0, 0, padding, padding + stride, padding,
+                          padding + stride))
+    g = dy.to(ct).reshape(-1, co)
+    dw = x.new_empty((k, k, c, co), dtype=ct)
+    for ky in range(k):
+        for kx in range(k):
+            win = xp[:, ky: ky + stride * ho: stride,
+                     kx: kx + stride * wo: stride]
+            dw[ky, kx] = win.reshape(-1, c).t() @ g
+    return dw.to(x.dtype)
+
+
+def phase_conv_dgrad_reference(dy: torch.Tensor, w: torch.Tensor, x_shape,
+                               stride: int, padding: int) -> torch.Tensor:
+    """Plain PyTorch data gradient, from the definition: every tap scatters
+    ``dy[b,ho,wo,:] @ w[ky,kx]^T`` to input pixel ``(s*ho+ky-p, s*wo+kx-p)``;
+    computed in fp32 and returned ``x_shape`` in the input type."""
+    b, h, wd, c = x_shape
+    k = w.shape[0]
+    _, ho, wo, co = dy.shape
+    ct = _compute_type(dy)
+    g, wf = dy.to(ct), w.to(ct)
+    dxp = dy.new_zeros((b, h + 2 * padding + stride, wd + 2 * padding + stride,
+                        c), dtype=ct)
+    for ky in range(k):
+        for kx in range(k):
+            dxp[:, ky: ky + stride * ho: stride,
+                kx: kx + stride * wo: stride] += g @ wf[ky, kx].t()
+    return dxp[:, padding: padding + h, padding: padding + wd].to(dy.dtype)
+
+
+def flipped_weights(w: torch.Tensor) -> torch.Tensor:
+    """``w'[ky,kx,co,c] = w[k-1-ky, k-1-kx, c, co]``: the stride-1 data
+    gradient is ``phase_conv(dy, w', 1, padding)``."""
+    return w.flip(0, 1).permute(0, 1, 3, 2).contiguous()
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SHAPE_ARGS = [ctypes.c_int] * 10  # B, H, W, C, Co, k, stride, pad, Ho, Wo
 _EPILOGUE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-# C function of each variant: (library, symbol, argument types)
+# C function of each kernel: (library, symbol, argument types)
 _SYMBOLS = {
     "wgmma_taps": ("phase_conv", "phase_conv_taps",
                    [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
@@ -247,6 +315,14 @@ _SYMBOLS = {
     "direct": ("phase_conv_direct", "phase_conv_direct",
                [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
                + _SHAPE_ARGS + [ctypes.c_void_p]),
+    "wgrad": ("phase_conv_backward", "phase_conv_wgrad",
+              [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
+              + _SHAPE_ARGS + [ctypes.c_void_p]),
+    "wgrad_splits": ("phase_conv_backward", "phase_conv_wgrad_splits",
+                     [ctypes.c_int] * 5),
+    "dgrad": ("phase_conv_backward", "phase_conv_dgrad",
+              [ctypes.c_int] + [ctypes.c_void_p] * 3 + _SHAPE_ARGS
+              + [ctypes.c_void_p]),
 }
 _fns: Dict[str, object] = {}
 
@@ -264,40 +340,27 @@ def _kernel(variant: str):
     return fn
 
 
-def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
-               scale: Optional[torch.Tensor] = None,
-               shift: Optional[torch.Tensor] = None,
-               act: Optional[str] = None) -> torch.Tensor:
-    """NHWC x HWIO conv with symmetric ``padding``; semantics of
-    ``lax.conv_general_dilated`` (and of the JAX ``phase_conv``), then
-    ``* scale + shift`` (fp32 ``[Co]``) and ``act`` (``"silu"``) where given.
+def _check_cuda_pair(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{names} must share one CUDA device, got "
+                         f"{a.device} and {b.device}")
+    if a.dtype not in _DTYPE_CODES or b.dtype != a.dtype:
+        raise ValueError(f"float32 or bfloat16 {names} of one dtype, got "
+                         f"{a.dtype} and {b.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{names} must be contiguous (NHWC, HWIO)")
 
-    Supported: stride 1 with odd k and p=(k-1)//2; stride 2 with odd k and
-    p=(k-1)//2 or even k and p=k/2-1, on even H and W.  Anything else
-    raises.  ``phase_conv.launches`` counts kernel launches and
-    ``phase_conv.last_variant`` names the kernel of the last one.
-    """
-    if x.device.type == "cpu" and w.device.type == "cpu":
-        return phase_conv_reference(x, w, stride, padding, scale, shift, act)
-    _check_args(x, w, stride, padding)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError(f"x and w must share one CUDA device, got "
-                         f"{x.device} and {w.device}")
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
-        raise ValueError(f"float32 or bfloat16 x and w of one dtype, got "
-                         f"{x.dtype} and {w.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x (NHWC) and w (HWIO) must be contiguous")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError("phase_conv has no backward kernel yet")
+
+def _launch_forward(x, w, stride, padding, scale, shift, act):
+    """Launch the forward kernel for checked CUDA arguments; returns
+    (y, variant)."""
     b, h, wd, c = x.shape
     k, co = w.shape[0], w.shape[3]
-    _check_epilogue(co, scale, shift, act, x.device)
     ho, wo = out_hw(h, wd, k, stride, padding)
     y = torch.empty((b, ho, wo, co), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
     variant = kernel_variant(x.shape, w.shape, stride, padding, x.dtype)
+    if y.numel() == 0:
+        return y, variant
     if variant != "direct" and x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned for the bulk copies")
     epilogue = (scale.data_ptr() if scale is not None else None,
@@ -314,10 +377,182 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     if err != 0:
         raise RuntimeError(f"phase_conv kernel ({variant}) launch failed: "
                            f"error {err}")
-    phase_conv.launches += 1
-    phase_conv.last_variant = variant
+    return y, variant
+
+
+def phase_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int,
+                     padding: int) -> torch.Tensor:
+    """Weight gradient ``[k, k, C, Co]`` of ``phase_conv`` for input ``x``
+    ``[B, H, W, C]`` and output gradient ``dy`` ``[B, Ho, Wo, Co]``.  A CPU
+    pair takes the plain version; a CUDA pair launches the kernels or raises.
+    Deterministic: two calls on one input give the same bits.
+    ``phase_conv.wgrad_launches`` counts the launches."""
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return phase_conv_wgrad_reference(x, dy, k, stride, padding)
+    _check_cuda_pair(x, dy, "x and dy")
+    b, h, wd, c = x.shape
+    co = dy.shape[3]
+    if not supported(k, stride, padding):
+        raise ValueError(f"unsupported conv: k={k} stride={stride} "
+                         f"padding={padding}")
+    ho, wo = out_hw(h, wd, k, stride, padding)
+    if tuple(dy.shape) != (b, ho, wo, co):
+        raise ValueError(f"dy {tuple(dy.shape)} is not the output of x "
+                         f"{tuple(x.shape)}: expected {(b, ho, wo, co)}")
+    dw = torch.empty((k, k, c, co), dtype=x.dtype, device=x.device)
+    if dw.numel() == 0:
+        return dw
+    if dy.numel() == 0:
+        return dw.zero_()
+    with torch.cuda.device(x.device):
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        splits = _kernel("wgrad_splits")(c, co, k, b * ho, sms)
+        part = torch.empty((splits, dw.numel()), dtype=torch.float32,
+                           device=x.device)
+        err = _kernel("wgrad")(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            part.data_ptr(), splits, b, h, wd, c, co, k, stride, padding, ho,
+            wo, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"phase_conv_wgrad launch failed: error {err}")
+    phase_conv.wgrad_launches += 1
+    return dw
+
+
+def dgrad_variant(dy_shape, w_shape, stride: int, padding: int,
+                  dtype: torch.dtype) -> str:
+    """Which kernel the data gradient of a CUDA tensor takes: the forward
+    kernel on the flipped weights (``"flipped:<variant>"``) where stride is 1
+    and a tensor-core variant takes that shape, else ``"gather"``."""
+    k, _, c, co = w_shape
+    if stride == 1:
+        fwd = kernel_variant(dy_shape, (k, k, co, c), 1, padding, dtype)
+        if fwd != "direct":
+            return f"flipped:{fwd}"
+    return "gather"
+
+
+def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
+                     padding: int) -> torch.Tensor:
+    """Data gradient ``x_shape`` of ``phase_conv`` for HWIO ``w`` and output
+    gradient ``dy`` ``[B, Ho, Wo, Co]``.  A CPU pair takes the plain version;
+    a CUDA pair launches a kernel or raises.  ``phase_conv.dgrad_launches``
+    counts the launches, ``phase_conv.last_dgrad_variant`` names the kernel."""
+    if dy.device.type == "cpu" and w.device.type == "cpu":
+        return phase_conv_dgrad_reference(dy, w, x_shape, stride, padding)
+    _check_cuda_pair(dy, w, "dy and w")
+    x_shape = tuple(int(v) for v in x_shape)
+    b, h, wd, c = x_shape
+    k, co = w.shape[0], w.shape[3]
+    ho, wo = out_hw(h, wd, k, stride, padding)
+    if not supported(k, stride, padding) or (
+            stride == 2 and (h % 2 or wd % 2)):
+        raise ValueError(f"unsupported conv: k={k} stride={stride} "
+                         f"padding={padding} on {x_shape}")
+    if tuple(dy.shape) != (b, ho, wo, co):
+        raise ValueError(f"dy {tuple(dy.shape)} is not the output of "
+                         f"{x_shape}: expected {(b, ho, wo, co)}")
+    variant = dgrad_variant(dy.shape, w.shape, stride, padding, dy.dtype)
+    if variant != "gather":
+        dx, _ = _launch_forward(dy, flipped_weights(w), 1, padding, None,
+                                None, None)
+    else:
+        dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
+        if dx.numel() == 0:
+            return dx
+        if dy.numel() == 0:
+            return dx.zero_()
+        wt = w.permute(0, 1, 3, 2).contiguous()  # [k, k, Co, C]
+        with torch.cuda.device(dy.device):
+            err = _kernel("dgrad")(
+                _DTYPE_CODES[dy.dtype], dy.data_ptr(), wt.data_ptr(),
+                dx.data_ptr(), b, h, wd, c, co, k, stride, padding, ho, wo,
+                torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"phase_conv_dgrad launch failed: error {err}")
+    phase_conv.dgrad_launches += 1
+    phase_conv.last_dgrad_variant = variant
+    return dx
+
+
+class PhaseConvFunction(torch.autograd.Function):
+    """``phase_conv`` without epilogue, differentiable: forward launches the
+    forward kernel, backward :func:`phase_conv_dgrad` (where ``x`` takes a
+    gradient) and :func:`phase_conv_wgrad` (where ``w`` does).  CPU tensors
+    run the plain versions of all three."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (stride, padding)
+        if x.device.type == "cpu":
+            return phase_conv_reference(x, w, stride, padding)
+        y, variant = _launch_forward(x, w, stride, padding, None, None, None)
+        if y.numel():
+            phase_conv.launches += 1
+            phase_conv.last_variant = variant
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.conv
+        if not dy.is_contiguous():
+            dy = dy.contiguous()
+            phase_conv.dy_copies += 1
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = phase_conv_dgrad(dy, w, x.shape, stride, padding)
+        if ctx.needs_input_grad[1]:
+            dw = phase_conv_wgrad(x, dy, w.shape[0], stride, padding)
+        return dx, dw, None, None
+
+
+def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
+               scale: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None,
+               act: Optional[str] = None) -> torch.Tensor:
+    """NHWC x HWIO conv with symmetric ``padding``; semantics of
+    ``lax.conv_general_dilated`` (and of the JAX ``phase_conv``), then
+    ``* scale + shift`` (fp32 ``[Co]``) and ``act`` (``"silu"``) where given.
+
+    Supported: stride 1 with odd k and p=(k-1)//2; stride 2 with odd k and
+    p=(k-1)//2 or even k and p=k/2-1, on even H and W.  Anything else
+    raises.  Differentiable in ``x`` and ``w`` without the epilogue
+    (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
+
+    Counters: ``phase_conv.launches`` (forward), ``.wgrad_launches``,
+    ``.dgrad_launches``, ``.dy_copies`` (output gradients that arrived
+    non-contiguous and were copied to NHWC); ``.last_variant`` and
+    ``.last_dgrad_variant`` name the kernels of the last launches.
+    """
+    cpu = x.device.type == "cpu" and w.device.type == "cpu"
+    wants_grad = torch.is_grad_enabled() and (x.requires_grad
+                                              or w.requires_grad)
+    no_epilogue = scale is None and shift is None and act is None
+    if cpu and not (wants_grad and no_epilogue):
+        return phase_conv_reference(x, w, stride, padding, scale, shift, act)
+    _check_args(x, w, stride, padding)
+    if not cpu:
+        _check_cuda_pair(x, w, "x and w")
+    if wants_grad:
+        if not no_epilogue:
+            raise NotImplementedError(
+                "the fused scale, shift and act have no backward kernel: "
+                "under autograd call phase_conv without them and apply "
+                "BatchNorm and SiLU as modules")
+        return PhaseConvFunction.apply(x, w, stride, padding)
+    _check_epilogue(w.shape[3], scale, shift, act, x.device)
+    y, variant = _launch_forward(x, w, stride, padding, scale, shift, act)
+    if y.numel():
+        phase_conv.launches += 1
+        phase_conv.last_variant = variant
     return y
 
 
 phase_conv.launches = 0
+phase_conv.wgrad_launches = 0
+phase_conv.dgrad_launches = 0
+phase_conv.dy_copies = 0
 phase_conv.last_variant = None
+phase_conv.last_dgrad_variant = None

@@ -85,3 +85,50 @@ def state_dict_from_jax(variables: Mapping[str, Mapping]
     for prefix in bn_prefixes:
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
     return sd
+
+
+def train_state_from_jax(state: Mapping, model, optimizer):
+    """A JAX ``TrainState`` given as numpy arrays -> the port's
+    ``TrainState`` over ``model`` and ``optimizer`` (both updated in place),
+    so the two packages can start from one state.
+
+    ``state`` keys: ``params``, ``batch_stats`` (flax trees); optional
+    ``momentum`` (the optax trace, a tree shaped like ``params``),
+    ``ema_params``, ``ema_batch_stats``, ``dwa`` (``last_iou``, ``last_obj``,
+    ``last_cls``) and ``step``.  Every tree goes through the rename table of
+    :func:`state_dict_from_jax`, so momentum and EMA kernels take the
+    HWIO -> OIHW transpose too.
+    """
+    from ..losses import DWAState
+    from ..train.steps import TrainState
+
+    model.load_state_dict(state_dict_from_jax(
+        {"params": state["params"], "batch_stats": state["batch_stats"]}),
+        strict=True)
+    device = next(model.parameters()).device
+    params = dict(model.named_parameters())
+
+    def on_device(tree_kind: str, tree):
+        sd = state_dict_from_jax({tree_kind: tree})
+        return {k: v.to(device) for k, v in sd.items()
+                if v.is_floating_point()}
+
+    if state.get("momentum") is not None:
+        bufs = on_device("params", state["momentum"])
+        if set(bufs) != set(params):
+            raise ValueError("momentum tree does not match the parameters")
+        for name, p in params.items():
+            optimizer.state[p]["momentum_buffer"] = bufs[name]
+    ema_params = ema_stats = dwa = None
+    if state.get("ema_params") is not None:
+        ema_params = on_device("params", state["ema_params"])
+    if state.get("ema_batch_stats") is not None:
+        ema_stats = on_device("batch_stats", state["ema_batch_stats"])
+    if state.get("dwa") is not None:
+        dwa = DWAState(**{
+            k: torch.tensor(np.asarray(state["dwa"][k], np.float32),
+                            device=device)
+            for k in ("last_iou", "last_obj", "last_cls")})
+    return TrainState(model=model, optimizer=optimizer,
+                      step=int(state.get("step", 0)), ema_params=ema_params,
+                      ema_batch_stats=ema_stats, dwa=dwa)

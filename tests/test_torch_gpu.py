@@ -170,3 +170,173 @@ def test_model_on_card_matches_cpu(cuda):
                    if getattr(m, "phase_conv", False) is True)
     for g, c in zip(heads["cuda"], heads["cpu"]):
         np.testing.assert_allclose(g.numpy(), c.numpy(), atol=1e-3, rtol=1e-3)
+
+
+# ---- backward kernels (csrc/phase_conv_backward.cu) ----
+
+RAGGED_BACKWARD = [
+    (3, 1, 1, 8, 8, 4, 8),       # narrow channels
+    (3, 1, 1, 12, 20, 32, 33),   # odd Co
+    (3, 2, 1, 16, 12, 48, 64),   # C no multiple of 32
+    (5, 1, 2, 9, 11, 32, 32),
+    (6, 2, 2, 12, 10, 3, 32),
+    (4, 2, 1, 16, 16, 8, 16),
+    (1, 2, 0, 8, 6, 16, 24),     # stride 2 with parity classes no tap reaches
+    (3, 2, 1, 26, 38, 32, 32),   # output rows that are no multiple of a chunk
+    (1, 1, 0, 13, 27, 96, 128),
+    (3, 1, 1, 21, 9, 64, 64),
+    (3, 1, 1, 5, 7, 70, 130),    # several ragged tiles of dw
+]
+
+
+def _grad_case(i, shape, tdt, device, batch=2):
+    k, s, p, h, w, c, co = shape
+    x, wgt, _, _ = _case(i, shape, tdt, device, batch)
+    ho, wo = pc.out_hw(h, w, k, s, p)
+    rng = np.random.RandomState(100 + i)
+    dy = torch.from_numpy(rng.randn(batch, ho, wo, co).astype(np.float32))
+    return x, wgt, dy.to(device, tdt)
+
+
+def _assert_close_scaled(got, want, tol, what):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    bound = tol * max(1.0, want.float().abs().max().item())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= bound, (what, err, bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", SHAPES + RAGGED_BACKWARD)
+def test_backward_kernels_match_plain(cuda, shape, dtype, tol):
+    """dgrad and wgrad against their plain versions; wgrad twice, bit-equal."""
+    tdt = getattr(torch, dtype)
+    k, s, p = shape[:3]
+    for batch in (1, 3):
+        x, wgt, dy = _grad_case(batch, shape, tdt, cuda, batch)
+        before = (pc.phase_conv.dgrad_launches, pc.phase_conv.wgrad_launches)
+        dw = pc.phase_conv_wgrad(x, dy, k, s, p)
+        _assert_close_scaled(
+            dw, pc.phase_conv_wgrad_reference(x, dy, k, s, p), tol,
+            ("wgrad", shape, batch))
+        assert torch.equal(dw, pc.phase_conv_wgrad(x, dy, k, s, p))
+        dx = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p)
+        _assert_close_scaled(
+            dx, pc.phase_conv_dgrad_reference(dy, wgt, x.shape, s, p), tol,
+            ("dgrad", shape, batch, pc.phase_conv.last_dgrad_variant))
+        assert pc.phase_conv.last_dgrad_variant == pc.dgrad_variant(
+            dy.shape, wgt.shape, s, p, tdt)
+        assert (pc.phase_conv.dgrad_launches - before[0],
+                pc.phase_conv.wgrad_launches - before[1]) == (1, 2)
+
+
+@pytest.mark.gpu
+def test_dgrad_variant_of_each_main_path_shape(cuda):
+    """Stride-1 main-path shapes run the forward tensor-core kernel on the
+    flipped weights, stride-2 ones the gather kernel."""
+    for i, shape in enumerate(SHAPES[6:]):
+        x, wgt, dy = _grad_case(i, shape, torch.float32, cuda)
+        pc.phase_conv_dgrad(dy, wgt, x.shape, shape[1], shape[2])
+        want = "gather" if shape[1] == 2 else "flipped:wgmma_taps"
+        assert pc.phase_conv.last_dgrad_variant == want, shape
+
+
+@pytest.mark.gpu
+def test_autograd_function_launches_backward_kernels(cuda):
+    """phase_conv under autograd: gradients of x and w against autograd
+    through the plain version; a stem-like call whose input takes no
+    gradient launches no dgrad; a non-contiguous dy is copied and counted."""
+    shape = (3, 2, 1, 16, 12, 32, 64)
+    x, wgt, dy = _grad_case(0, shape, torch.float32, cuda)
+    xr, wr = x.clone().requires_grad_(), wgt.clone().requires_grad_()
+    want = torch.autograd.grad(
+        pc.phase_conv_reference(xr, wr, 2, 1), (xr, wr), dy)
+    x.requires_grad_()
+    wgt.requires_grad_()
+    c0 = (pc.phase_conv.launches, pc.phase_conv.dgrad_launches,
+          pc.phase_conv.wgrad_launches, pc.phase_conv.dy_copies)
+    y = pc.phase_conv(x, wgt, 2, 1)
+    # hand dy over as a dense NCHW tensor viewed as NHWC: one copy
+    dy_nchw = dy.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    got = torch.autograd.grad(y, (x, wgt), dy_nchw)
+    for g, r, name in zip(got, want, ("dx", "dw")):
+        _assert_close_scaled(g, r, 1e-4, name)
+    c1 = (pc.phase_conv.launches, pc.phase_conv.dgrad_launches,
+          pc.phase_conv.wgrad_launches, pc.phase_conv.dy_copies)
+    assert tuple(b - a for a, b in zip(c0, c1)) == (1, 1, 1, 1)
+    # the image takes no gradient: wgrad only
+    img = x.detach()
+    pc.phase_conv(img, wgt, 2, 1).backward(dy)
+    c2 = (pc.phase_conv.launches, pc.phase_conv.dgrad_launches,
+          pc.phase_conv.wgrad_launches, pc.phase_conv.dy_copies)
+    assert tuple(b - a for a, b in zip(c1, c2)) == (1, 0, 1, 0)
+    with pytest.raises(NotImplementedError):
+        pc.phase_conv(x, wgt, 2, 1, act="silu")
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One training step of a narrow model on the card and on the CPU from
+    one state: loss, assignment-dependent metrics and every gradient."""
+    from eop_tpu_torch.exp import Exp24P
+    from eop_tpu_torch.losses import DWAState, Loss24PConfig, loss_24p
+    from eop_tpu_torch.models.yolox import training_outputs
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    exp = Exp24P()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    imgs, labels = synthetic_24p_batch(
+        torch.Generator().manual_seed(0), 2, size=128, ngt=3, r_lo=8.0,
+        r_hi=30.0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = exp.get_model(dev).train()
+        before = (pc.phase_conv.launches, pc.phase_conv.dgrad_launches,
+                  pc.phase_conv.wgrad_launches)
+        heads, _ = model(imgs.to(dev).permute(0, 3, 1, 2))
+        decoded, origin, grids, strides = training_outputs(heads, reg_dim=26)
+        total, aux, _ = loss_24p(
+            decoded, origin, labels.to(dev), grids, strides,
+            DWAState.init(dev), Loss24PConfig(num_classes=3))
+        total.backward()
+        after = (pc.phase_conv.launches, pc.phase_conv.dgrad_launches,
+                 pc.phase_conv.wgrad_launches)
+        assert tuple(b - a for a, b in zip(before, after)) == (
+            (8, 7, 8) if dev == "cuda" else (0, 0, 0))
+        out[dev] = (total.item(), aux.num_fg_per_gt.item(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    assert out["cuda"][1] == out["cpu"][1]
+    for n, g in out["cpu"][2].items():
+        bound = 1e-3 * max(g.abs().max().item(), 1e-6)
+        assert (out["cuda"][2][n] - g).abs().max().item() <= bound, n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spp_pool_paths_give_equal_values_on_card(cuda, dtype):
+    """SPPBottleneck pools with nn.MaxPool2d without autograd and with
+    maxpool_same under it: the same forward values, bit for bit, on the card
+    (ties, negative values and the -inf padding included) for the pools
+    alone, and within 1e-5 for the whole block."""
+    from eop_tpu_torch.ops.blocks import SPP_KERNELS, SPPBottleneck, maxpool_same
+
+    tdt = getattr(torch, dtype)
+    rng = np.random.RandomState(0)
+    # coarse values force ties; 20 x 20 is the 24p-s map at 640 px
+    x = torch.from_numpy(
+        np.round(rng.randn(2, 16, 20, 20) * 2.0).astype(np.float32) - 3.0)
+    x = x.to(cuda, tdt).contiguous(memory_format=torch.channels_last)
+    for ks in SPP_KERNELS:
+        want = torch.nn.functional.max_pool2d(x, ks, stride=1, padding=ks // 2)
+        got = maxpool_same(x.clone().requires_grad_(), ks)
+        assert got.requires_grad and torch.equal(got.detach(), want), ks
+    block = SPPBottleneck(32, 32).to(cuda).eval()
+    inp = torch.from_numpy(rng.randn(2, 32, 20, 20).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        want = block(inp)
+    got = block(inp.clone().requires_grad_())
+    # the convs around the pools may take another cuDNN algorithm: 1e-5
+    assert got.requires_grad
+    assert (got.detach() - want).abs().max().item() <= 1e-5

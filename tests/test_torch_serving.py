@@ -243,8 +243,10 @@ def test_exp_merge_grammar_and_preset():
     assert exp.test_conf == 0.3 and exp.test_size == (320, 320)
     assert exp.reference_parity is True and exp.num_classes == 3
     assert exp._nms_iters() == 64
+    exp.merge(["max_epoch", "3"])   # a training field, known since the trainer
+    assert exp.max_epoch == 3
     with pytest.raises(KeyError):
-        exp.merge(["max_epoch", "3"])
+        exp.merge(["no_such_field", "3"])
     with pytest.raises(ValueError):
         exp.merge(["test_conf"])
     with pytest.raises(ValueError):
