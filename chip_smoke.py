@@ -16,15 +16,18 @@
    concurrent raw-body requests and checks every kernel of the path ran;
 5. times the stages of one serving call on the device;
 6. runs one image through the port on the card and on the CPU and compares;
-7. holds the backward kernels of ``phase_conv`` (data and weight gradient)
-   against their plain versions at the main-path shapes, at the training
-   step's batch 32 and at batch 8, and at ragged ones, checks that the
-   weight gradient is the same bits twice, and times them beside the plain
-   versions and ``aten::convolution_backward``;
+7. holds the backward kernels of ``phase_conv`` (data and weight gradient,
+   and the data gradients' weight packing) against their plain versions at
+   the main-path shapes, at the training step's batch 32 and at batch 8,
+   and at ragged ones, checks that the main-path shapes run the tensor-core
+   variants and that the weight gradient is the same bits twice, and times
+   them beside the CUDA-core kernels they replaced, the plain versions and
+   ``aten::convolution_backward``;
 8. trains the 24p-s detector for a few steps through ``Trainer24P`` (batch
    32, 640 px, fp32, seeded weights, one seeded synthetic batch repeated),
-   checks the losses and the kernel launches of every step, and splits the
-   step's device time into forward, loss, backward and optimizer + EMA;
+   checks the losses and the kernel launches of every step (and, under the
+   profiler, which kernels ran), and splits the step's device time into
+   forward, loss, backward and optimizer + EMA;
 9. takes one training step's loss, assignment and gradients on the card and
    on the CPU from one state and compares.
 
@@ -92,8 +95,12 @@ RAGGED_BACKWARD = [
 TRAIN_BATCH, TRAIN_GTS = 32, 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 # launches of one training step: 8 forward convs, 8 weight gradients, 7 data
-# gradients (the stem's input is the image and takes none)
-STEP_LAUNCHES = {"forward": 8, "wgrad": 8, "dgrad": 7}
+# gradients (the stem's input is the image and takes none), each data
+# gradient's weight packing
+STEP_LAUNCHES = {"forward": 8, "wgrad": 8, "dgrad": 7, "pack": 7}
+# the tensor-core variant of each main-path gradient (dgrad: stem excluded)
+WGRAD_VARIANT = "wgmma"
+DGRAD_VARIANTS = {1: "flipped:wgmma_taps", 2: "wgmma_classes"}
 
 
 def emit(obj) -> None:
@@ -124,7 +131,7 @@ def conv_inputs(case, batch, dtype, seed):
 def sass_summary(_build):
     """What the built libraries hold, from ``cuobjdump -sass``: counts and one
     sample of the tensor-core (HGMMA), TMA (UTMALDG), bulk-copy (UBLKCP) and
-    mbarrier (SYNCS) instructions.  The tensor-core library must have the
+    mbarrier (SYNCS) instructions.  The tensor-core libraries must have the
     first two."""
     import os
 
@@ -143,8 +150,10 @@ def sass_summary(_build):
             if hits and op != "FFMA":
                 row[f"{op}_sample"] = " ".join(hits[0].split("/*")[1].split()[1:])
         out[name] = row
-    if not (out["phase_conv"]["HGMMA"] and out["phase_conv"]["UTMALDG"]):
-        raise AssertionError(f"no tensor-core or TMA instructions: {out}")
+    for lib in ("phase_conv", "phase_conv_backward_tc"):
+        if not (out[lib]["HGMMA"] and out[lib]["UTMALDG"]):
+            raise AssertionError(f"{lib}: no tensor-core or TMA instructions: "
+                                 f"{out[lib]}")
     return out
 
 
@@ -431,17 +440,26 @@ def conv_bound(flops: float, n_bytes: float):
 def check_phase_conv_backward():
     """dgrad and wgrad against their plain versions on the main-path shapes
     (at the training step's batch 32, which is what the path gives them, and
-    at batch 8) and ragged ones, fp32 and bf16; wgrad twice, bit-equal; times
-    at the main-path shapes beside the plain versions and
-    ``aten::convolution_backward`` (TF32 off; measured only)."""
+    at batch 8) and ragged ones, fp32 and bf16; wgrad twice, bit-equal; the
+    main-path shapes on their tensor-core variants.  Times at the main-path
+    shapes: the tensor-core kernels, the CUDA-core ones they replaced (forced
+    through the wrappers' private ``_cuda_cores``, which nothing on the
+    main path passes), the plain versions and ``aten::convolution_backward`` (TF32
+    off; measured only); the data gradients' weight packing alone against
+    its plain version, bit-equal."""
     from eop_tpu_torch.ops.phase_conv import (
+        dgrad_class_plan,
         dgrad_variant,
+        flip_taps,
         out_hw,
+        pack_taps,
+        pack_taps_reference,
         phase_conv,
         phase_conv_dgrad,
         phase_conv_dgrad_reference,
         phase_conv_wgrad,
         phase_conv_wgrad_reference,
+        wgrad_variant,
     )
 
     cases = ([(n, c, TRAIN_BATCH) for n, c in MAIN_PATH]
@@ -453,6 +471,7 @@ def check_phase_conv_backward():
     for seed, (name, case, batch) in enumerate(cases):
         k, s, p, h, w, c, co = case
         ho, wo = out_hw(h, w, k, s, p)
+        main = not name.startswith("ragged")
         row = {"name": name, "case": list(case), "batch": batch}
         for dtype, tol, key in ((torch.float32, FP32_TOL, "fp32"),
                                 (torch.bfloat16, BF16_TOL, "bf16")):
@@ -462,11 +481,18 @@ def check_phase_conv_backward():
                              device="cuda").to(dtype)
             dw = phase_conv_wgrad(x, dy, k, s, p)
             dw2 = phase_conv_wgrad(x, dy, k, s, p)
+            row[f"wgrad_variant_{key}"] = phase_conv.last_wgrad_variant
             dx = phase_conv_dgrad(dy, wgt, x.shape, s, p)
+            row[f"dgrad_variant_{key}"] = phase_conv.last_dgrad_variant
             torch.cuda.synchronize()
             if not torch.equal(dw, dw2):
                 raise AssertionError(f"wgrad {name} {key}: two launches on "
                                      f"one input differ")
+            if main and (row[f"wgrad_variant_{key}"] != WGRAD_VARIANT or (
+                    name != "stem" and row[f"dgrad_variant_{key}"]
+                    != DGRAD_VARIANTS[s])):
+                raise AssertionError(f"{name} {key}: not on the tensor-core "
+                                     f"variants: {row}")
             for kind, got, want in (
                     ("wgrad", dw, phase_conv_wgrad_reference(x, dy, k, s, p)),
                     ("dgrad", dx, phase_conv_dgrad_reference(
@@ -480,7 +506,6 @@ def check_phase_conv_backward():
                         f"{kind} {name} {key}: max abs err {err} > {tol} x "
                         f"{max(1.0, ref)}")
                 worst[kind][key] = max(worst[kind][key], err)
-            row[f"dgrad_variant_{key}"] = phase_conv.last_dgrad_variant
         del dw, dw2, dx, got, want
         if batch in (SERVE_BATCH, TRAIN_BATCH):
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
@@ -497,7 +522,11 @@ def check_phase_conv_backward():
 
             flops = 2.0 * batch * ho * wo * co * k * k * c
             row["flops"] = flops
+            row["wgrad_variant"] = wgrad_variant(x.shape, co, k, s,
+                                                 torch.float32)
             row["wgrad_ms"] = cuda_ms(lambda: phase_conv_wgrad(x, dy, k, s, p))
+            row["wgrad_cuda_cores_ms"] = cuda_ms(lambda: phase_conv_wgrad(
+                x, dy, k, s, p, _cuda_cores=True))
             row["wgrad_plain_ms"] = cuda_ms(
                 lambda: phase_conv_wgrad_reference(x, dy, k, s, p), iters=5,
                 warmup=1)
@@ -512,6 +541,8 @@ def check_phase_conv_backward():
                                                  torch.float32)
             row["dgrad_ms"] = cuda_ms(
                 lambda: phase_conv_dgrad(dy, wgt, x.shape, s, p))
+            row["dgrad_cuda_cores_ms"] = cuda_ms(lambda: phase_conv_dgrad(
+                dy, wgt, x.shape, s, p, _cuda_cores=True))
             row["dgrad_plain_ms"] = cuda_ms(
                 lambda: phase_conv_dgrad_reference(dy, wgt, x.shape, s, p),
                 iters=5, warmup=1)
@@ -520,6 +551,23 @@ def check_phase_conv_backward():
             row["dgrad_bytes"] = 4.0 * (x.numel() + dy.numel() + wgt.numel())
             row["dgrad_bound_ms"], row["dgrad_bound_by"] = conv_bound(
                 flops, row["dgrad_bytes"])
+            if row["dgrad_on_path"]:
+                # the weight packing of this data gradient, alone
+                taps = (flip_taps(k) if s == 1 else
+                        [ky * k + kx for _, _, ts in dgrad_class_plan(k, p)
+                         for ky, kx, _, _ in ts])
+                got = pack_taps(wgt, taps)
+                want = pack_taps_reference(wgt, taps)
+                row["pack_max_abs_err"] = (got - want).abs().max().item()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"pack_taps {name}: not bit-equal")
+                row["pack_ms"] = cuda_ms(lambda: pack_taps(wgt, taps))
+                row["pack_plain_ms"] = cuda_ms(
+                    lambda: pack_taps_reference(wgt, taps))
+                # read w once, write hi and lo of every packed tap
+                row["pack_bytes"] = 4.0 * wgt.numel() * (1 + 2 * len(taps)
+                                                         / (k * k))
+                row["pack_bound_ms"] = 1e3 * row["pack_bytes"] / PEAK_BYTES
         rows.append(row)
     return rows, worst
 
@@ -564,6 +612,7 @@ def _launch_counts():
 
     return {"forward": phase_conv.launches, "wgrad": phase_conv.wgrad_launches,
             "dgrad": phase_conv.dgrad_launches,
+            "pack": phase_conv.pack_launches,
             "weight_packs": packed_weights.packs,
             "dy_copies": phase_conv.dy_copies}
 
@@ -590,6 +639,7 @@ def train_main_path(smi: str):
 
     phase_conv.launches = phase_conv.wgrad_launches = 0
     phase_conv.dgrad_launches = phase_conv.dy_copies = 0
+    phase_conv.pack_launches = 0
     packed_weights.packs = 0
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -654,13 +704,18 @@ def train_main_path(smi: str):
 
     # "::name<": the port's kernels are templates in an anonymous namespace
     own_kernels = {f: own(f"::{f}<") for f in (
-        "conv_taps_kernel", "conv_rows_kernel", "wgrad_partial_kernel",
-        "wgrad_reduce_kernel", "dgrad_kernel")}
-    # 8 forward convs and 5 stride-1 data gradients run the tensor-core
-    # kernels, 2 stride-2 data gradients the gather kernel
+        "conv_taps_kernel", "conv_rows_kernel", "wgrad_tc_kernel",
+        "wgrad_tc_reduce_kernel", "dgrad_tc_kernel", "pack_taps_kernel",
+        "wgrad_partial_kernel", "wgrad_reduce_kernel", "dgrad_kernel")}
+    # 8 forward convs and 5 stride-1 data gradients run the forward's
+    # tensor-core kernels, the 8 weight gradients and 2 stride-2 data
+    # gradients the backward's, each data gradient packs its weights once;
+    # the CUDA-core backward kernels do not run
     want = {"conv_taps_kernel": 12, "conv_rows_kernel": 1,
-            "wgrad_partial_kernel": 8, "wgrad_reduce_kernel": 8,
-            "dgrad_kernel": 2}
+            "wgrad_tc_kernel": 8, "wgrad_tc_reduce_kernel": 8,
+            "dgrad_tc_kernel": 2, "pack_taps_kernel": 7,
+            "wgrad_partial_kernel": 0, "wgrad_reduce_kernel": 0,
+            "dgrad_kernel": 0}
     if {k: v["count"] for k, v in own_kernels.items()} != want:
         raise AssertionError(f"profiled kernels {own_kernels}, expected "
                              f"counts {want}")
@@ -800,6 +855,9 @@ def main() -> int:
     def total(key, rows_=main_rows):
         return sum(r[key] for r in rows_)
 
+    pack_rows = [r for r in back_rows if "pack_ms" in r
+                 and r["batch"] == TRAIN_BATCH]
+
     def on_path(kind, batch):
         return [r for r in back_rows if "wgrad_ms" in r and r["batch"] == batch
                 and (kind == "wgrad" or r["dgrad_on_path"])]
@@ -809,12 +867,10 @@ def main() -> int:
         by = {"operations": 0.0, "bytes": 0.0}
         for r in rows_:
             by[r[f"{kind}_bound_by"]] += r[f"{kind}_bound_ms"]
-        if source_note is None:
-            source_note = {r["name"]: r["dgrad_variant"] for r in rows_}
         return {
             "name": f"phase_conv_{kind}",
             "route": "cuda",
-            "source": "eop_tpu_torch/csrc/phase_conv_backward.cu",
+            "source": "eop_tpu_torch/csrc/phase_conv_backward_tc.cu",
             # JAX differentiates the conv; the Pallas kernel has no VJP
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches[kind],
@@ -832,7 +888,12 @@ def main() -> int:
             "plain_ms_b8": sum(r[f"{kind}_plain_ms"] for r in rows_b8),
             "bound_ms_b8": sum(r[f"{kind}_bound_ms"] for r in rows_b8),
             "library_ms_b8": sum(r[f"{kind}_library_ms"] for r in rows_b8),
+            # the CUDA-core kernels these replaced, same shapes
+            "cuda_cores_ms": sum(r[f"{kind}_cuda_cores_ms"] for r in rows_),
+            "cuda_cores_ms_b8": sum(r[f"{kind}_cuda_cores_ms"]
+                                    for r in rows_b8),
             "shapes": len(rows_),
+            "variants": {r["name"]: r[f"{kind}_variant"] for r in rows_},
             "note": source_note,
             "card": smi,
         }
@@ -866,8 +927,28 @@ def main() -> int:
         "library_ms_b32": total("library_ms", train_rows),
         "variants": {r["name"]: r["variant"] for r in main_rows},
         "card": smi,
-    }, backward_row("dgrad", None),
-        backward_row("wgrad", "partial sums + ordered reduction"),
+    }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
+                    "stride 1: phase_conv.cu's wgmma_taps on flipped "
+                    "weights; both after one packing launch"),
+        backward_row("wgrad", "tensor cores, split-K partial sums + "
+                     "ordered reduction"),
+        {
+            "name": "phase_conv_pack_taps",
+            "route": "cuda",
+            "source": "eop_tpu_torch/csrc/phase_conv_backward_tc.cu",
+            "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
+            "launches": train_launches["pack"],
+            "max_abs_err": max(r["pack_max_abs_err"] for r in pack_rows),
+            # per training step: the 7 data gradients' packings at B=32
+            "batch": TRAIN_BATCH,
+            "ms": sum(r["pack_ms"] for r in pack_rows),
+            "plain_ms": sum(r["pack_plain_ms"] for r in pack_rows),
+            "bound_ms": sum(r["pack_bound_ms"] for r in pack_rows),
+            "bound_by": "bytes",
+            "library_ms": None,
+            "shapes": len(pack_rows),
+            "card": smi,
+        },
     ]})
     emit({"ok": True, "device": device})
     return 0

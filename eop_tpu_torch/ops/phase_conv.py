@@ -25,13 +25,16 @@ padding are the tensor map's (or index) arithmetic.
 With autograd on, ``phase_conv`` goes through :class:`PhaseConvFunction`,
 whose backward launches hand-written kernels too (JAX differentiates
 ``lax.conv_general_dilated`` there and XLA supplies the gradients):
-:func:`phase_conv_wgrad` (``csrc/phase_conv_backward.cu``: partial sums per
-block, then an ordered reduction, so the result is the same bits on every
-run) and :func:`phase_conv_dgrad` (same file, gather form; a stride-1 data
-gradient whose shape a tensor-core variant takes is instead the forward
-kernel on the flipped, transposed weights).  Each has its plain version,
-:func:`phase_conv_wgrad_reference` and :func:`phase_conv_dgrad_reference`,
-which CPU tensors take.
+:func:`phase_conv_wgrad` and :func:`phase_conv_dgrad`, on the tensor cores
+(``csrc/phase_conv_backward_tc.cu``: the weight gradient split over pixel
+chunks, then an ordered reduction, so the result is the same bits on every
+run; the stride-2 data gradient by parity class; at stride 1 the forward
+kernel on the flipped weights, packed by one kernel launch) where
+:func:`wgrad_variant` / :func:`dgrad_variant` take the shape, else on the
+CUDA cores (``csrc/phase_conv_backward.cu``, variant ``cuda_cores``).  The
+layouts (K order, per-class taps, M tiles, split plan) are decided here, on
+the host.  Each has its plain version, :func:`phase_conv_wgrad_reference`
+and :func:`phase_conv_dgrad_reference`, which CPU tensors take.
 
 fp32 data runs on the TF32 tensor cores at fp32 accuracy by the split
 ``a = hi + lo`` (:func:`split_tf32`): three products into fp32 accumulators.
@@ -144,13 +147,13 @@ def _pack_taps(w: torch.Tensor) -> torch.Tensor:
     """HWIO ``[k, k, C, Co]`` -> per (tap, run of channels) K-major tiles.
     fp32: ``[k*k, C/32, 2 (hi, lo), Co, 32]``, K permuted by ``K_ORDER``;
     bf16: ``[k*k, C/run, Co, run]`` with run 64 when C allows, else 32."""
-    k, _, c, co = w.shape
+    taps, c, co = w.shape[0] * w.shape[1], w.shape[2], w.shape[3]
     if w.dtype == torch.float32:
-        both = torch.stack(split_tf32(w)).reshape(2, k * k, c // 32, 32, co)
+        both = torch.stack(split_tf32(w)).reshape(2, taps, c // 32, 32, co)
         both = both[:, :, :, K_ORDER["wgmma_taps"], :]
         return both.permute(1, 2, 0, 4, 3).contiguous()
     run = 64 if c % 64 == 0 else 32
-    return w.reshape(k * k, c // run, run, co).permute(0, 1, 3, 2).contiguous()
+    return w.reshape(taps, c // run, run, co).permute(0, 1, 3, 2).contiguous()
 
 
 def _pack_rows(w: torch.Tensor) -> torch.Tensor:
@@ -301,9 +304,56 @@ def flipped_weights(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0, 1).permute(0, 1, 3, 2).contiguous()
 
 
+def flip_taps(k: int):
+    """HWIO tap ``ky * k + kx`` of each tap of the flipped weights."""
+    return [k * k - 1 - j for j in range(k * k)]
+
+
+def pack_taps_reference(w: torch.Tensor, src_taps) -> torch.Tensor:
+    """Plain version of the packing kernel: the ``_pack_taps`` layout of the
+    weights ``[len(src_taps), 1, Co, C]`` whose tap ``j`` is
+    ``w[src_taps[j]]`` with its last two axes exchanged.  Then
+    ``pack_taps_reference(w, flip_taps(k)) == _pack_taps(flipped_weights(w))``,
+    and with a parity class's taps it is what the stride-2 data gradient's
+    kernel reads."""
+    k, _, c, co = w.shape
+    taps = w.reshape(k * k, c, co)[list(src_taps)]
+    return _pack_taps(taps.transpose(1, 2).reshape(len(src_taps), 1, co, c))
+
+
+def pack_taps(w: torch.Tensor, src_taps) -> torch.Tensor:
+    """:func:`pack_taps_reference` in one kernel launch for a CUDA ``w``
+    (``phase_conv.pack_launches`` counts them), the plain version for a CPU
+    one."""
+    if w.device.type == "cpu":
+        return pack_taps_reference(w, src_taps)
+    k, _, c, co = w.shape
+    n = len(src_taps)
+    if w.dtype == torch.float32:
+        run, shape = 32, (n, co // 32, 2, c, 32)
+    else:
+        run = 64 if co % 64 == 0 else 32
+        shape = (n, co // run, c, run)
+    if co % 32 or not 0 < n <= 64 or not w.is_contiguous():
+        raise ValueError(f"pack_taps: contiguous w with Co a multiple of 32 "
+                         f"and 1..64 taps, got {tuple(w.shape)}, {n} taps")
+    out = torch.empty(shape, dtype=w.dtype, device=w.device)
+    src = (ctypes.c_int * n)(*src_taps)
+    perm = (ctypes.c_int * 32)(*K_ORDER["wgmma_taps"])
+    with torch.cuda.device(w.device):
+        err = _kernel("pack_taps")(
+            _DTYPE_CODES[w.dtype], w.data_ptr(), out.data_ptr(), src, n, c, co,
+            run, perm, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"phase_conv_pack_taps launch failed: error {err}")
+    phase_conv.pack_launches += 1
+    return out
+
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SHAPE_ARGS = [ctypes.c_int] * 10  # B, H, W, C, Co, k, stride, pad, Ho, Wo
 _EPILOGUE_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+_INTS = ctypes.POINTER(ctypes.c_int)
 # C function of each kernel: (library, symbol, argument types)
 _SYMBOLS = {
     "wgmma_taps": ("phase_conv", "phase_conv_taps",
@@ -323,6 +373,15 @@ _SYMBOLS = {
     "dgrad": ("phase_conv_backward", "phase_conv_dgrad",
               [ctypes.c_int] + [ctypes.c_void_p] * 3 + _SHAPE_ARGS
               + [ctypes.c_void_p]),
+    "wgrad_tc": ("phase_conv_backward_tc", "phase_conv_wgrad_tc",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 + _SHAPE_ARGS + [ctypes.c_void_p]),
+    "dgrad_tc": ("phase_conv_backward_tc", "phase_conv_dgrad_tc",
+                 [ctypes.c_int] + [ctypes.c_void_p] * 3 + [_INTS, _INTS]
+                 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+    "pack_taps": ("phase_conv_backward_tc", "phase_conv_pack_taps",
+                  [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, _INTS]
+                  + [ctypes.c_int] * 4 + [_INTS, ctypes.c_void_p]),
 }
 _fns: Dict[str, object] = {}
 
@@ -351,9 +410,15 @@ def _check_cuda_pair(a: torch.Tensor, b: torch.Tensor, names: str) -> None:
         raise ValueError(f"{names} must be contiguous (NHWC, HWIO)")
 
 
-def _launch_forward(x, w, stride, padding, scale, shift, act):
-    """Launch the forward kernel for checked CUDA arguments; returns
-    (y, variant)."""
+def _check_aligned(*tensors: torch.Tensor) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("tensors must be 16-byte aligned for the bulk copies")
+
+
+def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None):
+    """Launch the forward kernel for checked CUDA arguments, on ``packed``
+    tensor-core weights where given (``w`` then only lends its shape);
+    returns (y, variant)."""
     b, h, wd, c = x.shape
     k, co = w.shape[0], w.shape[3]
     ho, wo = out_hw(h, wd, k, stride, padding)
@@ -361,14 +426,17 @@ def _launch_forward(x, w, stride, padding, scale, shift, act):
     variant = kernel_variant(x.shape, w.shape, stride, padding, x.dtype)
     if y.numel() == 0:
         return y, variant
-    if variant != "direct" and x.data_ptr() % 16:
-        raise ValueError("x must be 16-byte aligned for the bulk copies")
+    if variant != "direct":
+        _check_aligned(x)
     epilogue = (scale.data_ptr() if scale is not None else None,
                 shift.data_ptr() if shift is not None else None,
                 1 if act == "silu" else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        wp = w if variant == "direct" else packed_weights(w, variant)
+        if packed is not None:
+            wp = packed
+        else:
+            wp = w if variant == "direct" else packed_weights(w, variant)
         shape = ((b, h, wd, ho, wo) if variant == "wgmma_rows" else
                  (b, h, wd, c, co, k, stride, padding, ho, wo))
         err = _kernel(variant)(_DTYPE_CODES[x.dtype], x.data_ptr(),
@@ -380,13 +448,71 @@ def _launch_forward(x, w, stride, padding, scale, shift, act):
     return y, variant
 
 
+WGRAD_CHUNK = 32  # output pixels of one chunk of the tensor-core weight gradient
+
+
+def wgrad_tiles(x_shape, co: int, k: int, stride: int,
+                dtype: torch.dtype) -> Optional[Tuple[int, int, bool]]:
+    """M tiling of the tensor-core weight gradient, ``(nky, warpgroups,
+    flat)``: an M tile holds the dw rows of ``nky`` whole ky values (k * C
+    rows each, 64 per warpgroup); ``flat`` stages x as flat row segments (C
+    no multiple of 32).  None where the kernel does not take the shape."""
+    _, _, wd, c = x_shape
+    es = 4 if dtype == torch.float32 else 2
+    if co not in (32, 64, 128):
+        return None
+    if c % 32 == 0:
+        return (1, -(-k * c // 64), False) if k * c <= 192 else None
+    # a staged row segment: the chunk's input pixels from the 16-byte
+    # boundary before the first, at most 256 elements (one bulk copy box)
+    span = stride * (WGRAD_CHUNK - 1) + k
+    box = -(-span * c // (16 // es)) * (16 // es) + 16 // es
+    if (co == 32 and k * k * c <= 128 and box <= 256
+            and wd * c * es % 16 == 0):
+        return k, -(-k * k * c // 64), True
+    return None
+
+
+def wgrad_variant(x_shape, co: int, k: int, stride: int,
+                  dtype: torch.dtype) -> str:
+    """Which kernel the weight gradient of a CUDA tensor takes: ``wgmma``
+    (tensor cores) where :func:`wgrad_tiles` takes the shape, else
+    ``cuda_cores``."""
+    tiles = wgrad_tiles(x_shape, co, k, stride, dtype)
+    return "wgmma" if tiles is not None else "cuda_cores"
+
+
+def wgrad_split_plan(chunks: int, mtiles: int, sms: int,
+                     warpgroups: int) -> Tuple[int, int]:
+    """``(splits, chunks_per_split)``: split ``i`` of an M tile sums chunks
+    ``i * chunks_per_split`` up to the next split's first (the last one to
+    ``chunks``); in all about as many blocks as the card holds at once,
+    ``4 // warpgroups`` a multiprocessor."""
+    target = sms * max(1, 4 // warpgroups)
+    splits = max(1, min(chunks, -(-target // mtiles)))
+    per = -(-chunks // splits)
+    return -(-chunks // per), per
+
+
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def phase_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int,
-                     padding: int) -> torch.Tensor:
+                     padding: int, _cuda_cores: bool = False) -> torch.Tensor:
     """Weight gradient ``[k, k, C, Co]`` of ``phase_conv`` for input ``x``
     ``[B, H, W, C]`` and output gradient ``dy`` ``[B, Ho, Wo, Co]``.  A CPU
-    pair takes the plain version; a CUDA pair launches the kernels or raises.
-    Deterministic: two calls on one input give the same bits.
-    ``phase_conv.wgrad_launches`` counts the launches."""
+    pair takes the plain version; a CUDA pair launches the kernels of
+    :func:`wgrad_variant` or raises (``_cuda_cores`` forces the CUDA-core
+    kernels, for comparisons).  Deterministic: two calls on one
+    input give the same bits.  ``phase_conv.wgrad_launches`` counts the calls,
+    ``phase_conv.last_wgrad_variant`` names the kernel."""
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return phase_conv_wgrad_reference(x, dy, k, stride, padding)
     _check_cuda_pair(x, dy, "x and dy")
@@ -399,45 +525,85 @@ def phase_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int,
     if tuple(dy.shape) != (b, ho, wo, co):
         raise ValueError(f"dy {tuple(dy.shape)} is not the output of x "
                          f"{tuple(x.shape)}: expected {(b, ho, wo, co)}")
+    variant = ("cuda_cores" if _cuda_cores else
+               wgrad_variant(x.shape, co, k, stride, x.dtype))
     dw = torch.empty((k, k, c, co), dtype=x.dtype, device=x.device)
     if dw.numel() == 0:
         return dw
     if dy.numel() == 0:
         return dw.zero_()
     with torch.cuda.device(x.device):
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits = _kernel("wgrad_splits")(c, co, k, b * ho, sms)
-        part = torch.empty((splits, dw.numel()), dtype=torch.float32,
-                           device=x.device)
-        err = _kernel("wgrad")(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            part.data_ptr(), splits, b, h, wd, c, co, k, stride, padding, ho,
-            wo, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "wgmma":
+            nky, wgs, flat = wgrad_tiles(x.shape, co, k, stride, x.dtype)
+            _check_aligned(x, dy)
+            chunks = b * ho * -(-wo // WGRAD_CHUNK)
+            splits, per = wgrad_split_plan(chunks, k // nky,
+                                           _sm_count(x.device), wgs)
+            part = torch.empty((splits, dw.numel()), dtype=torch.float32,
+                               device=x.device)
+            err = _kernel("wgrad_tc")(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), part.data_ptr(), splits, per, nky, wgs,
+                int(flat), b, h, wd, c, co, k, stride, padding, ho, wo, stream)
+        else:
+            splits = _kernel("wgrad_splits")(c, co, k, b * ho,
+                                             _sm_count(x.device))
+            part = torch.empty((splits, dw.numel()), dtype=torch.float32,
+                               device=x.device)
+            err = _kernel("wgrad")(
+                _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), part.data_ptr(), splits, b, h, wd, c, co, k,
+                stride, padding, ho, wo, stream)
     if err != 0:
-        raise RuntimeError(f"phase_conv_wgrad launch failed: error {err}")
+        raise RuntimeError(f"phase_conv_wgrad ({variant}) launch failed: "
+                           f"error {err}")
     phase_conv.wgrad_launches += 1
+    phase_conv.last_wgrad_variant = variant
     return dw
+
+
+def dgrad_class_plan(k: int, padding: int):
+    """The stride-2 data gradient by parity class: ``[(ph, pw, taps), ...]``
+    with ``taps = [(ky, kx, oy, ox), ...]``, the taps reaching input pixels
+    ``(2 h2 + ph, 2 w2 + pw)`` and the output pixel ``(h2 + oy, w2 + ox)``
+    each reads; classes with most taps first (the kernel's tile order), taps
+    in HWIO order (their packed order)."""
+    classes = []
+    for ph in (0, 1):
+        for pw in (0, 1):
+            taps = [(ky, kx, (ph + padding - ky) // 2, (pw + padding - kx) // 2)
+                    for ky in range(k) if (ph + padding - ky) % 2 == 0
+                    for kx in range(k) if (pw + padding - kx) % 2 == 0]
+            classes.append((ph, pw, taps))
+    return sorted(classes, key=lambda cl: -len(cl[2]))
 
 
 def dgrad_variant(dy_shape, w_shape, stride: int, padding: int,
                   dtype: torch.dtype) -> str:
-    """Which kernel the data gradient of a CUDA tensor takes: the forward
-    kernel on the flipped weights (``"flipped:<variant>"``) where stride is 1
-    and a tensor-core variant takes that shape, else ``"gather"``."""
+    """Which kernel the data gradient of a CUDA tensor takes: at stride 1 the
+    forward kernel on the flipped weights (``"flipped:<variant>"``) where a
+    tensor-core variant takes that shape; at stride 2 ``"wgmma_classes"``
+    (1x1 and 3x3, C in 32, 64, 128, Co a multiple of 32); else
+    ``"cuda_cores"``."""
     k, _, c, co = w_shape
     if stride == 1:
         fwd = kernel_variant(dy_shape, (k, k, co, c), 1, padding, dtype)
         if fwd != "direct":
             return f"flipped:{fwd}"
-    return "gather"
+    elif k in (1, 3) and co % 32 == 0 and c in (32, 64, 128):
+        return "wgmma_classes"
+    return "cuda_cores"
 
 
 def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
-                     padding: int) -> torch.Tensor:
+                     padding: int, _cuda_cores: bool = False) -> torch.Tensor:
     """Data gradient ``x_shape`` of ``phase_conv`` for HWIO ``w`` and output
     gradient ``dy`` ``[B, Ho, Wo, Co]``.  A CPU pair takes the plain version;
-    a CUDA pair launches a kernel or raises.  ``phase_conv.dgrad_launches``
-    counts the launches, ``phase_conv.last_dgrad_variant`` names the kernel."""
+    a CUDA pair launches the kernels of :func:`dgrad_variant` or raises
+    (``_cuda_cores`` forces the CUDA-core kernel, for comparisons).  The tensor-core variants first pack the weights in one
+    launch (:func:`pack_taps`).  ``phase_conv.dgrad_launches`` counts the
+    calls, ``phase_conv.last_dgrad_variant`` names the kernel."""
     if dy.device.type == "cpu" and w.device.type == "cpu":
         return phase_conv_dgrad_reference(dy, w, x_shape, stride, padding)
     _check_cuda_pair(dy, w, "dy and w")
@@ -452,24 +618,44 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
     if tuple(dy.shape) != (b, ho, wo, co):
         raise ValueError(f"dy {tuple(dy.shape)} is not the output of "
                          f"{x_shape}: expected {(b, ho, wo, co)}")
-    variant = dgrad_variant(dy.shape, w.shape, stride, padding, dy.dtype)
-    if variant != "gather":
-        dx, _ = _launch_forward(dy, flipped_weights(w), 1, padding, None,
-                                None, None)
+    variant = ("cuda_cores" if _cuda_cores else
+               dgrad_variant(dy.shape, w.shape, stride, padding, dy.dtype))
+    if variant.startswith("flipped:"):
+        wp = pack_taps(w, flip_taps(k))
+        dx, _ = _launch_forward(dy, w.new_empty((k, k, co, c), device="meta"),
+                                1, padding, None, None, None, packed=wp)
     else:
         dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
         if dx.numel() == 0:
             return dx
         if dy.numel() == 0:
             return dx.zero_()
-        wt = w.permute(0, 1, 3, 2).contiguous()  # [k, k, Co, C]
         with torch.cuda.device(dy.device):
-            err = _kernel("dgrad")(
-                _DTYPE_CODES[dy.dtype], dy.data_ptr(), wt.data_ptr(),
-                dx.data_ptr(), b, h, wd, c, co, k, stride, padding, ho, wo,
-                torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant == "wgmma_classes":
+                _check_aligned(dy)
+                plan = dgrad_class_plan(k, padding)
+                taps = [t for _, _, ts in plan for t in ts]
+                wp = pack_taps(w, [ky * k + kx for ky, kx, _, _ in taps])
+                table, first = [], 0
+                for ph, pw, ts in plan:
+                    table += [len(ts), first, ph, pw]
+                    first += len(ts)
+                offsets = [v for _, _, oy, ox in taps for v in (oy, ox)]
+                err = _kernel("dgrad_tc")(
+                    _DTYPE_CODES[dy.dtype], dy.data_ptr(), wp.data_ptr(),
+                    dx.data_ptr(), (ctypes.c_int * 16)(*table),
+                    (ctypes.c_int * len(offsets))(*offsets), len(taps), b, h,
+                    wd, c, co, ho, wo, stream)
+            else:
+                wt = w.permute(0, 1, 3, 2).contiguous()  # [k, k, Co, C]
+                err = _kernel("dgrad")(
+                    _DTYPE_CODES[dy.dtype], dy.data_ptr(), wt.data_ptr(),
+                    dx.data_ptr(), b, h, wd, c, co, k, stride, padding, ho,
+                    wo, stream)
         if err != 0:
-            raise RuntimeError(f"phase_conv_dgrad launch failed: error {err}")
+            raise RuntimeError(f"phase_conv_dgrad ({variant}) launch failed: "
+                               f"error {err}")
     phase_conv.dgrad_launches += 1
     phase_conv.last_dgrad_variant = variant
     return dx
@@ -522,8 +708,9 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
 
     Counters: ``phase_conv.launches`` (forward), ``.wgrad_launches``,
-    ``.dgrad_launches``, ``.dy_copies`` (output gradients that arrived
-    non-contiguous and were copied to NHWC); ``.last_variant`` and
+    ``.dgrad_launches``, ``.pack_launches`` (the data gradients' weight
+    packing), ``.dy_copies`` (output gradients that arrived non-contiguous
+    and were copied to NHWC); ``.last_variant``, ``.last_wgrad_variant`` and
     ``.last_dgrad_variant`` name the kernels of the last launches.
     """
     cpu = x.device.type == "cpu" and w.device.type == "cpu"
@@ -554,5 +741,7 @@ phase_conv.launches = 0
 phase_conv.wgrad_launches = 0
 phase_conv.dgrad_launches = 0
 phase_conv.dy_copies = 0
+phase_conv.pack_launches = 0
 phase_conv.last_variant = None
+phase_conv.last_wgrad_variant = None
 phase_conv.last_dgrad_variant = None

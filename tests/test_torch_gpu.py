@@ -227,19 +227,107 @@ def test_backward_kernels_match_plain(cuda, shape, dtype, tol):
             ("dgrad", shape, batch, pc.phase_conv.last_dgrad_variant))
         assert pc.phase_conv.last_dgrad_variant == pc.dgrad_variant(
             dy.shape, wgt.shape, s, p, tdt)
+        assert pc.phase_conv.last_wgrad_variant == pc.wgrad_variant(
+            x.shape, shape[6], k, s, tdt)
         assert (pc.phase_conv.dgrad_launches - before[0],
                 pc.phase_conv.wgrad_launches - before[1]) == (1, 2)
 
 
 @pytest.mark.gpu
-def test_dgrad_variant_of_each_main_path_shape(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dgrad_variant_of_each_main_path_shape(cuda, dtype):
     """Stride-1 main-path shapes run the forward tensor-core kernel on the
-    flipped weights, stride-2 ones the gather kernel."""
+    flipped weights, packed in one launch; stride-2 ones the parity-class
+    tensor-core kernel, packed in one launch too."""
     for i, shape in enumerate(SHAPES[6:]):
-        x, wgt, dy = _grad_case(i, shape, torch.float32, cuda)
+        x, wgt, dy = _grad_case(i, shape, getattr(torch, dtype), cuda)
+        before = (pc.phase_conv.pack_launches, pc.phase_conv.launches,
+                  pc.phase_conv.dgrad_launches)
         pc.phase_conv_dgrad(dy, wgt, x.shape, shape[1], shape[2])
-        want = "gather" if shape[1] == 2 else "flipped:wgmma_taps"
+        want = "wgmma_classes" if shape[1] == 2 else "flipped:wgmma_taps"
         assert pc.phase_conv.last_dgrad_variant == want, shape
+        after = (pc.phase_conv.pack_launches, pc.phase_conv.launches,
+                 pc.phase_conv.dgrad_launches)
+        # the forward counter counts forward calls only
+        assert tuple(b - a for a, b in zip(before, after)) == (1, 0, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_variant_of_each_main_path_shape(cuda, dtype):
+    for i, shape in enumerate(SHAPES[5:]):
+        x, _, dy = _grad_case(i, shape, getattr(torch, dtype), cuda)
+        pc.phase_conv_wgrad(x, dy, shape[0], shape[1], shape[2])
+        assert pc.phase_conv.last_wgrad_variant == "wgmma", shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", SHAPES[5:])
+def test_cuda_core_backward_still_matches_plain(cuda, shape, dtype, tol):
+    """The CUDA-core kernels, forced on the main-path shapes: they stay
+    the variant of the shapes the tensor-core predicates leave out."""
+    tdt = getattr(torch, dtype)
+    k, s, p = shape[:3]
+    x, wgt, dy = _grad_case(4, shape, tdt, cuda, batch=2)
+    dw = pc.phase_conv_wgrad(x, dy, k, s, p, _cuda_cores=True)
+    assert pc.phase_conv.last_wgrad_variant == "cuda_cores"
+    _assert_close_scaled(dw, pc.phase_conv_wgrad_reference(x, dy, k, s, p),
+                         tol, ("wgrad", shape))
+    if shape[5] != 3:
+        dx = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p, _cuda_cores=True)
+        assert pc.phase_conv.last_dgrad_variant == "cuda_cores"
+        _assert_close_scaled(
+            dx, pc.phase_conv_dgrad_reference(dy, wgt, x.shape, s, p), tol,
+            ("dgrad", shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,c,co", [(1, 64, 32), (1, 32, 32), (3, 32, 32),
+                                    (1, 64, 64), (3, 32, 64), (3, 64, 128),
+                                    (3, 96, 96)])
+def test_pack_kernel_is_bit_equal_to_plain(cuda, k, c, co, dtype):
+    """The packing kernel writes the bytes of ``_pack_taps(flipped_weights(w))``
+    for the flipped taps, and of its plain version for the stride-2 classes'
+    taps."""
+    tdt = getattr(torch, dtype)
+    w = torch.from_numpy((np.random.RandomState(k + c + co).randn(
+        k, k, c, co) * 0.1).astype(np.float32)).to(cuda, tdt)
+    got = pc.pack_taps(w, pc.flip_taps(k))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pc._pack_taps(pc.flipped_weights(w)).cpu())
+    taps = [ky * k + kx for _, _, ts in pc.dgrad_class_plan(k, (k - 1) // 2)
+            for ky, kx, _, _ in ts]
+    got = pc.pack_taps(w, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), pc.pack_taps_reference(w.cpu(), taps))
+
+
+@pytest.mark.gpu
+def test_backward_failed_launch_raises(cuda, monkeypatch):
+    """A C function that reports an error makes the wrapper raise, and so
+    does an input the bulk copies cannot take; nothing falls back."""
+    x, wgt, dy = _grad_case(0, SHAPES[6], torch.float32, cuda)
+    k, s, p = SHAPES[6][:3]
+    # the C side refuses a plan it cannot run (four warpgroups)
+    part = torch.empty((1, wgt.numel()), device=cuda)
+    dw = torch.empty_like(wgt)
+    err = pc._kernel("wgrad_tc")(0, x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+                                 part.data_ptr(), 1, 10 ** 6, 1, 4, 0,
+                                 *x.shape, wgt.shape[3], k, s, p,
+                                 *dy.shape[1:3],
+                                 torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    for name in ("wgrad_tc", "dgrad_tc", "pack_taps"):
+        with monkeypatch.context() as m:
+            m.setitem(pc._fns, name, lambda *a: 1)
+            with pytest.raises(RuntimeError):
+                pc.phase_conv_wgrad(x, dy, k, s, p)
+                pc.phase_conv_dgrad(dy, wgt, x.shape, s, p)
+    with pytest.raises(ValueError):   # 16-byte alignment of the bulk copies
+        xs = torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape)
+        pc.phase_conv_wgrad(xs, dy, k, s, p)
 
 
 @pytest.mark.gpu

@@ -125,13 +125,18 @@ def test_dgrad_variant_follows_the_forward_predicate():
         k, s, p, h, w, c, co = SHAPES[name]
         assert pc.dgrad_variant((8, h, w, co), (k, k, c, co), s, p,
                                 f32) == "flipped:wgmma_taps"
-    # stride 2 and shapes off the predicate -> the gather kernel
-    for name in ("dark2_conv", "dark3_conv", "stem", "ragged_odd_co",
-                 "ragged_k5"):
+    # stride 2 on the main path -> the tensor-core parity-class kernel
+    for name in ("dark2_conv", "dark3_conv"):
         k, s, p, h, w, c, co = SHAPES[name]
         ho, wo = pc.out_hw(h, w, k, s, p)
         assert pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,
-                                f32) == "gather"
+                                f32) == "wgmma_classes"
+    # shapes off the predicates -> the CUDA-core gather kernel
+    for name in ("stem", "ragged_odd_co", "ragged_k5", "ragged_c48"):
+        k, s, p, h, w, c, co = SHAPES[name]
+        ho, wo = pc.out_hw(h, w, k, s, p)
+        assert pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,
+                                f32) == "cuda_cores"
 
 
 def test_autograd_function_on_cpu_tensors_and_counters():
