@@ -29,7 +29,29 @@
    profiler, which kernels ran), and splits the step's device time into
    forward, loss, backward and optimizer + EMA;
 9. takes one training step's loss, assignment and gradients on the card and
-   on the CPU from one state and compares.
+   on the CPU from one state and compares;
+10. writes a seeded synthetic 24p dataset of 720x1280 images (BMP content
+    under ``.jpg`` names, numpy only) and txt labels to a temporary
+    directory;
+11. trains 24p-s from those files through the exp file
+    ``load_train/yolox_24p_train.py`` and the exp's own loader (spawned
+    workers, pinned batches), timing the step and the host's wait for the
+    loader beside the repeated-batch step of 8, and checking the launches
+    of every step;
+12. evaluates the seeded model over the files with ``Evaluator24P`` through
+    ``Exp24P.eval`` (batch 8, fused epilogue on every early conv), and an
+    oracle whose detections are the labels, on the card, which must score
+    AP 1 through the native COCO matcher;
+13. runs the two command lines, ``python -m eop_tpu_torch.tools.train_24p
+    ... --eval`` and ``python -m eop_tpu_torch.tools.eval`` on its
+    checkpoint, and checks each prints an AP line;
+14. drops the training loader with batches in flight a few more times, and
+    checks that no loader worker died in any of the file phases.
+
+``python3 chip_smoke.py --probe-worker-exit`` runs only a probe: the
+training loader dropped with batches in flight with and without its
+workers' exit hook (``data/dataloading.py::WorkerInit``), and the workers
+that died in each.
 
 Every phase raises on failure.  Each phase prints one JSON line; the line
 before the last holds the kernels, the last line is the result.  Exits
@@ -38,7 +60,9 @@ non-zero, printing no result, where there is no card or no ``eop_tpu_torch``.
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -94,6 +118,11 @@ RAGGED_BACKWARD = [
 ]
 TRAIN_BATCH, TRAIN_GTS = 32, 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_EXP_FILE = os.path.join(ROOT, "load_train", "yolox_24p_train.py")
+# the file dataset: raw fisheye-camera frames, BMP content under .jpg names
+DATASET_IMAGES, DATASET_HW = 64, (720, 1280)
+EVAL_BATCH = 8
 # launches of one training step: 8 forward convs, 8 weight gradients, 7 data
 # gradients (the stem's input is the image and takes none), each data
 # gradient's weight packing
@@ -133,13 +162,11 @@ def sass_summary(_build):
     sample of the tensor-core (HGMMA), TMA (UTMALDG), bulk-copy (UBLKCP) and
     mbarrier (SYNCS) instructions.  The tensor-core libraries must have the
     first two."""
-    import os
-
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return None
     out = {}
-    for name in sorted(_build.BUILD_INFO):
+    for name in sorted(n for n in _build.BUILD_INFO if not _build.is_host(n)):
         sass = subprocess.run([tool, "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout.splitlines()
@@ -252,7 +279,7 @@ def check_phase_conv():
 def serving_exp():
     from eop_tpu_torch.exp import get_exp
 
-    exp = get_exp("yolox_24p_s")
+    exp = get_exp(exp_name="yolox_24p_s")
     # seeded random weights score near the squared 0.01 prior (1e-4): a low
     # threshold keeps detections flowing so the NMS does real work
     exp.test_conf = 1e-5
@@ -617,30 +644,34 @@ def _launch_counts():
             "dy_copies": phase_conv.dy_copies}
 
 
-def train_main_path(smi: str):
-    """A few steps of ``Trainer24P`` on the card; returns the report and the
-    launch counts of this run."""
+def _reset_counts():
     from eop_tpu_torch.ops.phase_conv import packed_weights, phase_conv
-    from eop_tpu_torch.train.steps import make_train_step_24p
-    from eop_tpu_torch.train.trainer_24p import Trainer24P
-    from eop_tpu_torch.losses import Loss24PConfig
 
-    exp = training_exp()
-    exp.output_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    phase_conv.launches = phase_conv.wgrad_launches = 0
+    phase_conv.dgrad_launches = phase_conv.dy_copies = 0
+    phase_conv.pack_launches = phase_conv.fused_launches = 0
+    packed_weights.packs = 0
+
+
+def run_trainer(exp):
+    """``Trainer24P(exp, ...).train()`` on the card at batch 32 for
+    ``TRAIN_WARMUP + TRAIN_TIMED`` steps, the counts set to 0 just before
+    it; checks the steps and the launches of every step.  Returns the state,
+    the trainer, the per-step metrics and the timing summary."""
+    from eop_tpu_torch.train.trainer_24p import Trainer24P
+
     events, steps = [], []
 
     def hook(name, metrics=None):
         if name == "step":
-            steps.append((metrics, _launch_counts()))
+            steps.append((metrics, _launch_counts(), time.perf_counter()))
             return
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev))
 
-    phase_conv.launches = phase_conv.wgrad_launches = 0
-    phase_conv.dgrad_launches = phase_conv.dy_copies = 0
-    phase_conv.pack_launches = 0
-    packed_weights.packs = 0
+    exp.output_dir = tempfile.mkdtemp(prefix="chip_smoke_")
+    _reset_counts()
     torch.cuda.reset_peak_memory_stats()
     try:
         trainer = Trainer24P(exp, types.SimpleNamespace(
@@ -660,18 +691,13 @@ def train_main_path(smi: str):
         raise AssertionError(f"{len(steps)} steps ran, state.step "
                              f"{state.step}, expected {n}")
     per_step, prev = [], {k: 0 for k in launches}
-    for _, counts in steps:
+    for _, counts, _ in steps:
         per_step.append({k: counts[k] - prev[k] for k in counts})
         prev = counts
     for i, d in enumerate(per_step):
         if {k: d[k] for k in STEP_LAUNCHES} != STEP_LAUNCHES:
             raise AssertionError(f"step {i} launched {d}, expected "
                                  f"{STEP_LAUNCHES}")
-    host = [{k: v.float().cpu() for k, v in m.items()} for m, _ in steps]
-    losses = [float(m["total_loss"]) for m in host]
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"losses not finite or not falling: {losses}")
-
     names = ["start", "forward", "loss", "backward", "optimizer"]
     if [nm for nm, _ in events] != names * n:
         raise AssertionError("unexpected phase marks")
@@ -681,6 +707,43 @@ def train_main_path(smi: str):
         split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)]
                      + [ev[0].elapsed_time(ev[4])])
     med = np.median(np.asarray(split), axis=0)
+    # the host's clock from one step's end of enqueueing to the next: the
+    # device's pace once the launch queue is full, or the host's where it
+    # (the loader included) is the slower
+    host_ms = [1e3 * (steps[i][2] - steps[i - 1][2])
+               for i in range(TRAIN_WARMUP, n)]
+    host = [{k: v.float().cpu() for k, v in m.items()} for m, _, _ in steps]
+    timing = {
+        "steps": n, "warmup_steps": TRAIN_WARMUP,
+        "losses": [float(m["total_loss"]) for m in host],
+        "num_fg": [float(m["num_fg"]) for m in host],
+        "cand_dropped": [int(m["cand_dropped"]) for m in host],
+        "step_ms": float(med[4]), "forward_ms": float(med[0]),
+        "loss_ms": float(med[1]), "backward_ms": float(med[2]),
+        "optimizer_ema_ms": float(med[3]),
+        "step_ms_all": [r[4] for r in split],
+        "host_step_ms": float(np.median(host_ms)),
+        "host_step_ms_all": host_ms,
+        "images_per_s": 1e3 * TRAIN_BATCH / float(np.median(host_ms)),
+        "launches_per_step": per_step[-1],
+        "launches": launches,
+        "max_memory_allocated_bytes": peak,
+        "wall_s": wall_s,
+    }
+    return state, trainer, timing
+
+
+def train_main_path(smi: str):
+    """A few steps of ``Trainer24P`` on the card over one batch already on
+    the card; returns the report and the launch counts of this run."""
+    from eop_tpu_torch.train.steps import make_train_step_24p
+    from eop_tpu_torch.losses import Loss24PConfig
+
+    exp = training_exp()
+    state, _, timing = run_trainer(exp)
+    losses = timing["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
 
     # one more step under the profiler: device time by kernel name
     step_fn = make_train_step_24p(
@@ -723,25 +786,13 @@ def train_main_path(smi: str):
         "phase": "train", "card": smi, "model": "yolox_24p_s",
         "depth": exp.depth, "width": exp.width,
         "num_classes": exp.num_classes, "input_size": list(exp.input_size),
-        "batch": TRAIN_BATCH, "gts_per_image": TRAIN_GTS,
-        "steps": n, "warmup_steps": TRAIN_WARMUP,
-        "losses": losses,
-        "num_fg": [float(m["num_fg"]) for m in host],
-        "cand_dropped": [int(m["cand_dropped"]) for m in host],
-        "step_ms": float(med[4]), "forward_ms": float(med[0]),
-        "loss_ms": float(med[1]), "backward_ms": float(med[2]),
-        "optimizer_ema_ms": float(med[3]),
-        "step_ms_all": [r[4] for r in split],
-        "launches_per_step": per_step[-1],
-        "launches": launches,
-        "max_memory_allocated_bytes": peak,
-        "wall_s": wall_s,
+        "batch": TRAIN_BATCH, "gts_per_image": TRAIN_GTS, **timing,
         "profiled_device_busy_ms": busy_ms,
         "own_kernels": own_kernels,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in top],
     }
-    return report, launches
+    return report, timing["launches"]
 
 
 def train_card_vs_cpu():
@@ -757,7 +808,7 @@ def train_card_vs_cpu():
     from eop_tpu_torch.models.yolox import training_outputs
     from eop_tpu_torch.utils.synth import synthetic_24p_batch
 
-    exp = get_exp("yolox_24p_s")
+    exp = get_exp(exp_name="yolox_24p_s")
     config = Loss24PConfig(num_classes=exp.num_classes)
     imgs, labels = synthetic_24p_batch(torch.Generator().manual_seed(1), 2,
                                        size=640, ngt=TRAIN_GTS)
@@ -801,6 +852,271 @@ def train_card_vs_cpu():
     return report
 
 
+def write_dataset(root: str):
+    """The seeded synthetic 24p dataset the file phases read
+    (``utils/synth.write_24p_dataset``: BMP content under ``.jpg`` names)."""
+    from eop_tpu_torch.utils.synth import write_24p_dataset
+
+    t0 = time.perf_counter()
+    img_dir, lab_dir = write_24p_dataset(root, DATASET_IMAGES, DATASET_HW)
+    seconds = time.perf_counter() - t0
+    n_bytes = sum(e.stat().st_size for d in (img_dir, lab_dir)
+                  for e in os.scandir(d))
+    report = {"phase": "dataset", "images": DATASET_IMAGES,
+              "height": DATASET_HW[0], "width": DATASET_HW[1],
+              "format": "24-bit BMP under .jpg names", "bytes": n_bytes,
+              "seconds": seconds}
+    return img_dir, lab_dir, report
+
+
+class TimedLoader:
+    """A loader whose iterator records the host's wait for each batch."""
+
+    def __init__(self, loader):
+        self.loader, self.waits = loader, []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it)
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def train_files(smi: str, img_dir: str, lab_dir: str, repeated: dict):
+    """24p-s trained from the files through the exp file and the exp's own
+    loader (workers from the file), at the repeated-batch phase's batch and
+    steps; returns the report and the launch counts of this run."""
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(TRAIN_EXP_FILE)
+    own_loader = exp.get_data_loader
+
+    def timed_loader(*args, **kwargs):
+        exp.timed_loader = TimedLoader(own_loader(*args, **kwargs))
+        return exp.timed_loader
+
+    exp.get_data_loader = timed_loader
+    iters = DATASET_IMAGES // TRAIN_BATCH
+    exp.merge(["max_epoch", str(-(-(TRAIN_WARMUP + TRAIN_TIMED) // iters)),
+               "L1_epoch", "0", "ema", "True", "seed", "0",
+               "data_dir", img_dir, "label_dir", lab_dir,
+               "print_interval", str(10 ** 9), "ckpt_interval", "1000",
+               "exp_name", "chip_smoke_train_files"])
+    state, trainer, timing = run_trainer(exp)
+    if not all(np.isfinite(timing["losses"])):
+        raise AssertionError(f"losses not finite: {timing['losses']}")
+    waits = exp.timed_loader.waits
+    wait_ms = [1e3 * t for t in waits[TRAIN_WARMUP:]]
+    report = {
+        "phase": "train_files", "card": smi, "exp_file":
+        "load_train/yolox_24p_train.py", "depth": exp.depth,
+        "width": exp.width, "num_classes": exp.num_classes,
+        "input_size": list(exp.input_size), "batch": TRAIN_BATCH,
+        "data_num_workers": exp.data_num_workers,
+        "dataset_images": DATASET_IMAGES, "iters_per_epoch":
+        trainer.iters_per_epoch, **timing,
+        "data_wait_ms_median": float(np.median(wait_ms)),
+        "data_wait_ms_max": float(max(wait_ms)),
+        "data_wait_ms_all": wait_ms,
+        "first_batch_wait_s": waits[0],
+        "repeated_batch_step_ms": repeated["step_ms"],
+        "repeated_batch_host_step_ms": repeated["host_step_ms"],
+        "loader_cost_ms": timing["host_step_ms"] - repeated["host_step_ms"],
+    }
+    if exp.data_num_workers != 4 or trainer.iters_per_epoch != iters:
+        raise AssertionError(f"exp file not applied: {report}")
+    del state
+    return report, timing["launches"]
+
+
+def eval_files(smi: str, img_dir: str, lab_dir: str):
+    """``Evaluator24P`` over the files at batch 8 through ``Exp24P.eval``
+    with the seeded 24p-s model, then with the label oracle; returns the
+    report and the launch counts of the model's run."""
+    from eop_tpu_torch.eval import fast_cocoeval
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+    from eop_tpu_torch.utils.synth import LabelOracle
+
+    exp = serving_exp()
+    exp.data_dir, exp.label_dir, exp.data_num_workers = img_dir, lab_dir, 4
+    model = exp.get_model("cuda")
+    evaluator = exp.get_evaluator(EVAL_BATCH)
+    _reset_counts()
+    t0 = time.perf_counter()
+    ap5095, ap50, summary = exp.eval(model, evaluator)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"phase_conv": phase_conv.launches}
+    fused = phase_conv.fused_launches
+    tm = evaluator.timings
+    forwards = tm["batches"] + 1  # the first batch runs twice
+    report = {
+        "phase": "eval", "card": smi, "model": "yolox_24p_s",
+        "test_size": list(exp.test_size), "batch": EVAL_BATCH,
+        "test_conf": exp.test_conf, "data_num_workers": exp.data_num_workers,
+        **tm, "wall_s": wall_s, "images_per_s": tm["images"] / wall_s,
+        "inference_ms_per_batch": 1e3 * tm["inference_s"] / tm["batches"],
+        "data_wait_ms_per_batch": 1e3 * tm["data_wait_s"] / tm["batches"],
+        "data_wait_ms_per_batch_after_first": 1e3 * (
+            tm["data_wait_s"] - tm["first_batch_wait_s"]) / tm["batches"],
+        "images_per_s_after_first_batch": tm["images"] / (
+            wall_s - tm["first_batch_wait_s"]),
+        "detections_per_image": tm["detections"] / tm["images"],
+        "phase_conv_launches": launches["phase_conv"],
+        "phase_conv_launches_per_batch": launches["phase_conv"] / forwards,
+        "phase_conv_fused_launches": fused,
+        "ap50_95": float(ap5095), "ap50": float(ap50),
+        "summary": summary.splitlines(),
+    }
+    if (tm["images"] != DATASET_IMAGES or tm["detections"] == 0
+            or launches["phase_conv"] != 8 * forwards
+            or fused != launches["phase_conv"]):
+        raise AssertionError(f"eval over the files: {report}")
+
+    # the oracle: the labels as detections on the card; no workers, so the
+    # oracle and the loader see one dataset
+    exp.data_num_workers = 0
+    oracle_ev = exp.get_evaluator(EVAL_BATCH)
+    fast_cocoeval.match_image.native_calls = 0
+    o5095, o50, o_summary = oracle_ev.evaluate(
+        LabelOracle(oracle_ev.dataloader.dataset, "cuda"))
+    report.update(oracle_ap50_95=float(o5095), oracle_ap50=float(o50),
+                  oracle_native_matcher_calls=
+                  fast_cocoeval.match_image.native_calls,
+                  oracle_cocoeval_s=oracle_ev.timings["cocoeval_s"])
+    if not (abs(o50 - 1.0) <= 1e-6 and abs(o5095 - 1.0) <= 1e-6
+            and fast_cocoeval.match_image.native_calls > 0):
+        raise AssertionError(f"oracle AP is not 1: {o_summary}")
+    return report, launches
+
+
+def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
+                 exit_hook: bool = True) -> dict:
+    """The exp file's training loader started and dropped with batches in
+    flight, ``drops`` times, as the trainer drops it when training ends.
+    Without ``exit_hook``, the same dataset and batches through a plain
+    spawned, pinned ``DataLoader`` whose workers go through the
+    interpreter's teardown (no ``WorkerInit``)."""
+    from eop_tpu_torch.data.dataloading import worker_init_reset_seed
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(TRAIN_EXP_FILE)
+    exp.merge(["data_dir", img_dir, "label_dir", lab_dir])
+    t0 = time.perf_counter()
+    errors = []
+    for _ in range(drops):
+        loader = exp.get_data_loader(TRAIN_BATCH)
+        if not exit_hook:
+            loader = torch.utils.data.DataLoader(
+                loader.dataset, batch_sampler=loader.batch_sampler,
+                num_workers=loader.num_workers, pin_memory=True,
+                worker_init_fn=worker_init_reset_seed,
+                multiprocessing_context="spawn")
+        try:
+            it = iter(loader)
+            for _ in range(3):
+                next(it)
+            del it
+        except RuntimeError as e:  # a dead worker seen by the loader
+            if exit_hook:
+                raise
+            errors.append(str(e))
+    return {"drops": drops, "data_num_workers": exp.data_num_workers,
+            "drop_seconds": time.perf_counter() - t0, "errors": errors}
+
+
+def run_cli(smi: str, img_dir: str, lab_dir: str):
+    """The two command lines as users run them: train 24p-s for one epoch
+    (2 iterations) with an evaluation, then evaluate its checkpoint."""
+    import re
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    ap_line = re.compile(r"AP50:95\s*=\s*([0-9.]+)\s+AP50\s*=\s*([0-9.]+)")
+    report = {"phase": "cli", "card": smi}
+    try:
+        for name, cmd in (
+                ("train_24p", [
+                    sys.executable, "-m", "eop_tpu_torch.tools.train_24p",
+                    "-f", "load_train/yolox_24p_train.py", "-b",
+                    str(TRAIN_BATCH), "--data-dir", img_dir, "--label-dir",
+                    lab_dir, "--max-epoch", "1", "--eval", "eval_interval",
+                    "1", "output_dir", out]),
+                ("eval", None)):
+            if cmd is None:
+                ckpt_dir = os.path.join(out, "yolox_24p")
+                best = os.path.join(ckpt_dir, "best_ckpt.pth")
+                ckpt = best if os.path.exists(best) else os.path.join(
+                    ckpt_dir, "last_epoch_ckpt.pth")
+                report["eval_ckpt"] = os.path.basename(ckpt)
+                cmd = [sys.executable, "-m", "eop_tpu_torch.tools.eval",
+                       "-f", "load_eval/yolox_24p_eval.py", "-c", ckpt, "-b",
+                       str(EVAL_BATCH), "--data-dir", img_dir, "--label-dir",
+                       lab_dir]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                               timeout=600)
+            report[f"{name}_wall_s"] = time.perf_counter() - t0
+            report[f"{name}_rc"] = r.returncode
+            # loader workers that ended abnormally when the loader stopped
+            report[f"{name}_worker_aborts"] = r.stderr.count(
+                "killed by signal")
+            hits = ap_line.findall(r.stdout + r.stderr)
+            if r.returncode != 0 or not hits:
+                raise AssertionError(
+                    f"{name}: rc {r.returncode}, no AP line\n"
+                    f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+            report[f"{name}_ap50_95"], report[f"{name}_ap50"] = (
+                float(v) for v in hits[-1])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return report
+
+
+def nvidia_smi() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def probe_worker_exit(drops: int = 8) -> int:
+    """``python3 chip_smoke.py --probe-worker-exit``: with a CUDA context in
+    this process, drop the training loader with batches in flight ``drops``
+    times as the port builds it and ``drops`` times without its workers'
+    exit hook, and print the workers that died in each."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    torch.zeros(1, device="cuda")
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    unraisable, default_hook = [], sys.unraisablehook
+    sys.unraisablehook = lambda u: unraisable.append(str(u.exc_value))
+    root = tempfile.mkdtemp(prefix="chip_smoke_probe_")
+    report = {"phase": "probe_worker_exit", "card": smi}
+    try:
+        img_dir, lab_dir, _ = write_dataset(root)
+        for name, exit_hook in (("exit_hook", True), ("teardown", False)):
+            seen = len(unraisable)
+            report[name] = drop_loaders(img_dir, lab_dir, drops, exit_hook)
+            gc.collect()
+            report[name]["workers_died"] = sum(
+                "killed by signal" in u or "exited unexpectedly" in u
+                for u in unraisable[seen:] + report[name]["errors"])
+    finally:
+        sys.unraisablehook = default_hook
+        shutil.rmtree(root, ignore_errors=True)
+    emit(report)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -809,11 +1125,7 @@ def main() -> int:
     from eop_tpu_torch.utils.device import set_fp32_precision
 
     set_fp32_precision(torch.device("cuda"))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -840,9 +1152,53 @@ def main() -> int:
     back_rows, back_err = check_phase_conv_backward()
     for row in back_rows:
         emit({"phase": "phase_conv_backward", "card": smi, **row})
-    train_report, train_launches = train_main_path(smi)
+    train_report, repeat_launches = train_main_path(smi)
     emit(train_report)
     emit(train_card_vs_cpu())
+
+    # a loader that finds a dead worker while it stops raises in __del__,
+    # which reaches sys.unraisablehook: count those of the file phases
+    unraisable, default_hook = [], sys.unraisablehook
+
+    def count_unraisable(u):
+        unraisable.append(str(u.exc_value))
+        default_hook(u)
+
+    data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    sys.unraisablehook = count_unraisable
+    try:
+        img_dir, lab_dir, data_report = write_dataset(data_root)
+        emit({**data_report, "card": smi})
+        files_report, files_launches = train_files(smi, img_dir, lab_dir,
+                                                   train_report)
+        emit(files_report)
+        eval_report, eval_launches = eval_files(smi, img_dir, lab_dir)
+        emit(eval_report)
+        cli_report = run_cli(smi, img_dir, lab_dir)
+        emit(cli_report)
+        drops = drop_loaders(img_dir, lab_dir)
+        gc.collect()
+    finally:
+        sys.unraisablehook = default_hook
+        shutil.rmtree(data_root, ignore_errors=True)
+    died = [u for u in unraisable if "killed by signal" in u]
+    emit({"phase": "loader_shutdown", "card": smi, **drops,
+          "workers_died": len(died),
+          "cli_workers_died": (cli_report["train_24p_worker_aborts"]
+                               + cli_report["eval_worker_aborts"]),
+          "unraisable": unraisable[:5]})
+    if died or cli_report["train_24p_worker_aborts"] or (
+            cli_report["eval_worker_aborts"]):
+        raise AssertionError(f"loader workers died: {died}")
+    # each path's launches, counted from 0 just before it ran: the forward
+    # serves (serve) and evaluates (eval) at batch 8 and trains at batch 32
+    # (train: one batch repeated; train_files: the file loader)
+    by_path = {"serve": launches["phase_conv"],
+               "eval": eval_launches["phase_conv"],
+               "train": repeat_launches["forward"],
+               "train_files": files_launches["forward"]}
+    train_launches = {k: repeat_launches[k] + files_launches[k]
+                      for k in STEP_LAUNCHES}
 
     # the serving path launches the forward at batch 8, the training step
     # all three kernels at batch 32
@@ -874,6 +1230,8 @@ def main() -> int:
             # JAX differentiates the conv; the Pallas kernel has no VJP
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches[kind],
+            "launches_by_path": {"train": repeat_launches[kind],
+                                 "train_files": files_launches[kind]},
             "max_abs_err": back_err[kind]["fp32"],
             "max_abs_err_bf16": back_err[kind]["bf16"],
             # per training step (B=32, 640 px): the main-path shapes summed
@@ -903,8 +1261,9 @@ def main() -> int:
         "route": "cuda",
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
-        "launches": launches["phase_conv"],
+        "launches": by_path["serve"] + by_path["eval"],
         "launches_train": train_launches["forward"],
+        "launches_by_path": by_path,
         "max_abs_err": err32,
         "max_abs_err_bf16": err16,
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
@@ -938,6 +1297,8 @@ def main() -> int:
             "source": "eop_tpu_torch/csrc/phase_conv_backward_tc.cu",
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches["pack"],
+            "launches_by_path": {"train": repeat_launches["pack"],
+                                 "train_files": files_launches["pack"]},
             "max_abs_err": max(r["pack_max_abs_err"] for r in pack_rows),
             # per training step: the 7 data gradients' packings at B=32
             "batch": TRAIN_BATCH,
@@ -955,4 +1316,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
+             else main())

@@ -7,9 +7,11 @@ Scale by ``r = min(H'/h, W'/w)`` (bilinear), paste top-left on a canvas of
 * :func:`letterbox_batch_device` follows ``jax.image.resize(...,
   "bilinear")``, which antialiases when it shrinks an image; torch matches
   it with ``antialias=True`` (without it the two differ by tens of levels).
-* :func:`letterbox_host` replaces ``cv2.resize(INTER_LINEAR)`` for uint8
-  images where OpenCV is not installed: torch bilinear without antialiasing
-  and with rounding, which agrees with cv2 to one level.
+* :func:`resize_host` replaces ``cv2.resize(INTER_LINEAR)`` for uint8
+  images on every machine, OpenCV installed or not: torch bilinear without
+  antialiasing and with rounding, which agrees with cv2 to one level.  The
+  host letterbox, the data pipeline's ``preproc`` and ``fit_resize`` all
+  resize through it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,15 @@ def letterbox_batch_device(imgs: torch.Tensor, src_hw: Tuple[int, int],
     return padded, r
 
 
+def resize_host(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 ``[H, W, C]`` -> uint8 ``[*hw, C]`` on the host, bilinear with
+    half-pixel centers and no antialiasing, rounded to the nearest level
+    (an unchanged size returns the pixels as they are)."""
+    x = torch.from_numpy(np.ascontiguousarray(img)).float()[None]
+    out = _resize_nhwc(x, tuple(hw), antialias=False)[0]
+    return out.round().clamp(0, 255).to(torch.uint8).numpy()
+
+
 def letterbox_host(img: np.ndarray, src_hw: Tuple[int, int]):
     """uint8 HWC image -> (uint8 ``[*src_hw, 3]`` canvas, ratio), on the
     host, without OpenCV."""
@@ -57,7 +68,5 @@ def letterbox_host(img: np.ndarray, src_hw: Tuple[int, int]):
     r = min(src_hw[0] / h, src_hw[1] / w)
     nh, nw = int(h * r), int(w * r)
     canvas = np.full((src_hw[0], src_hw[1], 3), int(PAD_VALUE), np.uint8)
-    x = torch.from_numpy(img.astype(np.float32))[None]
-    resized = _resize_nhwc(x, (nh, nw), antialias=False)[0]
-    canvas[:nh, :nw] = resized.round().clamp(0, 255).to(torch.uint8).numpy()
+    canvas[:nh, :nw] = resize_host(img, (nh, nw))
     return canvas, r

@@ -31,8 +31,16 @@ class BaseExp:
         for k, v in zip(cfg_list[0::2], cfg_list[1::2]):
             if not hasattr(self, k):
                 raise KeyError(f"unknown exp attribute {k!r}")
-            src_type = type(getattr(self, k))
-            if src_type != type(v):
+            src_value = getattr(self, k)
+            src_type = type(src_value)
+            if src_value is None and isinstance(v, str):
+                # None-default fields (seed, data_dir, ...): a literal where
+                # the text is one, else the text itself
+                try:
+                    v = ast.literal_eval(v)
+                except (ValueError, SyntaxError):
+                    pass
+            elif src_type != type(v):
                 if src_type in (tuple, list, dict, bool):
                     # parse the literal, then cast (tuple("(1,2)") would
                     # split characters)

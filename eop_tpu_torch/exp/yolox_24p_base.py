@@ -1,7 +1,7 @@
 """24-point experiment: configuration and factories for the model, the
-fused serving function, the optimizer, the LR schedule and the multiscale
-preprocess (counterpart of ``eop_tpu/exp/yolox_24p_base.py``).  The
-file-backed data loader and the evaluator are not ported yet."""
+fused serving and inference functions, the file-backed data loaders, the
+COCO-24p evaluator, the optimizer, the LR schedule and the multiscale
+preprocess (counterpart of ``eop_tpu/exp/yolox_24p_base.py``)."""
 
 from __future__ import annotations
 
@@ -27,9 +27,12 @@ class Exp24P(BaseExp):
         self.depth = 1.00
         self.width = 1.00
         # ---------------- dataloader config ---------------- #
+        self.data_num_workers = 8
         self.input_size = (640, 640)
         self.multiscale_range = 5
         self.random_size: Optional[tuple] = None
+        self.data_dir = None       # images directory
+        self.label_dir = None      # 24p txt labels directory
         # --------------  training config --------------------- #
         self.warmup_epochs = 5
         self.max_epoch = 2000
@@ -65,9 +68,10 @@ class Exp24P(BaseExp):
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 
-    def get_serving_fn(self, model, src_hw, device=None):
-        """One call, uint8 ``[B, *src_hw, 3]`` -> ``Detections`` on
-        ``device``: letterbox to ``test_size``, forward, decode, NMS.
+    def get_infer_fn(self, model, device=None):
+        """One call, a letterboxed NHWC batch ``[B, *test_size, 3]`` (float
+        or uint8, on the host or the card) -> ``Detections`` on ``device``:
+        forward, decode, NMS.
 
         It enters ``torch.inference_mode`` itself, because the batcher calls
         it from its own thread and grad mode is thread-local.  On the card
@@ -75,16 +79,13 @@ class Exp24P(BaseExp):
         """
         device = resolve_device(device)
         set_fp32_precision(device)
-        src_hw = tuple(int(v) for v in src_hw)
-        test_size = tuple(self.test_size)
         nms_iters = self._nms_iters()
 
-        def serve(raw_uint8):
+        def infer(imgs):
             with torch.inference_mode():
-                x = torch.as_tensor(np.asarray(raw_uint8)).to(device)
-                imgs, _ = letterbox_batch_device(x.float(), src_hw, test_size)
+                x = torch.as_tensor(imgs).to(device, non_blocking=True)
                 # NHWC storage viewed as NCHW: channels_last for the model
-                head_outs, _ = model(imgs.permute(0, 3, 1, 2))
+                head_outs, _ = model(x.float().permute(0, 3, 1, 2))
                 return postprocess_24p_heads(
                     head_outs,
                     num_classes=self.num_classes,
@@ -94,20 +95,101 @@ class Exp24P(BaseExp):
                     nms_fixpoint_iters=nms_iters,
                 )
 
+        return infer
+
+    def get_serving_fn(self, model, src_hw, device=None):
+        """One call, uint8 ``[B, *src_hw, 3]`` -> ``Detections`` on
+        ``device``: letterbox to ``test_size`` on the device, then
+        :meth:`get_infer_fn`'s forward, decode and NMS."""
+        device = resolve_device(device)
+        infer = self.get_infer_fn(model, device)
+        src_hw = tuple(int(v) for v in src_hw)
+        test_size = tuple(self.test_size)
+
+        def serve(raw_uint8):
+            with torch.inference_mode():
+                x = torch.as_tensor(np.asarray(raw_uint8)).to(device)
+                imgs, _ = letterbox_batch_device(x.float(), src_hw, test_size)
+                return infer(imgs)
+
         return serve
+
+    def get_data_input(self, img_path: str):
+        """Letterbox one image file for inference: (float32 ``[1,
+        *test_size, 3]``, ratio, the raw BGR image)."""
+        from ..data.augment import preproc
+        from ..data.image_io import imread
+
+        img = imread(img_path)
+        padded, r = preproc(img, self.test_size)
+        return padded[None], r, img
+
+    # ------------------------------------------------------------------
+    # evaluation
+
+    def get_eval_loader(self, batch_size):
+        """Every image of ``data_dir`` in order, letterboxed to
+        ``test_size``, in batches of ``batch_size`` (the last may be
+        short)."""
+        from ..data.coco24p import COCO24PDataset, TrainTransform24P
+        from ..data.dataloading import data_loader
+
+        dataset = COCO24PDataset(
+            data_dir=self.data_dir,
+            label_dir=self.label_dir,
+            img_size=self.test_size,
+            preproc=TrainTransform24P(max_labels=50),
+        )
+        return data_loader(dataset, batch_size=batch_size,
+                           num_workers=self.data_num_workers)
+
+    def get_evaluator(self, batch_size):
+        """COCO-style AP over the polygons' enclosing boxes
+        (``eval/evaluator_24p.py``); the thresholds are the infer function's
+        (``test_conf``, ``nmsthre``)."""
+        from ..eval.evaluator_24p import Evaluator24P
+
+        return Evaluator24P(
+            dataloader=self.get_eval_loader(batch_size),
+            img_size=self.test_size,
+            num_classes=self.num_classes,
+        )
+
+    def eval(self, model, evaluator):
+        """``evaluator.evaluate`` over ``model`` (in eval mode) on the
+        device its weights are on: (AP50:95, AP50, summary)."""
+        device = next(model.parameters()).device
+        return evaluator.evaluate(self.get_infer_fn(model, device))
 
     # ------------------------------------------------------------------
     # training
 
     def get_data_loader(self, batch_size, is_distributed=False, rank=0,
                         world_size=1):
-        """An iterable of ``(images [B, H, W, 3], labels [B, 50, 51], info,
-        ids)`` batches with a length (iterations per epoch) that never runs
-        out.  Exp subclasses override this, as exp files do."""
-        raise NotImplementedError(
-            "the file-backed 24p dataset (data/coco24p.py, samplers, loader) "
-            "is not ported yet: ROADMAP.md queue 2, 'Eval and CLIs'; "
-            "override get_data_loader in an Exp24P subclass")
+        """Batches ``[images [B, H, W, 3], labels [B, 50, 51], [hs, ws],
+        ids [B, 1]]`` over ``data_dir`` / ``label_dir`` at ``input_size``,
+        drawn for ever from the rank-strided shuffled stream seeded by
+        ``seed``; its length is the iterations of one epoch."""
+        from ..data.coco24p import COCO24PDataset, TrainTransform24P
+        from ..data.dataloading import data_loader, worker_init_reset_seed
+        from ..data.samplers import InfiniteSampler, YoloBatchSampler
+
+        dataset = COCO24PDataset(
+            data_dir=self.data_dir,
+            label_dir=self.label_dir,
+            img_size=self.input_size,
+            preproc=TrainTransform24P(max_labels=50),
+        )
+        self.dataset = dataset
+        if is_distributed:
+            batch_size = batch_size // world_size
+        sampler = InfiniteSampler(len(dataset), seed=self.seed or 0,
+                                  rank=rank, world_size=world_size)
+        batch_sampler = YoloBatchSampler(sampler, batch_size, drop_last=False,
+                                         mosaic=False)
+        return data_loader(dataset, batch_sampler=batch_sampler,
+                           num_workers=self.data_num_workers,
+                           worker_init_fn=worker_init_reset_seed)
 
     def preprocess(self, inputs: torch.Tensor, targets: torch.Tensor, tsize):
         """Multiscale resize of an NHWC batch to ``tsize``, scaling the

@@ -707,7 +707,8 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     raises.  Differentiable in ``x`` and ``w`` without the epilogue
     (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
 
-    Counters: ``phase_conv.launches`` (forward), ``.wgrad_launches``,
+    Counters: ``phase_conv.launches`` (forward; ``.fused_launches`` of them
+    with the epilogue), ``.wgrad_launches``,
     ``.dgrad_launches``, ``.pack_launches`` (the data gradients' weight
     packing), ``.dy_copies`` (output gradients that arrived non-contiguous
     and were copied to NHWC); ``.last_variant``, ``.last_wgrad_variant`` and
@@ -733,11 +734,13 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     y, variant = _launch_forward(x, w, stride, padding, scale, shift, act)
     if y.numel():
         phase_conv.launches += 1
+        phase_conv.fused_launches += scale is not None
         phase_conv.last_variant = variant
     return y
 
 
 phase_conv.launches = 0
+phase_conv.fused_launches = 0
 phase_conv.wgrad_launches = 0
 phase_conv.dgrad_launches = 0
 phase_conv.dy_copies = 0

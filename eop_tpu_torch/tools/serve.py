@@ -54,7 +54,7 @@ def build_service(args):
     from ..exp import get_exp
     from ..serving.service import DetectionService
 
-    exp = get_exp(args.name)
+    exp = get_exp(exp_name=args.name)
     if args.opts:
         exp.merge(args.opts)
     model = exp.get_model(args.device)

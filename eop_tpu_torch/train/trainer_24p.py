@@ -3,8 +3,10 @@
 ``exp.get_data_loader``, the L1 loss for the last ``L1_epoch`` epochs, a log
 line every ``print_interval`` iterations, a ``last_epoch`` checkpoint per
 epoch, ``--resume`` / ``--ckpt`` / ``start_epoch``, optional EMA and LR
-scheduling.  One device; mesh parallelism, the evaluator hook and the
-GT-vs-prediction overlay are not ported yet.
+scheduling, and with ``args.eval`` the COCO-24p evaluation every
+``eval_interval`` epochs (EMA weights where ``exp.ema``) that keeps
+``best_ckpt.pth``.  One device; mesh parallelism and the GT-vs-prediction
+overlay are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ class Trainer24P:
     """``Trainer24P(exp, args).train()`` returns the final ``TrainState``.
 
     ``args`` attributes: ``batch_size``; optional ``lr``, ``accum``,
-    ``resume``, ``ckpt``, ``start_epoch``, ``device`` (the card unless
-    ``"cpu"``).  ``hook``, where set before ``train()``, is handed to
+    ``resume``, ``ckpt``, ``start_epoch``, ``eval``, ``device`` (the card
+    unless ``"cpu"``).  ``hook``, where set before ``train()``, is handed to
     ``make_train_step_24p`` as its ``hook``.
     """
 
@@ -40,6 +42,7 @@ class Trainer24P:
         self.input_size = exp.input_size
         self.start_epoch = 0
         self.hook = None
+        self._eval_model = None
         self.drop_monitor = CandidateDropMonitor(logger)
         self.file_name = os.path.join(exp.output_dir, exp.exp_name)
         os.makedirs(self.file_name, exist_ok=True)
@@ -82,9 +85,15 @@ class Trainer24P:
                 )
             return steps[use_l1]
 
+        evaluator = None
+        if getattr(args, "eval", False):
+            evaluator = exp.get_evaluator(args.batch_size)
+        best_ap = 0.0
+
         logger.info("24p training start...")
         global_step = 0
-        # one persistent iterator: the loader never runs out
+        # one persistent iterator: the loader never runs out, and a new one
+        # would start its worker processes again
         it = iter(self.train_loader)
         for epoch in range(self.start_epoch, self.max_epoch):
             self.epoch = epoch
@@ -117,13 +126,43 @@ class Trainer24P:
                 global_step += 1
             logger.info(
                 f"epoch {epoch + 1} done in {time.time() - epoch_start:.1f}s")
+            want_eval = (evaluator is not None
+                         and (epoch + 1) % exp.eval_interval == 0)
             if ((epoch + 1) % exp.ckpt_interval == 0
-                    or epoch + 1 == self.max_epoch):
+                    or epoch + 1 == self.max_epoch or want_eval):
                 save_checkpoint(state, False, self.file_name, "last_epoch",
                                 metadata={"start_epoch": epoch + 1})
+            if want_eval:
+                ap5095, ap50, summary = evaluator.evaluate(
+                    exp.get_infer_fn(self.eval_model(state), self.device))
+                logger.info(f"epoch {epoch + 1} eval:\n{summary}")
+                logger.info(f"AP50:95={ap5095:.4f} AP50={ap50:.4f}")
+                if self.tblogger is not None:
+                    self.tblogger.add_scalar("val/AP50", ap50, epoch + 1)
+                    self.tblogger.add_scalar("val/AP50_95", ap5095, epoch + 1)
+                if ap5095 > best_ap:
+                    best_ap = ap5095
+                    save_checkpoint(state, True, self.file_name, "last_epoch",
+                                    metadata={"start_epoch": epoch + 1})
+        del it  # stops the loader's workers
         if hasattr(self.train_loader, "shutdown"):
             self.train_loader.shutdown()
         return state
+
+    def eval_model(self, state):
+        """A separate eval-mode model carrying the EMA parameters and batch
+        statistics where ``exp.ema``, else the live ones: the training
+        model's mode, autograd state and weights stay as they are.  Built at
+        the first evaluation and loaded anew at each: the in-place loads
+        move the tensor versions that key its packed and folded weights."""
+        weights = state.model.state_dict()
+        if self.exp.ema and state.ema_params is not None:
+            weights = {**weights, **state.ema_params,
+                       **(state.ema_batch_stats or {})}
+        if self._eval_model is None:
+            self._eval_model = self.exp.get_model(self.device)
+        self._eval_model.load_state_dict(weights, strict=True)
+        return self._eval_model
 
     def _maybe_resume(self, state):
         args = self.args

@@ -428,3 +428,98 @@ def test_spp_pool_paths_give_equal_values_on_card(cuda, dtype):
     # the convs around the pools may take another cuDNN algorithm: 1e-5
     assert got.requires_grad
     assert (got.detach() - want).abs().max().item() <= 1e-5
+
+
+def _tiny_24p_exp(files, width=0.25):
+    from eop_tpu_torch.exp import Exp24P
+
+    exp = Exp24P()
+    exp.depth, exp.width, exp.num_classes = 0.33, width, 3
+    exp.input_size = exp.test_size = (64, 64)
+    exp.data_dir, exp.label_dir = files
+    return exp
+
+
+@pytest.mark.gpu
+def test_file_loader_feeds_pinned_batches(cuda, tmp_path, monkeypatch):
+    """With a card the loader's batches come back pinned, from spawned
+    workers that never touch the card, so the trainer's copy is
+    asynchronous; dropped with batches in flight, as the trainer drops it,
+    no worker dies (a dead one surfaces in the iterator's __del__)."""
+    import sys
+
+    from eop_tpu_torch.utils.synth import write_24p_dataset
+
+    exp = _tiny_24p_exp(write_24p_dataset(str(tmp_path), 8, (90, 160)))
+    exp.data_num_workers = 4
+    unraisable = []
+    monkeypatch.setattr(sys, "unraisablehook",
+                        lambda u: unraisable.append(str(u.exc_value)))
+    for _ in range(3):
+        it = iter(exp.get_data_loader(2))
+        imgs, labels, (hs, ws), ids = next(it)
+        next(it)
+        del it
+    assert not unraisable, unraisable
+    assert imgs.is_pinned() and labels.is_pinned()
+    assert imgs.shape == (2, 64, 64, 3) and hs.tolist() == [90, 90]
+    on_card = imgs.to(cuda, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(on_card.cpu(), imgs)
+
+
+@pytest.mark.gpu
+def test_oracle_ap_is_one_on_the_card(cuda, tmp_path):
+    """The labels as detections on the card: AP50 = AP50:95 = 1 through the
+    native COCO matcher, over a short last batch."""
+    from eop_tpu_torch.eval import fast_cocoeval
+    from eop_tpu_torch.utils.synth import LabelOracle, write_24p_dataset
+
+    exp = _tiny_24p_exp(write_24p_dataset(str(tmp_path), 5, (90, 160),
+                                          seed=1))
+    exp.data_num_workers = 0
+    ev = exp.get_evaluator(2)
+    oracle = LabelOracle(ev.dataloader.dataset, cuda)
+
+    calls = fast_cocoeval.match_image.native_calls
+    ap5095, ap50, summary = ev.evaluate(oracle)
+    assert abs(ap50 - 1.0) <= 1e-6 and abs(ap5095 - 1.0) <= 1e-6, summary
+    assert fast_cocoeval.match_image.native_calls > calls
+
+
+@pytest.mark.gpu
+def test_eval_after_a_training_step_repacks_the_weights(cuda):
+    """Eval, one training step, eval again in one process, at the main
+    path's width: the fused eval forward packs the updated weights anew and
+    folds the updated statistics, and agrees with a fresh model loaded from
+    the state (1e-4 of the output scale: cuDNN may pick other algorithms for
+    the other convs)."""
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    exp = _tiny_24p_exp((None, None), width=0.5)
+    model = exp.get_model(cuda, seed=0)
+    imgs, labels = synthetic_24p_batch(
+        torch.Generator(device="cuda").manual_seed(1), 2, size=64, ngt=2,
+        r_lo=5.0, r_hi=12.0)
+    x = imgs.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        before = [h.clone() for h in model(x)[0]]
+    state = create_train_state(model, exp.get_optimizer(model, 2),
+                               use_ema=False, with_dwa=True)
+    make_train_step_24p(Loss24PConfig(num_classes=3))(state, imgs, labels)
+    model.eval()
+    packs, fused = pc.packed_weights.packs, pc.phase_conv.fused_launches
+    with torch.inference_mode():
+        after = model(x)[0]
+    assert pc.packed_weights.packs - packs == 8     # every early conv anew
+    assert pc.phase_conv.fused_launches - fused == 8
+    fresh = exp.get_model(cuda, seed=5)
+    fresh.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        want = fresh(x)[0]
+    for a, w, b in zip(after, want, before):
+        scale = max(1.0, w.abs().max().item())
+        assert (a - w).abs().max().item() <= 1e-4 * scale
+        assert not torch.equal(a, b)

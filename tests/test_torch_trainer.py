@@ -24,7 +24,7 @@ from eop_tpu_torch.train.checkpoint import (
 from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
 from eop_tpu_torch.train.trainer_24p import Trainer24P
 from eop_tpu_torch.utils.metric import CandidateDropMonitor
-from eop_tpu_torch.utils.synth import synthetic_24p_batch
+from eop_tpu_torch.utils.synth import synthetic_24p_batch, write_24p_dataset
 
 SIZE, BATCH, ITERS = 64, 2, 3
 
@@ -253,13 +253,83 @@ def test_load_ckpt_partial_is_shape_tolerant(tmp_path):
     assert "model/backbone.backbone.dark2.0.conv.weight" in skipped
 
 
-def test_get_data_loader_names_its_queue():
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        Exp24P().get_data_loader(2)
+def test_get_data_loader_names_its_queue(tmp_path):
+    """The file loader the exp builds (it raised NotImplementedError before
+    the file dataset was ported): one epoch's length from the rank's share,
+    and a first batch in eop_tpu's structure.  Without a card, the trainer
+    refuses to start unless asked for the CPU."""
+    img_dir, lab_dir = write_24p_dataset(str(tmp_path), 5, (48, 80), seed=9)
+    exp = Exp24P()
+    exp.input_size, exp.data_num_workers = (SIZE, SIZE), 0
+    exp.data_dir, exp.label_dir = img_dir, lab_dir
+    loader = exp.get_data_loader(BATCH)
+    assert len(loader) == 3                          # ceil(5 / 2)
+    # a rank's share is 5 // 2 = 2 indices, its batch 4 // 2 = 2 images
+    assert len(exp.get_data_loader(4, is_distributed=True, rank=1,
+                                   world_size=2)) == 1
+    imgs, labels, (hs, ws), ids = next(iter(loader))
+    assert imgs.shape == (BATCH, SIZE, SIZE, 3) and imgs.dtype == torch.float32
+    assert labels.shape == (BATCH, 50, 51)
+    assert hs.tolist() == [48, 48] and ws.tolist() == [80, 80]
+    assert ids.shape == (BATCH, 1) and 0 <= ids.min() and ids.max() <= 4
+    assert (labels.sum(dim=2) > 0).any(dim=1).all()  # every image has a row
     with pytest.raises(RuntimeError):   # no card here, and none asked away
         if torch.cuda.is_available():
             raise RuntimeError("a card is present")
         Trainer24P(make_exp("unused"), types.SimpleNamespace(batch_size=2))
+
+
+def test_eval_model_is_built_once_and_loaded_anew(trained):
+    """The hook's eval-mode model is built at the first evaluation and
+    loaded at each: loaded with other weights after a forward has filled its
+    HWIO and folded-BatchNorm caches, it gives exactly what a fresh model
+    loaded with them gives."""
+    exp, trainer, state, _, _, _ = trained
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)).permute(0, 3, 1, 2)
+    model = trainer.eval_model(state)                # the EMA weights
+    with torch.inference_mode():
+        ema_out = [h.clone() for h in model(x)[0]]
+    exp.ema = False
+    try:
+        assert trainer.eval_model(state) is model    # now the live weights
+    finally:
+        exp.ema = True
+    assert not model.training
+    fresh = exp.get_model("cpu", seed=5)
+    fresh.load_state_dict(state.model.state_dict())
+    with torch.inference_mode():
+        got, want = model(x)[0], fresh(x)[0]
+    for g, w, e in zip(got, want, ema_out):
+        assert torch.equal(g, w)
+        assert not torch.equal(g, e)
+
+
+def test_eval_after_a_training_step_uses_the_new_weights():
+    """One process, eval then train then eval: the eval forward's folded
+    BatchNorm and cached HWIO weights follow the step's in-place updates of
+    the weights and running statistics (caches keyed by tensor versions), so
+    the model gives what a fresh model loaded from its state gives."""
+    exp = Exp24P()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    model = exp.get_model("cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    imgs, labels = synthetic_24p_batch(g, BATCH, size=SIZE, ngt=2, r_lo=5.0,
+                                       r_hi=12.0)
+    x = imgs.permute(0, 3, 1, 2)
+    with torch.inference_mode():
+        before = [h.clone() for h in model(x)[0]]
+    state = create_train_state(model, exp.get_optimizer(model, BATCH),
+                               use_ema=False, with_dwa=True)
+    make_train_step_24p(Loss24PConfig(num_classes=3))(state, imgs, labels)
+    model.eval()
+    fresh = exp.get_model("cpu", seed=5)
+    fresh.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        after, want = model(x)[0], fresh(x)[0]
+    for a, w, b in zip(after, want, before):
+        assert torch.equal(a, w)
+        assert not torch.equal(a, b)
 
 
 def test_training_fields_match_the_jax_exp():
