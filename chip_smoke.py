@@ -5,7 +5,12 @@
 
 1. prints the card (``nvidia-smi`` name and power limit, torch's name and
    count);
-2. builds every CUDA kernel of the port from ``eop_tpu_torch/csrc``;
+2. builds every CUDA kernel and host library of the port from
+   ``eop_tpu_torch/csrc``, and decodes seeded 720x1280 JPEGs (4:2:0 and
+   4:4:4, quality 95) and a PNG written by ``utils/synth.py`` with the host
+   decoder (``csrc/image_decode.cpp``): the decoded arrays' sha256 must be
+   the digests the CPU tests pin, where cv2 decodes them to the same bytes;
+   then times each decode and ``image_size`` on one thread;
 3. holds each kernel against its plain PyTorch version on the card, at the
    shapes the serving path (batch 8) and the training path (batch 32) give
    it (and the JAX package's test cases), with and without the fused scale +
@@ -13,7 +18,11 @@
    library calls;
 4. serves the 24p-s detector (depth 0.33, width 0.50, 80 classes, 640 px)
    with seeded random weights behind the threaded HTTP front end, answers
-   concurrent raw-body requests and checks every kernel of the path ran;
+   concurrent raw-body requests, then JPEG and PNG bodies, each of which
+   must get the answer of the raw body of its decoded pixels, and checks
+   every kernel of the path ran; then serves one batch with a ``relu``
+   24p-s, whose 8 early convs launch the kernel without its SiLU epilogue,
+   and holds that model on the card against the CPU;
 5. times the stages of one serving call on the device;
 6. runs one image through the port on the card and on the CPU and compares;
 7. holds the backward kernels of ``phase_conv`` (data and weight gradient,
@@ -30,9 +39,9 @@
    forward, loss, backward and optimizer + EMA;
 9. takes one training step's loss, assignment and gradients on the card and
    on the CPU from one state and compares;
-10. writes a seeded synthetic 24p dataset of 720x1280 images (BMP content
-    under ``.jpg`` names, numpy only) and txt labels to a temporary
-    directory;
+10. writes a seeded synthetic 24p dataset of 720x1280 baseline JPEG images
+    (quality 95, 4:2:0, written with numpy by ``utils/synth.py``) and txt
+    labels to a temporary directory;
 11. trains 24p-s from those files through the exp file
     ``load_train/yolox_24p_train.py`` and the exp's own loader (spawned
     workers, pinned batches), timing the step and the host's wait for the
@@ -51,7 +60,9 @@
 ``python3 chip_smoke.py --probe-worker-exit`` runs only a probe: the
 training loader dropped with batches in flight with and without its
 workers' exit hook (``data/dataloading.py::WorkerInit``), and the workers
-that died in each.
+that died in each; without the hook every worker has ``faulthandler`` on
+for all its threads, writing to a file of its own, and the report carries
+what those files hold.
 
 Every phase raises on failure.  Each phase prints one JSON line; the line
 before the last holds the kernels, the last line is the result.  Exits
@@ -70,6 +81,7 @@ import tempfile
 import threading
 import time
 import types
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -120,8 +132,27 @@ TRAIN_BATCH, TRAIN_GTS = 32, 8
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_EXP_FILE = os.path.join(ROOT, "load_train", "yolox_24p_train.py")
-# the file dataset: raw fisheye-camera frames, BMP content under .jpg names
+# the file dataset: raw fisheye-camera frames as baseline JPEG (quality 95,
+# 4:2:0, utils/synth.py's encoder) under .jpg names
 DATASET_IMAGES, DATASET_HW = 64, (720, 1280)
+# the decode phase: one seeded 720x1280 frame (utils/synth.py) as JPEG and
+# PNG; sha256 of the encoded JPEGs and of every decoded array, pinned by
+# tests/test_torch_image_decode.py, where cv2 decodes them to the same bytes
+DECODE_SEED, DECODE_HW, DECODE_ITERS = 5, (720, 1280), 20
+DECODE_DIGESTS = {
+    "jpeg 4:2:0 q95":
+        "83e6264a648867a6ead3a414c3f652e6d3aab4156d776d50963f7d2fc947fe8d",
+    "jpeg 4:2:0 q95 file":
+        "5c2bd15985e008f72846c7db136838272a774ec4929c14ba47d762fca547591d",
+    "jpeg 4:4:4 q95":
+        "79de51e852ea7959f354517145b2933ea534c2203fc9d9f96cb1c7d2230290b2",
+    "jpeg 4:4:4 q95 file":
+        "706c4095bc2e16ebc51b1384e77feb32276291f6fcb049198d0ab905482f6ae7",
+    "png":
+        "40b2df661d0a695701d26f48ef93bee261e79aba7623313714d7e75af015a24c",
+}
+# serve: frames also posted as JPEG and as PNG bodies
+N_ENCODED = 4
 EVAL_BATCH = 8
 # launches of one training step: 8 forward convs, 8 weight gradients, 7 data
 # gradients (the stem's input is the image and takes none), each data
@@ -276,6 +307,66 @@ def check_phase_conv():
     return rows, err32, err16
 
 
+def decode_inputs() -> dict:
+    """The decode phase's inputs: one seeded 720x1280 frame of the synthetic
+    24p recipe, encoded by ``utils/synth.py`` as JPEG (quality 95, 4:2:0 and
+    4:4:4) and as PNG."""
+    from eop_tpu_torch.utils.synth import (
+        encode_jpeg,
+        encode_png,
+        synthetic_24p_image,
+    )
+
+    img, _ = synthetic_24p_image(np.random.RandomState(DECODE_SEED),
+                                 DECODE_HW)
+    return {"jpeg 4:2:0 q95": encode_jpeg(img, 95, "4:2:0"),
+            "jpeg 4:4:4 q95": encode_jpeg(img, 95, "4:4:4"),
+            "png": encode_png(img)}
+
+
+def decode_phase(smi: str) -> dict:
+    """The host decoder on the card's host: each input decoded to its pinned
+    digest, then the median of ``DECODE_ITERS`` decodes and ``image_size``
+    reads on this thread."""
+    import hashlib
+
+    from eop_tpu_torch.data.image_io import image_size, imdecode
+
+    report = {"phase": "decode", "card": smi, "height": DECODE_HW[0],
+              "width": DECODE_HW[1], "iters": DECODE_ITERS, "threads": 1}
+    root = tempfile.mkdtemp(prefix="chip_smoke_decode_")
+    try:
+        for kind, data in decode_inputs().items():
+            img = imdecode(data)
+            digests = {kind: hashlib.sha256(img.tobytes()).hexdigest()}
+            if kind.startswith("jpeg"):
+                digests[f"{kind} file"] = hashlib.sha256(data).hexdigest()
+            for key, digest in digests.items():
+                if digest != DECODE_DIGESTS[key]:
+                    raise AssertionError(f"decode {key}: sha256 {digest}, "
+                                         f"pinned {DECODE_DIGESTS[key]}")
+            path = os.path.join(root, "000000000001.jpg")
+            with open(path, "wb") as f:
+                f.write(data)
+            times = {"decode": [], "image_size": []}
+            for _ in range(DECODE_ITERS):
+                t0 = time.perf_counter()
+                imdecode(data)
+                t1 = time.perf_counter()
+                image_size(path)
+                times["decode"].append(1e3 * (t1 - t0))
+                times["image_size"].append(1e3 * (time.perf_counter() - t1))
+            report[kind] = {
+                "bytes": len(data), "sha256": digests[kind],
+                "decode_ms_median": float(np.median(times["decode"])),
+                "decode_ms_min": float(min(times["decode"])),
+                "image_size_ms_median": float(np.median(times["image_size"])),
+            }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return report
+
+
 def serving_exp():
     from eop_tpu_torch.exp import get_exp
 
@@ -309,6 +400,15 @@ def serve_main_path(smi: str, exp, model):
               for _ in range(N_REQUESTS)]
     codes, lat_ms, n_dets = [None] * N_REQUESTS, [0.0] * N_REQUESTS, [0] * N_REQUESTS
 
+    def post(body, headers):
+        req = urllib.request.Request(url, data=body, method="POST",
+                                     headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
     def client(j):
         for i in range(j, N_REQUESTS, N_CLIENTS):
             req = urllib.request.Request(url, data=bodies[i], method="POST",
@@ -328,6 +428,7 @@ def serve_main_path(smi: str, exp, model):
         for t in clients:
             t.join(timeout=600)
         wall_s = time.perf_counter() - t0
+        encoded = encoded_requests(post, bodies[:N_ENCODED])
         torch.cuda.synchronize()
         launches = {"phase_conv": phase_conv.launches}
         stats = svc.stats()
@@ -351,13 +452,75 @@ def serve_main_path(smi: str, exp, model):
         "phase_conv_launches": launches["phase_conv"],
         "request_ms_p50": float(np.percentile(lat_ms, 50)),
         "request_ms_max": float(max(lat_ms)),
-        "wall_s": wall_s, "warmup_s": warmup_s,
+        "wall_s": wall_s, "warmup_s": warmup_s, **encoded,
     }
     if sum(n_dets) <= 0:
         raise AssertionError("no valid detections: the NMS did no work")
     if launches["phase_conv"] != 8 * forwards:
         raise AssertionError(f"phase_conv launches {launches['phase_conv']} "
                              f"!= 8 x {forwards} forward calls")
+    return report, launches
+
+
+def encoded_requests(post, frames):
+    """Each raw 640x640 frame posted as a JPEG (quality 95, 4:2:0) and as a
+    PNG body, each followed by the raw body of its decoded pixels, one
+    request at a time (both alone in a batch of the same bucket): the two
+    answers must be equal.  Returns the status codes and the timings."""
+    from eop_tpu_torch.data.image_io import imdecode
+    from eop_tpu_torch.utils.synth import encode_jpeg, encode_png
+
+    codes, pairs, ms = {}, 0, {"jpeg": [], "png": []}
+    for raw in frames:
+        frame = np.frombuffer(raw, np.uint8).reshape(640, 640, 3)
+        for kind, body in (("jpeg", encode_jpeg(frame)),
+                           ("png", encode_png(frame))):
+            t = time.perf_counter()
+            code, answer = post(body, {})
+            ms[kind].append(1e3 * (time.perf_counter() - t))
+            raw_code, raw_answer = post(imdecode(body).tobytes(),
+                                        {"X-Raw-Shape": "640,640,3"})
+            for c in (code, raw_code):
+                codes[str(c)] = codes.get(str(c), 0) + 1
+            if code != 200 or raw_code != 200 or (
+                    answer["detections"] != raw_answer["detections"]
+                    or answer["image_hw"] != [640, 640]):
+                raise AssertionError(f"{kind} body: {code} vs raw "
+                                     f"{raw_code}, answers differ")
+            pairs += 1
+    return {"encoded_http_codes": codes, "encoded_pairs_equal": pairs,
+            "jpeg_request_ms_median": float(np.median(ms["jpeg"])),
+            "png_request_ms_median": float(np.median(ms["png"]))}
+
+
+def serve_relu(smi: str):
+    """24p-s with ``act relu``: one batch served on the card, counts set to
+    0 just before; the 8 early convs launch the kernel without its SiLU
+    epilogue; then the model on the card against the CPU."""
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+
+    exp = serving_exp()
+    exp.act = "relu"
+    model = exp.get_model("cuda")
+    serve = exp.get_serving_fn(model, (640, 640), "cuda")
+    raw = np.random.RandomState(3).randint(0, 256, (SERVE_BATCH, 640, 640, 3),
+                                           np.uint8)
+    _reset_counts()
+    dets = serve(raw)
+    valid = int(dets.valid.sum())
+    torch.cuda.synchronize()
+    launches = {"phase_conv": phase_conv.launches}
+    fused = phase_conv.fused_launches
+    del model
+    report = {"phase": "serve_relu", "card": smi, "act": exp.act,
+              "batch": SERVE_BATCH, "phase_conv_launches": launches[
+                  "phase_conv"], "phase_conv_fused_launches": fused,
+              "valid_detections": valid}
+    if launches["phase_conv"] != 8 or fused != 0 or valid == 0:
+        raise AssertionError(f"relu model: {report}")
+    vs_cpu = card_vs_cpu(exp)
+    report.update({f"card_vs_cpu_{k}": v for k, v in vs_cpu.items()
+                   if k != "phase"})
     return report, launches
 
 
@@ -725,6 +888,10 @@ def run_trainer(exp):
         "host_step_ms": float(np.median(host_ms)),
         "host_step_ms_all": host_ms,
         "images_per_s": 1e3 * TRAIN_BATCH / float(np.median(host_ms)),
+        # over all timed steps: a loader that runs dry on some steps shows
+        # here, where the median hides it
+        "images_per_s_timed_steps": 1e3 * TRAIN_BATCH * len(host_ms)
+        / float(sum(host_ms)),
         "launches_per_step": per_step[-1],
         "launches": launches,
         "max_memory_allocated_bytes": peak,
@@ -854,17 +1021,18 @@ def train_card_vs_cpu():
 
 def write_dataset(root: str):
     """The seeded synthetic 24p dataset the file phases read
-    (``utils/synth.write_24p_dataset``: BMP content under ``.jpg`` names)."""
+    (``utils/synth.write_24p_dataset``: baseline JPEG, quality 95, 4:2:0)."""
     from eop_tpu_torch.utils.synth import write_24p_dataset
 
     t0 = time.perf_counter()
-    img_dir, lab_dir = write_24p_dataset(root, DATASET_IMAGES, DATASET_HW)
+    img_dir, lab_dir = write_24p_dataset(root, DATASET_IMAGES, DATASET_HW,
+                                         fmt="jpeg")
     seconds = time.perf_counter() - t0
     n_bytes = sum(e.stat().st_size for d in (img_dir, lab_dir)
                   for e in os.scandir(d))
     report = {"phase": "dataset", "images": DATASET_IMAGES,
               "height": DATASET_HW[0], "width": DATASET_HW[1],
-              "format": "24-bit BMP under .jpg names", "bytes": n_bytes,
+              "format": "baseline JPEG, quality 95, 4:2:0", "bytes": n_bytes,
               "seconds": seconds}
     return img_dir, lab_dir, report
 
@@ -995,13 +1163,53 @@ def eval_files(smi: str, img_dir: str, lab_dir: str):
     return report, launches
 
 
+class FaultLogInit:
+    """``worker_init_fn`` of the probe's loaders without the exit hook:
+    ``faulthandler`` on for every thread of the worker, writing to a file of
+    its own in ``directory``, then the exp's seed reset."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+
+    def __call__(self, worker_id: int) -> None:
+        import faulthandler
+
+        from eop_tpu_torch.data.dataloading import worker_init_reset_seed
+
+        path = os.path.join(self.directory,
+                            f"worker{worker_id}-pid{os.getpid()}.txt")
+        # faulthandler keeps the file open until the process ends
+        faulthandler.enable(open(path, "w"), all_threads=True)
+        worker_init_reset_seed(worker_id)
+
+
+def fault_dumps(directory: str, lines: int = 40) -> dict:
+    """What the workers' faulthandler files hold: how many are not empty,
+    the threads each names, and the head of up to four of them."""
+    dumps = []
+    for name in sorted(os.listdir(directory)):
+        with open(os.path.join(directory, name)) as f:
+            text = f.read()
+        if text.strip():
+            dumps.append((name, text.splitlines()))
+    return {
+        "worker_files": len(os.listdir(directory)),
+        "nonempty": len(dumps),
+        "threads": [[ln for ln in body if "hread 0x" in ln]
+                    for _, body in dumps],
+        "heads": [{"file": name, "lines": body[:lines]}
+                  for name, body in dumps[:4]],
+    }
+
+
 def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
-                 exit_hook: bool = True) -> dict:
+                 exit_hook: bool = True, fault_dir=None) -> dict:
     """The exp file's training loader started and dropped with batches in
     flight, ``drops`` times, as the trainer drops it when training ends.
     Without ``exit_hook``, the same dataset and batches through a plain
     spawned, pinned ``DataLoader`` whose workers go through the
-    interpreter's teardown (no ``WorkerInit``)."""
+    interpreter's teardown (no ``WorkerInit``); with ``fault_dir`` those
+    workers write faulthandler dumps there (``FaultLogInit``)."""
     from eop_tpu_torch.data.dataloading import worker_init_reset_seed
     from eop_tpu_torch.exp import get_exp
 
@@ -1015,7 +1223,8 @@ def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
             loader = torch.utils.data.DataLoader(
                 loader.dataset, batch_sampler=loader.batch_sampler,
                 num_workers=loader.num_workers, pin_memory=True,
-                worker_init_fn=worker_init_reset_seed,
+                worker_init_fn=(FaultLogInit(fault_dir) if fault_dir
+                                else worker_init_reset_seed),
                 multiprocessing_context="spawn")
         try:
             it = iter(loader)
@@ -1090,7 +1299,8 @@ def probe_worker_exit(drops: int = 8) -> int:
     """``python3 chip_smoke.py --probe-worker-exit``: with a CUDA context in
     this process, drop the training loader with batches in flight ``drops``
     times as the port builds it and ``drops`` times without its workers'
-    exit hook, and print the workers that died in each."""
+    exit hook, and print the workers that died in each and, for the run
+    without the hook, what the workers' faulthandler files hold."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1103,13 +1313,18 @@ def probe_worker_exit(drops: int = 8) -> int:
     report = {"phase": "probe_worker_exit", "card": smi}
     try:
         img_dir, lab_dir, _ = write_dataset(root)
+        fault_dir = os.path.join(root, "faulthandler")
+        os.makedirs(fault_dir)
         for name, exit_hook in (("exit_hook", True), ("teardown", False)):
             seen = len(unraisable)
-            report[name] = drop_loaders(img_dir, lab_dir, drops, exit_hook)
+            report[name] = drop_loaders(img_dir, lab_dir, drops, exit_hook,
+                                        None if exit_hook else fault_dir)
             gc.collect()
             report[name]["workers_died"] = sum(
                 "killed by signal" in u or "exited unexpectedly" in u
                 for u in unraisable[seen:] + report[name]["errors"])
+        time.sleep(5)  # workers still ending write their dumps
+        report["teardown"]["faulthandler"] = fault_dumps(fault_dir)
     finally:
         sys.unraisablehook = default_hook
         shutil.rmtree(root, ignore_errors=True)
@@ -1136,6 +1351,7 @@ def main() -> int:
     info = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": info, "sass": sass_summary(_build)})
+    emit(decode_phase(smi))
 
     shapes, err32, err16 = check_phase_conv()
     for row in shapes:
@@ -1148,6 +1364,8 @@ def main() -> int:
     emit(serving_stages(smi, exp, model))
     emit(card_vs_cpu(exp))
     del model
+    relu_report, relu_launches = serve_relu(smi)
+    emit(relu_report)
 
     back_rows, back_err = check_phase_conv_backward()
     for row in back_rows:
@@ -1191,9 +1409,11 @@ def main() -> int:
             cli_report["eval_worker_aborts"]):
         raise AssertionError(f"loader workers died: {died}")
     # each path's launches, counted from 0 just before it ran: the forward
-    # serves (serve) and evaluates (eval) at batch 8 and trains at batch 32
+    # serves (serve; serve_relu without the epilogue) and evaluates (eval) at
+    # batch 8 and trains at batch 32
     # (train: one batch repeated; train_files: the file loader)
     by_path = {"serve": launches["phase_conv"],
+               "serve_relu": relu_launches["phase_conv"],
                "eval": eval_launches["phase_conv"],
                "train": repeat_launches["forward"],
                "train_files": files_launches["forward"]}
@@ -1261,7 +1481,8 @@ def main() -> int:
         "route": "cuda",
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
-        "launches": by_path["serve"] + by_path["eval"],
+        "launches": by_path["serve"] + by_path["serve_relu"]
+        + by_path["eval"],
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
         "max_abs_err": err32,

@@ -11,9 +11,12 @@ import that has none.  PyTorch's worker loop sets one intra-op thread in
 each worker, which the host resize (a torch call) needs: several workers
 with a full thread pool each would oversubscribe the host.  Batches come
 back in pinned memory where there is a card, so the trainer's
-``.to(device, non_blocking=True)`` is an asynchronous copy.  A worker ends
-without the interpreter's teardown (see :class:`WorkerInit`).  The device
-prefetcher comes with queue 3.
+``.to(device, non_blocking=True)`` is an asynchronous copy.  Before it
+starts workers the main process loads the image decoder library
+(``image_io.load_decoder``), building it where it is not built yet, so that
+the workers load the built file instead of each starting the compiler.  A
+worker ends without the interpreter's teardown (see :class:`WorkerInit`).
+The device prefetcher comes with queue 3.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.utils.data
+
+from .image_io import load_decoder
 
 
 def worker_init_reset_seed(worker_id: int) -> None:
@@ -67,6 +72,8 @@ def data_loader(dataset, batch_size: int = 1, batch_sampler=None,
     """A ``DataLoader`` in order over ``dataset`` (or over
     ``batch_sampler``'s batches) with ``default_collate``, spawned workers,
     and pinned batches where there is a card."""
+    if num_workers:
+        load_decoder()
     return torch.utils.data.DataLoader(
         dataset,
         batch_size=1 if batch_sampler is not None else batch_size,

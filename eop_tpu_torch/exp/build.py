@@ -5,8 +5,9 @@ The files of ``load_train/`` and ``load_eval/`` subclass ``eop_tpu``'s
 them instead: it parses the file, takes the class ``Exp`` whose
 ``__init__`` calls ``super().__init__()`` and then assigns literals to
 ``self`` attributes (``self.depth, self.width = 0.33, 0.50`` included), and
-applies those assignments to a fresh :class:`Exp24P`.  Any other statement
-raises, naming its file and line.
+applies those assignments to a fresh :class:`Exp24P`.  Any other statement,
+and an attribute :class:`Exp24P` does not have (a misspelt or unported
+field), raises, naming its file and line.
 """
 
 from __future__ import annotations
@@ -72,6 +73,7 @@ def read_exp_file(exp_file: str) -> dict:
     if not init or not _is_super_init(init[0]):
         raise ValueError(f"{exp_file}:{body[0].lineno}: Exp.__init__ must "
                          "start with super().__init__()")
+    known = vars(Exp24P())
     settings = {}
     for stmt in init[1:]:
         where = f"{exp_file}:{stmt.lineno}"
@@ -79,6 +81,10 @@ def read_exp_file(exp_file: str) -> dict:
             raise ValueError(f"{where}: not a literal exp setting "
                              f"({type(stmt).__name__})")
         names = _self_attrs(stmt.targets[0], where)
+        for name in names:
+            if name not in known:
+                raise ValueError(f"{where}: Exp24P has no attribute "
+                                 f"{name!r}")
         try:
             value = ast.literal_eval(stmt.value)
         except ValueError:
@@ -98,6 +104,10 @@ def get_exp_by_file(exp_file: str) -> Exp24P:
     exp = Exp24P()
     for k, v in read_exp_file(exp_file).items():
         setattr(exp, k, v)
+    try:
+        exp.check_supported()
+    except NotImplementedError as e:
+        raise NotImplementedError(f"{exp_file}: {e}") from None
     return exp
 
 

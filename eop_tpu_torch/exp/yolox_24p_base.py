@@ -26,6 +26,7 @@ class Exp24P(BaseExp):
         self.num_classes = 80
         self.depth = 1.00
         self.width = 1.00
+        self.act = "silu"          # silu | relu | lrelu
         # ---------------- dataloader config ---------------- #
         self.data_num_workers = 8
         self.input_size = (640, 640)
@@ -57,14 +58,34 @@ class Exp24P(BaseExp):
         self.reference_parity = False  # replicate the theta*cos NMS quirk
         # "exact" = stationarity-checked NMS fixpoint (greedy-exact)
         self.nms_mode = "exact"
+        # bf16 activations and gradient checkpointing: ROADMAP.md queue 1
+        # item 5; until then anything but these defaults raises
+        self.compute_dtype = "float32"
+        self.remat = False
+        # eop_tpu's TPU MXU packed layout; it changes no result, so the port
+        # reads neither (ROADMAP.md queue 1 item 13)
+        self.packed_early = "auto"
+        self.packed_infer_max_batch = 64
+
+    def check_supported(self) -> None:
+        """Raise on a setting the port does not implement yet."""
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {self.compute_dtype!r}: the port runs float32 "
+                "only until the bf16 model path (ROADMAP.md queue 1 item 5)")
+        if self.remat:
+            raise NotImplementedError(
+                "remat: gradient checkpointing is not ported yet (ROADMAP.md "
+                "queue 1 item 5)")
 
     def get_model(self, device=None, seed: int = 0):
         """26-channel-reg YOLOX in eval mode on ``device`` (the card unless
         ``"cpu"`` is asked for), channels_last, with seeded random weights;
         load a state_dict over them for trained weights."""
+        self.check_supported()
         device = resolve_device(device)
         model = YOLOX(depth=self.depth, width=self.width,
-                      num_classes=self.num_classes, reg_dim=26)
+                      num_classes=self.num_classes, reg_dim=26, act=self.act)
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 

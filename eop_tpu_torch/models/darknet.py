@@ -23,29 +23,32 @@ from ..ops.blocks import BaseConv, CSPLayer, Focus, SPPBottleneck
 
 class CSPDarknet(nn.Module):
     def __init__(self, dep_mul: float = 1.0, wid_mul: float = 1.0,
-                 out_features: Sequence[str] = ("dark3", "dark4", "dark5")):
+                 out_features: Sequence[str] = ("dark3", "dark4", "dark5"),
+                 act: str = "silu"):
         super().__init__()
         self.out_features = tuple(out_features)
         base_ch = int(wid_mul * 64)
         base_depth = max(round(dep_mul * 3), 1)
 
-        self.stem = Focus(3, base_ch, ksize=3, phase_conv=True)
+        kernel = dict(act=act, phase_conv=True)
+        self.stem = Focus(3, base_ch, ksize=3, **kernel)
         self.dark2 = nn.Sequential(
-            BaseConv(base_ch, base_ch * 2, 3, 2, phase_conv=True),
-            CSPLayer(base_ch * 2, base_ch * 2, n=base_depth, phase_conv=True),
+            BaseConv(base_ch, base_ch * 2, 3, 2, **kernel),
+            CSPLayer(base_ch * 2, base_ch * 2, n=base_depth, **kernel),
         )
         self.dark3 = nn.Sequential(
-            BaseConv(base_ch * 2, base_ch * 4, 3, 2, phase_conv=True),
-            CSPLayer(base_ch * 4, base_ch * 4, n=base_depth * 3),
+            BaseConv(base_ch * 2, base_ch * 4, 3, 2, **kernel),
+            CSPLayer(base_ch * 4, base_ch * 4, n=base_depth * 3, act=act),
         )
         self.dark4 = nn.Sequential(
-            BaseConv(base_ch * 4, base_ch * 8, 3, 2),
-            CSPLayer(base_ch * 8, base_ch * 8, n=base_depth * 3),
+            BaseConv(base_ch * 4, base_ch * 8, 3, 2, act=act),
+            CSPLayer(base_ch * 8, base_ch * 8, n=base_depth * 3, act=act),
         )
         self.dark5 = nn.Sequential(
-            BaseConv(base_ch * 8, base_ch * 16, 3, 2),
-            SPPBottleneck(base_ch * 16, base_ch * 16),
-            CSPLayer(base_ch * 16, base_ch * 16, n=base_depth, shortcut=False),
+            BaseConv(base_ch * 8, base_ch * 16, 3, 2, act=act),
+            SPPBottleneck(base_ch * 16, base_ch * 16, act=act),
+            CSPLayer(base_ch * 16, base_ch * 16, n=base_depth, shortcut=False,
+                     act=act),
         )
 
     def forward(self, x):

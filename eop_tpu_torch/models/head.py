@@ -30,7 +30,7 @@ class YOLOXHead(nn.Module):
 
     def __init__(self, num_classes: int = 80, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 reg_dim: int = 4):
+                 reg_dim: int = 4, act: str = "silu"):
         super().__init__()
         self.num_classes = num_classes
         self.reg_dim = reg_dim
@@ -42,10 +42,11 @@ class YOLOXHead(nn.Module):
         self.reg_preds = nn.ModuleList()
         self.obj_preds = nn.ModuleList()
         for c in in_channels:
-            self.stems.append(BaseConv(int(c * width), hidden, 1))
+            self.stems.append(BaseConv(int(c * width), hidden, 1, act=act))
             for convs in (self.cls_convs, self.reg_convs):
-                convs.append(nn.Sequential(BaseConv(hidden, hidden, 3),
-                                           BaseConv(hidden, hidden, 3)))
+                convs.append(nn.Sequential(
+                    BaseConv(hidden, hidden, 3, act=act),
+                    BaseConv(hidden, hidden, 3, act=act)))
             self.cls_preds.append(nn.Conv2d(hidden, num_classes, 1))
             self.reg_preds.append(nn.Conv2d(hidden, reg_dim, 1))
             self.obj_preds.append(nn.Conv2d(hidden, 1, 1))

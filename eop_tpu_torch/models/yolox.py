@@ -29,10 +29,11 @@ class YOLOX(nn.Module):
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  num_classes: int = 80, reg_dim: int = 4,
-                 in_channels: Sequence[int] = (256, 512, 1024)):
+                 in_channels: Sequence[int] = (256, 512, 1024),
+                 act: str = "silu"):
         super().__init__()
-        self.backbone = YOLOPAFPN(depth, width, in_channels)
-        self.head = YOLOXHead(num_classes, width, in_channels, reg_dim)
+        self.backbone = YOLOPAFPN(depth, width, in_channels, act)
+        self.head = YOLOXHead(num_classes, width, in_channels, reg_dim, act)
 
     def forward(self, x):
         fpn_outs = self.backbone(x)

@@ -15,7 +15,9 @@ a JAX export loads with ``strict=True``.
   kernel's contiguous NHWC input at no cost.  In eval mode without autograd
   the BatchNorm (folded to ``scale``, ``shift``; the form of
   ``eop_tpu/utils/model_utils.py::fuse_conv_bn``) and the SiLU go into the
-  kernel's epilogue; in train mode, or with autograd on, ``bn`` and ``act``
+  kernel's epilogue (SiLU is the only activation it has: a ``relu`` or
+  ``lrelu`` conv launches the kernel without it and applies ``bn`` and
+  ``act`` after); in train mode, or with autograd on, ``bn`` and ``act``
   run as modules and the convolution goes through
   :class:`eop_tpu_torch.ops.phase_conv.PhaseConvFunction`, whose backward
   launches the hand-written data- and weight-gradient kernels, so the
@@ -37,6 +39,18 @@ from .phase_conv import phase_conv as _phase_conv
 BN_MOMENTUM = 0.03  # torch convention; flax 0.97
 BN_EPS = 1e-3
 SPP_KERNELS = (5, 9, 13)
+
+
+def get_activation(name: str = "silu") -> nn.Module:
+    """Activation by name, the registry of ``eop_tpu/ops/blocks.py``:
+    ``silu``, ``relu``, ``lrelu`` (slope 0.1); any other name raises."""
+    if name == "silu":
+        return nn.SiLU()
+    if name == "relu":
+        return nn.ReLU()
+    if name == "lrelu":
+        return nn.LeakyReLU(0.1)
+    raise AttributeError(f"Unsupported act type: {name}")
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -120,7 +134,7 @@ def maxpool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:
 
 
 class BaseConv(nn.Module):
-    """Conv2d -> BatchNorm -> SiLU, torch-"same" padding ``(k-1)//2``.
+    """Conv2d -> BatchNorm -> ``act``, torch-"same" padding ``(k-1)//2``.
 
     ``phase_conv`` routes the convolution through the ``phase_conv`` kernel.
     The kernel's HWIO weight and the folded BatchNorm are derived from the
@@ -130,12 +144,13 @@ class BaseConv(nn.Module):
     """
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
-                 stride: int = 1, phase_conv: bool = False):
+                 stride: int = 1, act: str = "silu", phase_conv: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                               (ksize - 1) // 2, bias=False)
         self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
-        self.act = nn.SiLU()
+        self.act = get_activation(act)
+        self.act_name = act
         self.phase_conv = phase_conv
         self._hwio_key = None
         self._hwio_cached = None
@@ -180,7 +195,8 @@ class BaseConv(nn.Module):
             w, stride, pad = self._hwio_args()
             x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
                 0, 2, 3, 1)
-            if not self.training and not torch.is_grad_enabled():
+            if (not self.training and not torch.is_grad_enabled()
+                    and self.act_name == "silu"):
                 scale, shift = self._folded_bn()
                 return _phase_conv(x_nhwc, w, stride, pad, scale, shift,
                                    "silu").permute(0, 3, 1, 2)
@@ -196,10 +212,12 @@ class Bottleneck(nn.Module):
     expansion 1.0, channels in == out)."""
 
     def __init__(self, channels: int, shortcut: bool = True,
-                 phase_conv: bool = False):
+                 act: str = "silu", phase_conv: bool = False):
         super().__init__()
-        self.conv1 = BaseConv(channels, channels, 1, phase_conv=phase_conv)
-        self.conv2 = BaseConv(channels, channels, 3, phase_conv=phase_conv)
+        self.conv1 = BaseConv(channels, channels, 1, act=act,
+                              phase_conv=phase_conv)
+        self.conv2 = BaseConv(channels, channels, 3, act=act,
+                              phase_conv=phase_conv)
         self.use_add = shortcut
 
     def forward(self, x):
@@ -213,13 +231,15 @@ class SPPBottleneck(nn.Module):
     :func:`maxpool_same`, the same values with the JAX backward that splits
     the gradient equally across tied maxima."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 act: str = "silu"):
         super().__init__()
         hidden = in_channels // 2
-        self.conv1 = BaseConv(in_channels, hidden, 1)
+        self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
         self.m = nn.ModuleList(
             nn.MaxPool2d(ks, stride=1, padding=ks // 2) for ks in SPP_KERNELS)
-        self.conv2 = BaseConv(hidden * (len(SPP_KERNELS) + 1), out_channels, 1)
+        self.conv2 = BaseConv(hidden * (len(SPP_KERNELS) + 1), out_channels, 1,
+                              act=act)
 
     def forward(self, x):
         x = self.conv1(x)
@@ -235,15 +255,16 @@ class CSPLayer(nn.Module):
     0.5)."""
 
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
-                 shortcut: bool = True, phase_conv: bool = False):
+                 shortcut: bool = True, act: str = "silu",
+                 phase_conv: bool = False):
         super().__init__()
         hidden = out_channels // 2
-        self.conv1 = BaseConv(in_channels, hidden, 1, phase_conv=phase_conv)
-        self.conv2 = BaseConv(in_channels, hidden, 1, phase_conv=phase_conv)
-        self.conv3 = BaseConv(2 * hidden, out_channels, 1,
-                              phase_conv=phase_conv)
+        conv = dict(act=act, phase_conv=phase_conv)
+        self.conv1 = BaseConv(in_channels, hidden, 1, **conv)
+        self.conv2 = BaseConv(in_channels, hidden, 1, **conv)
+        self.conv3 = BaseConv(2 * hidden, out_channels, 1, **conv)
         self.m = nn.Sequential(*(
-            Bottleneck(hidden, shortcut, phase_conv) for _ in range(n)))
+            Bottleneck(hidden, shortcut, **conv) for _ in range(n)))
 
     def forward(self, x):
         x1 = self.m(self.conv1(x))
@@ -281,10 +302,10 @@ class Focus(nn.Module):
     the folded stride-2 conv over the raw image."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 1,
-                 phase_conv: bool = False):
+                 act: str = "silu", phase_conv: bool = False):
         super().__init__()
         self.conv = _FoldedFocusConv(in_channels * 4, out_channels, ksize,
-                                     phase_conv=phase_conv)
+                                     act=act, phase_conv=phase_conv)
 
     def forward(self, x):
         return self.conv(x)

@@ -6,7 +6,9 @@ Endpoints:
 * ``POST /v1/detect`` — body: raw uint8 HWC bytes with an
   ``X-Raw-Shape: H,W,3`` header (no decode; every dim must be positive and
   H*W*3 must equal the body length), or an encoded JPEG/PNG/BMP image,
-  decoded with OpenCV where it is installed (415 where it is not).
+  decoded by ``data/image_io.imdecode`` (baseline JPEG, PNG and 24-bit BMP
+  without OpenCV; other kinds through OpenCV where it is installed, 415
+  naming the kind where it is not; a corrupt body 400).
   Response: ``{"detections": [...], "image_hw": [H, W], "ms": float}``
   with coordinates in the posted image's pixel space.
 * ``GET /v1/stats`` — batcher/service counters.
@@ -25,39 +27,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from ..data.image_io import UnsupportedImageError, declared_size, imdecode
 from .batcher import BatcherClosedError, QueueFullError
 
 MAX_BODY_BYTES = 32 * 1024 * 1024
 # cap on DECODED pixels: a small PNG can declare a huge image, so dims are
-# read from the container header and checked before any decode
+# read from the container header (image_io.declared_size) before any decode
 MAX_PIXELS = 64 * 1024 * 1024
-
-
-def _declared_dims(buf: bytes):
-    """(h, w) declared by a JPEG/PNG/BMP header, or None if not parseable.
-    Pure header reads — nothing is decoded."""
-    if buf[:8] == b"\x89PNG\r\n\x1a\n" and len(buf) >= 24:
-        return (int.from_bytes(buf[20:24], "big"),
-                int.from_bytes(buf[16:20], "big"))
-    if buf[:2] == b"BM" and len(buf) >= 26:
-        return (abs(int.from_bytes(buf[22:26], "little", signed=True)),
-                int.from_bytes(buf[18:22], "little", signed=True))
-    if buf[:2] == b"\xff\xd8":  # JPEG: find the first SOF segment
-        i = 2
-        while i + 9 < len(buf):
-            if buf[i] != 0xFF:
-                i += 1
-                continue
-            marker = buf[i + 1]
-            if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:
-                i += 2
-                continue
-            seg_len = int.from_bytes(buf[i + 2:i + 4], "big")
-            if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-                return (int.from_bytes(buf[i + 5:i + 7], "big"),
-                        int.from_bytes(buf[i + 7:i + 9], "big"))
-            i += 2 + seg_len
-    return None
 
 
 def _raw_image(raw: bytes, shape_hdr: str):
@@ -78,7 +54,10 @@ def decode_request_image(raw: bytes, shape_hdr):
     """Request body -> ``(img, None)`` or ``(None, (status, payload))``."""
     if shape_hdr:
         return _raw_image(raw, shape_hdr)
-    dims = _declared_dims(raw)
+    try:
+        dims = declared_size(raw)
+    except ValueError as e:
+        return None, (400, {"error": f"corrupt image header: {e}"})
     if dims is None:
         return None, (400, {
             "error": "unsupported or corrupt image format "
@@ -86,20 +65,16 @@ def decode_request_image(raw: bytes, shape_hdr):
         })
     if dims[0] * dims[1] > MAX_PIXELS:
         return None, (413, {
-            "error": f"image {dims[0]}x{dims[1]} exceeds "
+            "error": f"image {dims[0]}x{dims[1]} (w x h) exceeds "
                      f"{MAX_PIXELS} decoded pixels",
         })
     try:
-        import cv2
-    except ImportError:
+        return imdecode(raw), None
+    except UnsupportedImageError as e:
         return None, (415, {
-            "error": "decoding JPEG/PNG/BMP needs OpenCV (cv2), which this "
-                     "server lacks; send raw uint8 with X-Raw-Shape: H,W,3",
-        })
-    img = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
-    if img is None:
-        return None, (400, {"error": "could not decode image"})
-    return img, None
+            "error": f"{e}; send raw uint8 with X-Raw-Shape: H,W,3"})
+    except ValueError as e:
+        return None, (400, {"error": f"could not decode image: {e}"})
 
 
 def make_http_server(service, host: str = "0.0.0.0", port: int = 8000,

@@ -7,6 +7,12 @@ scheduling, and with ``args.eval`` the COCO-24p evaluation every
 ``eval_interval`` epochs (EMA weights where ``exp.ema``) that keeps
 ``best_ckpt.pth``.  One device; mesh parallelism and the GT-vs-prediction
 overlay are not ported yet.
+
+Where ``tensorboardX`` is installed, every step writes one row of scalars,
+as ``eop_tpu``'s trainer does; the steps keep their metrics on the device
+and the print step fetches them all in one transfer, so the loop still
+synchronises with the device once per ``print_interval`` steps (and once
+at the end of an epoch that leaves steps unwritten).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ class Trainer24P:
         self.train_loader = exp.get_data_loader(args.batch_size)
         self.iters_per_epoch = len(self.train_loader)
 
+        self.host_fetches = 0  # metric transfers to the host
         self.tblogger = None
         try:
             from tensorboardX import SummaryWriter
@@ -95,6 +102,7 @@ class Trainer24P:
         # one persistent iterator: the loader never runs out, and a new one
         # would start its worker processes again
         it = iter(self.train_loader)
+        tb_pending = []  # (step, device metrics) not yet written
         for epoch in range(self.start_epoch, self.max_epoch):
             self.epoch = epoch
             use_l1 = epoch >= self.max_epoch - exp.L1_epoch
@@ -107,10 +115,14 @@ class Trainer24P:
                 labels = torch.as_tensor(labels).to(
                     self.device, torch.float32, non_blocking=True)
                 state, metrics = step_fn(state, imgs, labels)
+                if self.tblogger is not None:
+                    tb_pending.append((global_step, metrics))
                 if (i + 1) % exp.print_interval == 0:
-                    # the only host fetch of the loop: one transfer for the
-                    # whole metric tree
-                    host = {k: v.cpu() for k, v in metrics.items()}
+                    # one host fetch: a single transfer for this
+                    # step's metrics and those the tensorboard rows wait on
+                    rows = self._fetch(tb_pending or [(global_step, metrics)])
+                    tb_pending = []
+                    host = rows[-1][1]
                     dropped = int(host["cand_dropped"])
                     logger.info(
                         f"epoch {epoch + 1}/{self.max_epoch} "
@@ -122,8 +134,11 @@ class Trainer24P:
                         + (f" cand_dropped {dropped}" if dropped else ""))
                     # sampled at print cadence: each probe is a host fetch
                     self.drop_monitor.update(dropped)
-                    self._tb_data(host, global_step)
+                    self._tb_rows(rows)
                 global_step += 1
+            if tb_pending:
+                self._tb_rows(self._fetch(tb_pending))
+                tb_pending = []
             logger.info(
                 f"epoch {epoch + 1} done in {time.time() - epoch_start:.1f}s")
             want_eval = (evaluator is not None
@@ -179,11 +194,29 @@ class Trainer24P:
                     else payload.get("metadata", {}).get("start_epoch", 0))
         return state
 
+    def _fetch(self, rows):
+        """``[(step, device metrics)]`` -> the same with numpy metrics, in
+        one device-to-host transfer."""
+        flat = torch.cat([v.detach().reshape(-1).double()
+                          for _, m in rows for v in m.values()]).cpu().numpy()
+        self.host_fetches += 1
+        out, at = [], 0
+        for step, m in rows:
+            host = {}
+            for k, v in m.items():
+                host[k] = flat[at:at + v.numel()].reshape(v.shape)
+                at += v.numel()
+            out.append((step, host))
+        return out
+
+    def _tb_rows(self, rows):
+        if self.tblogger is not None:
+            for step, metrics in rows:
+                self._tb_data(metrics, step)
+
     def _tb_data(self, metrics, step: int):
-        """Observability at print cadence: total/conf/cls, the 24 per-radius
-        IoU losses and the DWA weights (``metrics`` on the host)."""
-        if self.tblogger is None:
-            return
+        """One step's row: total/conf/cls, the 24 per-radius IoU losses and
+        the DWA weights (``metrics`` on the host)."""
         tb = self.tblogger
         tb.add_scalar("train/total_loss", float(metrics["total_loss"]), step)
         tb.add_scalar("train/conf_loss", float(metrics["conf_loss"]), step)

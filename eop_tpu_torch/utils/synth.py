@@ -7,16 +7,19 @@ The random stream is a ``torch.Generator``'s, not JAX's, so a comparison of
 the two packages feeds both the same numpy arrays instead.
 
 ``write_24p_dataset``: a seeded dataset on disk in the txt-label layout
-(``tools/make_synth_datasets.py``'s recipe), its images BMP content under
-``.jpg`` names, written with numpy alone so that a machine without an image
-library reads it.  ``LabelOracle``: an ``infer_fn`` that answers with a
-dataset's labels, for which an evaluator must give AP 1.
+(``tools/make_synth_datasets.py``'s recipe), its images under ``.jpg`` names
+as BMP, baseline JPEG or PNG content, written with numpy and the standard
+library alone (``write_bmp``, ``write_jpeg``, ``write_png``) so that a
+machine without an image library writes and reads it.  ``LabelOracle``: an
+``infer_fn`` that answers with a dataset's labels, for which an evaluator
+must give AP 1.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import zlib
 
 import numpy as np
 import torch
@@ -62,34 +65,354 @@ def write_bmp(path: str, img: np.ndarray) -> None:
         f.write(header + rows.tobytes())
 
 
-def write_24p_dataset(root: str, n: int, hw, seed: int = 0):
-    """``n`` images of ``hw`` with 1-3 discs in class colours on noise,
-    labels ``[cls, cx, cy, 24 x (x, y)]`` normalized to the image: images
-    ``root/imgs/{i:012}.jpg`` of BMP content, labels
-    ``root/labels/{i:012}.txt``.  Returns (image dir, label dir)."""
+# ITU T.81 Annex K: quantization tables (natural order) and the Huffman
+# tables as (code counts for lengths 1..16, symbols)
+_QUANT_LUMA = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_QUANT_CHROMA = np.full(64, 99)
+_QUANT_CHROMA[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [
+    17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+_HUFF_DC_LUMA = ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0),
+                 tuple(range(12)))
+_HUFF_DC_CHROMA = ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0),
+                   tuple(range(12)))
+_HUFF_AC_LUMA = ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d),
+                 bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"))
+_HUFF_AC_CHROMA = ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77),
+                   bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa"))
+# zigzag position -> natural (row-major) index
+_ZIGZAG = np.array(sorted(range(64), key=lambda i: (
+    i // 8 + i % 8, (i % 8 if (i // 8 + i % 8) % 2 == 0 else i // 8))))
+_BIT_LENGTH = np.array([0] + [int(v).bit_length() for v in range(1, 1 << 16)],
+                       np.int64)
+
+
+def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
+    """IJG's quality scaling (jcparam.c), limited to baseline's 1..255."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((base * scale + 50) // 100, 1, 255)
+
+
+def _descale(x: np.ndarray, n: int) -> np.ndarray:
+    return (x + (1 << (n - 1))) >> n
+
+
+def _fdct_1d(d: np.ndarray, final: bool) -> np.ndarray:
+    """jfdctint.c's integer forward DCT along the last axis: the first pass
+    (``final`` False) keeps PASS1_BITS (2) more bits, the second removes
+    them; CONST_BITS 13."""
+    shift = 15 if final else 11
+    t0, t7 = d[..., 0] + d[..., 7], d[..., 0] - d[..., 7]
+    t1, t6 = d[..., 1] + d[..., 6], d[..., 1] - d[..., 6]
+    t2, t5 = d[..., 2] + d[..., 5], d[..., 2] - d[..., 5]
+    t3, t4 = d[..., 3] + d[..., 4], d[..., 3] - d[..., 4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    out = np.empty_like(d)
+    if final:
+        out[..., 0] = _descale(t10 + t11, 2)
+        out[..., 4] = _descale(t10 - t11, 2)
+    else:
+        out[..., 0] = (t10 + t11) << 2
+        out[..., 4] = (t10 - t11) << 2
+    z1 = (t12 + t13) * 4433
+    out[..., 2] = _descale(z1 + t13 * 6270, shift)
+    out[..., 6] = _descale(z1 - t12 * 15137, shift)
+    z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+    z5 = (z3 + z4) * 9633
+    z1, z2 = z1 * -7373, z2 * -20995
+    z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+    out[..., 7] = _descale(t4 * 2446 + z1 + z3, shift)
+    out[..., 5] = _descale(t5 * 16819 + z2 + z4, shift)
+    out[..., 3] = _descale(t6 * 25172 + z2 + z3, shift)
+    out[..., 1] = _descale(t7 * 12299 + z1 + z4, shift)
+    return out
+
+
+def _quantize(coef: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """jcdctmgr.c: the 8x-scaled DCT over 8 q, rounded half away from 0."""
+    div = q * 8
+    mag = (np.abs(coef) + (div >> 1)) // div
+    return np.where(coef < 0, -mag, mag)
+
+
+def _huffman_codes(table):
+    """(codes[256], lengths[256]) of a (counts, symbols) table."""
+    counts, symbols = table
+    codes = np.zeros(256, np.int64)
+    lengths = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            codes[symbols[k]], lengths[symbols[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return codes, lengths
+
+
+def _segment(marker: int, body: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(body) + 2).to_bytes(2, "big") + body
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """MSB-first concatenation of ``lengths[i]``-bit ``values[i]`` (each at
+    most 32 bits), padded with 1-bits to a byte, with JPEG's 0xFF 0x00
+    stuffing."""
+    offsets = np.cumsum(lengths) - lengths
+    total = int(offsets[-1] + lengths[-1]) if len(lengths) else 0
+    words = (total + 31) // 32 + 1
+    # each value inside a 64-bit window that starts at its 32-bit word; the
+    # fields do not overlap, so summing them sets their bits
+    window = values.astype(np.uint64) << (
+        64 - (offsets & 31) - lengths).astype(np.uint64)
+    at = offsets >> 5
+    acc = (np.bincount(at, (window >> np.uint64(32)).astype(np.float64),
+                       words)
+           + np.bincount(at + 1, (window & np.uint64(0xFFFFFFFF)).astype(
+               np.float64), words + 1)[:words])
+    data = np.frombuffer(acc.astype(np.uint64).astype(">u4").tobytes(),
+                         np.uint8)[:(total + 7) // 8].copy()
+    if total % 8:
+        data[-1] |= 0xFF >> (total % 8)
+    ff = np.flatnonzero(data == 0xFF)
+    out = np.repeat(data, 1 + (data == 0xFF))
+    out[ff + np.arange(len(ff)) + 1] = 0
+    return out.tobytes()
+
+
+def encode_jpeg(img: np.ndarray, quality: int = 95,
+                sampling: str = "4:2:0") -> bytes:
+    """A baseline JPEG of a BGR uint8 ``[H, W, 3]`` image: JFIF YCbCr,
+    ``sampling`` ``"4:2:0"`` (OpenCV's default) or ``"4:4:4"``, the Annex K
+    quantization tables at IJG's ``quality`` scaling and the Annex K Huffman
+    tables, one interleaved scan; libjpeg's integer colour conversion and
+    forward DCT, vectorized over all blocks, so the bytes are the same on
+    every machine.  Valid and deterministic, not bit-equal to another
+    encoder (its downsampling and Huffman packing are its own)."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected BGR uint8 [H, W, 3], got {img.dtype} "
+                         f"{img.shape}")
+    if sampling not in ("4:2:0", "4:4:4"):
+        raise ValueError(f"sampling {sampling!r}: '4:2:0' or '4:4:4'")
+    h, w, _ = img.shape
+    sub = 2 if sampling == "4:2:0" else 1
+    mcu = 8 * sub
+    mh, mw = -(-h // mcu), -(-w // mcu)
+    px = np.pad(img.astype(np.int64),
+                ((0, mh * mcu - h), (0, mw * mcu - w), (0, 0)), mode="edge")
+    b, g, r = px[..., 0], px[..., 1], px[..., 2]
+    # jccolor.c's fixed-point RGB -> YCbCr (SCALEBITS 16)
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + (128 << 16) + 32767) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + (128 << 16) + 32767) >> 16
+    if sub == 2:
+        cb = (cb.reshape(mh * 8, 2, mw * 8, 2).sum((1, 3)) + 2) >> 2
+        cr = (cr.reshape(mh * 8, 2, mw * 8, 2).sum((1, 3)) + 2) >> 2
+    quant = [_quant_table(_QUANT_LUMA, quality),
+             _quant_table(_QUANT_CHROMA, quality)]
+
+    def blocks(plane, q):
+        """[mh, mw, sub*sub (or 1), 64] quantized zigzag coefficients in
+        each MCU's block order."""
+        n = plane.shape[0] // 8, plane.shape[1] // 8
+        blk = plane.reshape(n[0], 8, n[1], 8).transpose(0, 2, 1, 3) - 128
+        blk = _fdct_1d(blk, final=False)
+        blk = _fdct_1d(blk.swapaxes(-1, -2), final=True).swapaxes(-1, -2)
+        coef = _quantize(blk.reshape(*n, 64), q)[..., _ZIGZAG]
+        k = n[0] // mh
+        return coef.reshape(mh, k, mw, k, 64).transpose(0, 2, 1, 3, 4) \
+            .reshape(mh, mw, k * k, 64)
+
+    mcus = np.concatenate([blocks(y, quant[0]), blocks(cb, quant[1]),
+                           blocks(cr, quant[1])], axis=2)
+    comp = np.array([0] * (sub * sub) + [1, 2])
+    coef = mcus.reshape(-1, 64)
+    comp = np.tile(comp, mh * mw)
+    table = np.minimum(comp, 1)  # 0: luma tables, 1: chroma tables
+    dc = coef[:, 0].copy()
+    for c in range(3):
+        idx = np.flatnonzero(comp == c)
+        dc[idx] = np.diff(coef[idx, 0], prepend=0)
+
+    def magnitude(v):
+        """(JPEG size category, its extra bits) of each value."""
+        s = _BIT_LENGTH[np.abs(v)]
+        return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+    dc_codes = [_huffman_codes(t) for t in (_HUFF_DC_LUMA, _HUFF_DC_CHROMA)]
+    ac_codes = [_huffman_codes(t) for t in (_HUFF_AC_LUMA, _HUFF_AC_CHROMA)]
+
+    def items(symbols, tables, size, bits):
+        code = np.where(tables == 0, tables_codes[0][0][symbols],
+                        tables_codes[1][0][symbols])
+        length = np.where(tables == 0, tables_codes[0][1][symbols],
+                          tables_codes[1][1][symbols])
+        return (code << size) | bits, length + size
+
+    keys, values, lengths = [], [], []
+    # DC: one item a block
+    s, extra = magnitude(dc)
+    tables_codes = dc_codes
+    v, n = items(s, table, s, extra)
+    blocks_idx = np.arange(len(coef))
+    keys.append(blocks_idx * 1024)
+    values.append(v)
+    lengths.append(n)
+    tables_codes = ac_codes
+    # AC: each nonzero coefficient, after 16-zero runs (ZRL) where needed
+    blk, k = np.nonzero(coef[:, 1:])
+    k = k + 1
+    first = np.ones(len(blk), bool)
+    first[1:] = blk[1:] != blk[:-1]
+    prev = np.where(first, 0, np.roll(k, 1))
+    run = k - prev - 1
+    s, extra = magnitude(coef[blk, k])
+    v, n = items((run % 16) * 16 + s, table[blk], s, extra)
+    keys.append(blk * 1024 + k * 8 + 7)
+    values.append(v)
+    lengths.append(n)
+    zrl = run // 16
+    zblk = np.repeat(blk, zrl)
+    zk = np.repeat(k, zrl)
+    zi = np.arange(len(zblk)) - np.repeat(np.cumsum(zrl) - zrl, zrl)
+    zero = np.zeros(len(zblk), np.int64)
+    v, n = items(zero + 0xF0, table[zblk], zero, zero)
+    keys.append(zblk * 1024 + zk * 8 + zi)
+    values.append(v)
+    lengths.append(n)
+    # EOB where the block's last coefficient is zero
+    eob = np.flatnonzero(coef[:, 63] == 0)
+    zero = np.zeros(len(eob), np.int64)
+    v, n = items(zero, table[eob], zero, zero)
+    keys.append(eob * 1024 + 1000)
+    values.append(v)
+    lengths.append(n)
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    data = _pack_bits(np.concatenate(values)[order],
+                      np.concatenate(lengths)[order])
+
+    out = [b"\xff\xd8",
+           _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
+    for t, q in enumerate(quant):
+        out.append(_segment(0xDB, bytes([t]) + bytes(
+            q.astype(np.uint8)[_ZIGZAG].tolist())))
+    sof = h.to_bytes(2, "big") + w.to_bytes(2, "big") + b"\x03"
+    for c in range(3):
+        factors = (sub << 4 | sub) if c == 0 else 0x11
+        sof += bytes([c + 1, factors, min(c, 1)])
+    out.append(_segment(0xC0, b"\x08" + sof))
+    for cls, tabs in ((0, (_HUFF_DC_LUMA, _HUFF_DC_CHROMA)),
+                      (1, (_HUFF_AC_LUMA, _HUFF_AC_CHROMA))):
+        for t, (counts, symbols) in enumerate(tabs):
+            out.append(_segment(0xC4, bytes([cls << 4 | t, *counts])
+                                + bytes(symbols)))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out += [data, b"\xff\xd9"]
+    return b"".join(out)
+
+
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95,
+               sampling: str = "4:2:0") -> None:
+    """:func:`encode_jpeg` to a file."""
+    data = encode_jpeg(img, quality, sampling)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of a BGR uint8 ``[H, W, 3]`` image; row ``i`` uses
+    filter type ``i % 5`` (None, Sub, Up, Average, Paeth), so every filter
+    occurs; the stream is deflated with ``zlib``."""
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected BGR uint8 [H, W, 3], got {img.dtype} "
+                         f"{img.shape}")
+    h, w, _ = img.shape
+    x = img[:, :, ::-1].reshape(h, 3 * w).astype(np.int32)
+    zero_col = np.zeros((h, 3), np.int32)
+    left = np.concatenate([zero_col, x[:, :-3]], axis=1)
+    up = np.concatenate([np.zeros((1, 3 * w), np.int32), x[:-1]], axis=0)
+    upleft = np.concatenate([zero_col, up[:, :-3]], axis=1)
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    kind = np.arange(h) % 5
+    rows = (x - preds[kind, np.arange(h)]) & 0xFF
+    raw = np.concatenate([kind[:, None], rows], axis=1).astype(np.uint8)
+
+    def chunk(name: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + name + body
+                + zlib.crc32(name + body).to_bytes(4, "big"))
+
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """:func:`encode_png` to a file."""
+    data = encode_png(img)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+_WRITERS = {"bmp": write_bmp, "jpeg": write_jpeg, "png": write_png}
+
+
+def synthetic_24p_image(rng: np.random.RandomState, hw):
+    """One image of ``hw``: 1-3 discs in class colours on dark noise, and its
+    label rows ``[cls, cx, cy, 24 x (x, y)]`` normalized to the image
+    (``tools/make_synth_datasets.py``'s recipe)."""
     h, w = hw
     colors = ((0, 0, 255), (0, 255, 0), (255, 0, 0))
     ang = np.arange(24) * 15.0 * np.pi / 180.0
+    yy, xx = np.ogrid[:h, :w]
+    img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+    rows = []
+    for _ in range(rng.randint(1, 4)):
+        cls = rng.randint(0, 3)
+        r = rng.uniform(min(h, w) * 0.07, min(h, w) * 0.18)
+        cx = rng.uniform(r + 5, w - r - 5)
+        cy = rng.uniform(r + 5, h - r - 5)
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = colors[cls]
+        px, py = cx + r * np.cos(ang), cy + r * np.sin(ang)
+        rows.append([cls, cx / w, cy / h]
+                    + [v for xy in zip(px / w, py / h) for v in xy])
+    return img, np.asarray(rows)
+
+
+def write_24p_dataset(root: str, n: int, hw, seed: int = 0,
+                      fmt: str = "bmp"):
+    """``n`` seeded images of ``hw`` (:func:`synthetic_24p_image`) with
+    their labels: images ``root/imgs/{i:012}.jpg`` of ``fmt`` content
+    (``"bmp"``, ``"jpeg"``: quality 95, 4:2:0, or ``"png"``), labels
+    ``root/labels/{i:012}.txt``.  Returns (image dir, label dir)."""
+    if fmt not in _WRITERS:
+        raise ValueError(f"fmt {fmt!r}: one of {sorted(_WRITERS)}")
     rng = np.random.RandomState(seed)
     img_dir, lab_dir = os.path.join(root, "imgs"), os.path.join(root, "labels")
     os.makedirs(img_dir)
     os.makedirs(lab_dir)
-    yy, xx = np.ogrid[:h, :w]
     for i in range(n):
-        img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
-        rows = []
-        for _ in range(rng.randint(1, 4)):
-            cls = rng.randint(0, 3)
-            r = rng.uniform(min(h, w) * 0.07, min(h, w) * 0.18)
-            cx = rng.uniform(r + 5, w - r - 5)
-            cy = rng.uniform(r + 5, h - r - 5)
-            img[(xx - cx) ** 2 + (yy - cy) ** 2 <= r * r] = colors[cls]
-            px, py = cx + r * np.cos(ang), cy + r * np.sin(ang)
-            rows.append([cls, cx / w, cy / h]
-                        + [v for xy in zip(px / w, py / h) for v in xy])
-        write_bmp(os.path.join(img_dir, f"{i:012}.jpg"), img)
-        np.savetxt(os.path.join(lab_dir, f"{i:012}.txt"), np.asarray(rows),
-                   fmt="%.6f")
+        img, rows = synthetic_24p_image(rng, hw)
+        _WRITERS[fmt](os.path.join(img_dir, f"{i:012}.jpg"), img)
+        np.savetxt(os.path.join(lab_dir, f"{i:012}.txt"), rows, fmt="%.6f")
     return img_dir, lab_dir
 
 

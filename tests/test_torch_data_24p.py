@@ -55,15 +55,18 @@ def test_imread_is_cv2_imread_without_cv2(tmp_path, monkeypatch, ext, hw):
 
 
 def test_imread_needs_cv2_for_other_formats(tmp_path, monkeypatch):
+    """A format the port does not decode itself (TIFF; JPEG and PNG it
+    does) goes to cv2 where it is installed and raises, naming the format,
+    where it is not."""
     img = np.random.RandomState(0).randint(0, 256, (8, 10, 3)).astype(
         np.uint8)
     path = str(tmp_path / "a.jpg")
-    assert cv2.imwrite(str(tmp_path / "a.png"), img)
-    os.replace(tmp_path / "a.png", path)
+    assert cv2.imwrite(str(tmp_path / "a.tiff"), img)
+    os.replace(tmp_path / "a.tiff", path)
     np.testing.assert_array_equal(imread(path), cv2.imread(path))  # via cv2
     assert image_size(path) == (10, 8)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(RuntimeError, match="needs OpenCV"):
+    with pytest.raises(RuntimeError, match="TIFF needs OpenCV"):
         imread(path)
     with pytest.raises(RuntimeError, match="needs OpenCV"):
         image_size(path)

@@ -523,3 +523,84 @@ def test_eval_after_a_training_step_repacks_the_weights(cuda):
         scale = max(1.0, w.abs().max().item())
         assert (a - w).abs().max().item() <= 1e-4 * scale
         assert not torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_decoder_library_matches_the_pinned_digests(cuda):
+    """The host decoder built on the card's machine decodes the smoke's
+    seeded 720x1280 JPEGs and PNG to the digests the CPU tests pin (where
+    cv2 decodes them to the same bytes)."""
+    import hashlib
+
+    import chip_smoke
+    from eop_tpu_torch.data.image_io import imdecode
+
+    for kind, data in chip_smoke.decode_inputs().items():
+        img = imdecode(data)
+        assert hashlib.sha256(img.tobytes()).hexdigest() == \
+            chip_smoke.DECODE_DIGESTS[kind], kind
+
+
+@pytest.mark.gpu
+def test_http_jpeg_body_is_200_on_the_card(cuda):
+    """A JPEG body through the HTTP front end of a service on the card: 200,
+    and the detections of the raw body of its decoded pixels."""
+    import json
+    import threading
+    import urllib.request
+
+    from eop_tpu_torch.data.image_io import imdecode
+    from eop_tpu_torch.serving.http import make_http_server
+    from eop_tpu_torch.serving.service import DetectionService
+    from eop_tpu_torch.utils.synth import encode_jpeg
+
+    exp = _tiny_24p_exp((None, None), width=0.5)
+    exp.test_conf = 1e-5
+    svc = DetectionService.from_exp(exp, exp.get_model(cuda), batch=2,
+                                    src_hw=(48, 80), device=cuda,
+                                    max_wait_ms=5.0)
+    server = make_http_server(svc, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/detect"
+    body = encode_jpeg(np.random.RandomState(0).randint(
+        0, 256, (48, 80, 3), np.uint8))
+    answers = []
+    try:
+        for data, headers in ((body, {}), (imdecode(body).tobytes(),
+                                           {"X-Raw-Shape": "48,80,3"})):
+            req = urllib.request.Request(url, data=data, method="POST",
+                                         headers=headers)
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers.append((r.status, json.loads(r.read())))
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        thread.join(timeout=30)
+    assert [code for code, _ in answers] == [200, 200]
+    assert answers[0][1]["detections"] == answers[1][1]["detections"]
+    assert answers[0][1]["image_hw"] == [48, 80]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ["relu", "lrelu"])
+def test_non_silu_model_launches_phase_conv_unfused(cuda, act):
+    """An ``act`` the kernel's epilogue lacks: the 8 early convs still launch
+    the kernel, without the epilogue, and the heads agree with the CPU's."""
+    exp = _tiny_24p_exp((None, None), width=0.5)
+    exp.act = act
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        0, 255, (2, 3, 64, 64)).astype(np.float32))
+    model, plain = exp.get_model(cuda, seed=2), exp.get_model("cpu", seed=2)
+    launches, fused = pc.phase_conv.launches, pc.phase_conv.fused_launches
+    with torch.inference_mode():
+        got = model(x.to(cuda))[0]
+    torch.cuda.synchronize()
+    assert pc.phase_conv.launches - launches == 8
+    assert pc.phase_conv.fused_launches == fused
+    with torch.inference_mode():
+        want = plain(x)[0]
+    for g, w in zip(got, want):
+        scale = max(1.0, w.abs().max().item())
+        assert (g.cpu() - w).abs().max().item() <= 1e-3 * scale

@@ -45,7 +45,8 @@ def test_every_module_imports_without_jax():
     for name in ("serving.http", "tools.serve", "tools.train_24p",
                  "tools.eval", "data.image_io", "data.coco24p",
                  "data.dataloading", "data.coco_api", "eval.coco_eval",
-                 "eval.fast_cocoeval", "eval.evaluator_24p", "exp.build"):
+                 "eval.fast_cocoeval", "eval.evaluator_24p", "exp.build",
+                 "utils.synth"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]

@@ -6,8 +6,10 @@ import json
 import sys
 import threading
 import time
+import tracemalloc
 import urllib.error
 import urllib.request
+import zlib
 
 import numpy as np
 import pytest
@@ -19,11 +21,17 @@ import jax.numpy as jnp
 from eop_tpu.data.transforms import letterbox_batch_device as jax_letterbox
 from eop_tpu.exp.yolox_24p_base import Exp24P as JaxExp24P
 from eop_tpu.models import init_model
+from eop_tpu_torch.data.image_io import declared_size, imdecode
 from eop_tpu_torch.data.transforms import letterbox_batch_device, letterbox_host
 from eop_tpu_torch.exp import Exp24P
 from eop_tpu_torch.serving.batcher import DynamicBatcher, QueueFullError
-from eop_tpu_torch.serving.http import make_http_server
+from eop_tpu_torch.serving.http import (
+    MAX_PIXELS,
+    decode_request_image,
+    make_http_server,
+)
 from eop_tpu_torch.serving.service import DetectionService
+from eop_tpu_torch.utils.synth import encode_jpeg, encode_png, write_bmp
 from eop_tpu_torch.utils.weights import state_dict_from_jax
 
 
@@ -188,13 +196,138 @@ def test_http_rejects_bad_raw_shape(http_service, shape_hdr, nbytes):
 
 
 def test_http_encoded_image_without_cv2_is_415(http_service, monkeypatch):
+    """A kind the port does not decode (here a progressive JPEG: its SOF
+    says so) is 415, naming it, where the server has no cv2."""
     *_, base = http_service
-    png = b"\x89PNG\r\n\x1a\n" + b"\0" * 8 + (8).to_bytes(4, "big") * 2
+    body = bytearray(encode_jpeg(images(3, (20, 30, 3))))
+    sof = body.index(b"\xff\xc0")
+    body[sof + 1] = 0xC2
     monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 -> ImportError
-    code, payload = post(base + "/v1/detect", png + b"\0" * 16)
+    code, payload = post(base + "/v1/detect", bytes(body))
     assert code == 415 and "cv2" in payload["error"]
+    assert "progressive JPEG" in payload["error"]
     with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
         assert json.loads(r.read())["status"] == "ok"
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "png", "bmp"])
+def test_http_encoded_bodies_answer_as_their_decoded_pixels(
+        http_service, monkeypatch, kind, tmp_path):
+    """JPEG, PNG and BMP bodies decode without cv2, and each answer equals
+    the answer to the raw body of the decoded pixels (posted one at a time,
+    so both run alone in the same bucket)."""
+    *_, base = http_service
+    img = images(21, (52, 70, 3))
+    if kind == "bmp":
+        write_bmp(str(tmp_path / "a.bmp"), img)
+        body = (tmp_path / "a.bmp").read_bytes()
+    else:
+        body = encode_jpeg(img) if kind == "jpeg" else encode_png(img)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    pixels = imdecode(body)
+    if kind != "jpeg":
+        np.testing.assert_array_equal(pixels, img)
+    code, payload = post(base + "/v1/detect", body)
+    raw_code, raw_payload = post(base + "/v1/detect", pixels.tobytes(),
+                                 {"X-Raw-Shape": "52,70,3"})
+    assert code == raw_code == 200
+    assert payload["image_hw"] == [52, 70]
+    assert len(payload["detections"]) > 0
+    assert payload["detections"] == raw_payload["detections"]
+
+
+def test_http_corrupt_encoded_body_is_400(http_service, monkeypatch):
+    *_, base = http_service
+    body = encode_jpeg(images(4, (40, 40, 3)))
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    code, payload = post(base + "/v1/detect", body[:len(body) // 2])
+    assert code == 400 and "truncated JPEG data" in payload["error"]
+
+
+def png_chunk(kind: bytes, body: bytes) -> bytes:
+    return (len(body).to_bytes(4, "big") + kind + body
+            + zlib.crc32(kind + body).to_bytes(4, "big"))
+
+
+def forge_size(body: bytes, kind: str, w: int, h: int) -> bytes:
+    """``body`` with the width and height its header declares replaced."""
+    buf = bytearray(body)
+    if kind == "jpeg":
+        at = buf.index(b"\xff\xc0") + 5
+        buf[at:at + 4] = h.to_bytes(2, "big") + w.to_bytes(2, "big")
+    elif kind == "png":
+        ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + buf[24:29]
+        buf[8:33] = png_chunk(b"IHDR", bytes(ihdr))
+    else:
+        buf[18:26] = w.to_bytes(4, "little") + h.to_bytes(4, "little")
+    return bytes(buf)
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "png", "bmp"])
+def test_declared_size_and_bomb_rejection(kind, tmp_path):
+    """The size a header declares is the decoded image's, and a header that
+    declares more than MAX_PIXELS is 413 before any decode."""
+    img = images(5, (37, 53, 3))
+    if kind == "bmp":
+        write_bmp(str(tmp_path / "a.bmp"), img)
+        body = (tmp_path / "a.bmp").read_bytes()
+    else:
+        body = encode_jpeg(img) if kind == "jpeg" else encode_png(img)
+    assert declared_size(body) == (53, 37)
+    assert imdecode(body).shape == (37, 53, 3)
+    big = forge_size(body, kind, 50000, 50000)
+    assert declared_size(big) == (50000, 50000)
+    assert 50000 * 50000 > MAX_PIXELS
+    img, (code, payload) = decode_request_image(big, None)
+    assert img is None and code == 413, payload
+
+
+def test_unknown_or_corrupt_headers_are_400():
+    assert declared_size(b"GIF89a" + b"\0" * 64) is None
+    _, (code, _) = decode_request_image(b"GIF89a" + b"\0" * 64, None)
+    assert code == 400
+    jpeg = encode_jpeg(images(6, (20, 30, 3)))
+    head = jpeg[:jpeg.index(b"\xff\xda")]  # headers that end before a scan
+    _, (code, payload) = decode_request_image(head, None)
+    assert code == 400 and "truncated JPEG data" in payload["error"]
+
+
+def png_bomb(inflated_mib: int) -> bytes:
+    """A 1x1 RGB PNG whose IDAT stream inflates to ``inflated_mib`` MiB: its
+    one row (filter 0, BGR 30 20 10), then zeros."""
+    z = zlib.compressobj(9)
+    zeros = bytes(1 << 20)
+    idat = b"".join([z.compress(bytes([0, 10, 20, 30]))]
+                    + [z.compress(zeros) for _ in range(inflated_mib)]
+                    + [z.flush()])
+    ihdr = (1).to_bytes(4, "big") * 2 + bytes([8, 2, 0, 0, 0])
+    return (b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", ihdr)
+            + png_chunk(b"IDAT", idat) + png_chunk(b"IEND", b""))
+
+
+def test_http_png_bomb_decodes_in_bounded_memory(http_service, monkeypatch):
+    """A 1x1 PNG whose IDAT inflates to 128 MiB: only the rows the header
+    declares are inflated (libpng, under cv2.imdecode, decodes the same
+    pixel and warns of the rest), so the body decodes in a few MiB and is
+    answered as the raw pixel is."""
+    *_, base = http_service
+    body = png_bomb(128)
+    assert len(body) < 1 << 20
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    tracemalloc.start()
+    try:
+        img, err = decode_request_image(body, None)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert err is None and img.tolist() == [[[30, 20, 10]]]
+    assert peak < 8 << 20, peak
+    code, payload = post(base + "/v1/detect", body)
+    raw_code, raw_payload = post(base + "/v1/detect", img.tobytes(),
+                                 {"X-Raw-Shape": "1,1,3"})
+    assert code == raw_code == 200
+    assert payload["image_hw"] == [1, 1]
+    assert payload["detections"] == raw_payload["detections"]
 
 
 def test_batcher_coalesces_and_sheds_load():

@@ -423,3 +423,57 @@ def test_candidate_drop_monitor_warns_once_per_window(caplog):
             mon.update(dropped)
     assert len(caplog.records) == 1
     assert "shed 5 candidate anchors over the last 3" in caplog.text
+
+
+class RecordingWriter:
+    """A tensorboard writer that keeps its scalars: {tag: [(step, v)]}."""
+
+    def __init__(self):
+        self.scalars = {}
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.setdefault(tag, []).append((step, value))
+
+
+@pytest.mark.parametrize("with_writer", [True, False])
+def test_tensorboard_writes_one_row_per_step_with_one_fetch_per_print(
+        tmp_path, with_writer):
+    """``k x print_interval`` steps: a row of scalars per step, equal to the
+    step's metrics (eop_tpu writes every step), fetched to the host once per
+    print; without a writer the prints alone fetch."""
+    exp = make_exp(tmp_path, max_epoch=2, print_interval=ITERS)
+    trainer = Trainer24P(exp, args())
+    trainer.tblogger = RecordingWriter() if with_writer else None
+    steps = []
+    trainer.hook = lambda name, m=None: name == "step" and steps.append(
+        {k: v.clone() for k, v in m.items()})
+    trainer.train()
+    assert len(steps) == 2 * ITERS
+    assert trainer.host_fetches == 2  # one per print, nothing at epoch ends
+    if not with_writer:
+        return
+    tb = trainer.tblogger.scalars
+    assert len(tb) == 3 + 24 + 24 + 2 + 1
+    for tag, rows in tb.items():
+        assert [s for s, _ in rows] == list(range(2 * ITERS)), tag
+    for s, m in enumerate(steps):
+        assert tb["train/total_loss"][s][1] == float(m["total_loss"])
+        assert tb["train/cand_dropped"][s][1] == float(m["cand_dropped"])
+        assert tb["dwa_weight/obj"][s][1] == float(m["dwa_obj_w"])
+        for r in (0, 23):
+            assert tb[f"iou_loss/radius_{r:02d}"][s][1] == float(
+                m["iou_losses_24"][r])
+            assert tb[f"dwa_weight/reg_{r:02d}"][s][1] == float(
+                m["dwa_reg_w"][r])
+
+
+def test_tensorboard_rows_of_a_partial_print_window_flush_at_epoch_end(
+        tmp_path):
+    exp = make_exp(tmp_path, max_epoch=1, print_interval=2)
+    trainer = Trainer24P(exp, args())
+    trainer.tblogger = RecordingWriter()
+    trainer.train()
+    # iteration 2 prints (steps 0-1); step 2 is written at the epoch's end
+    assert [s for s, _ in trainer.tblogger.scalars["train/total_loss"]] == [
+        0, 1, 2]
+    assert trainer.host_fetches == 2
