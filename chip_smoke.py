@@ -25,6 +25,10 @@
    and holds that model on the card against the CPU;
 5. times the stages of one serving call on the device;
 6. runs one image through the port on the card and on the CPU and compares;
+   then serves 24p-s in bf16 (``compute_dtype bfloat16``): one call at batch
+   8 with its 8 fused launches and their variants, its detections against
+   the fp32 path's, its stages, the card against the CPU, and ``python -m
+   eop_tpu_torch.tools.serve -f`` with a bf16 exp file answering HTTP;
 7. holds the backward kernels of ``phase_conv`` (data and weight gradient,
    and the data gradients' weight packing) against their plain versions at
    the main-path shapes, at the training step's batch 32 and at batch 8,
@@ -38,7 +42,10 @@
    profiler, which kernels ran), and splits the step's device time into
    forward, loss, backward and optimizer + EMA;
 9. takes one training step's loss, assignment and gradients on the card and
-   on the CPU from one state and compares;
+   on the CPU from one state and compares; then trains in bf16 as in 8
+   (and the card against the CPU), then in bf16 with ``remat`` (16 forward
+   launches a step: the recompute's 8 counted apart; a lower peak memory;
+   the BatchNorm statistics of one step equal to those without ``remat``);
 10. writes a seeded synthetic 24p dataset of 720x1280 baseline JPEG images
     (quality 95, 4:2:0, written with numpy by ``utils/synth.py``) and txt
     labels to a temporary directory;
@@ -52,8 +59,9 @@
     oracle whose detections are the labels, on the card, which must score
     AP 1 through the native COCO matcher;
 13. runs the two command lines, ``python -m eop_tpu_torch.tools.train_24p
-    ... --eval`` and ``python -m eop_tpu_torch.tools.eval`` on its
-    checkpoint, and checks each prints an AP line;
+    ... --eval compute_dtype bfloat16`` and ``python -m
+    eop_tpu_torch.tools.eval`` on its checkpoint, and checks each prints an
+    AP line;
 14. drops the training loader with batches in flight a few more times, and
     checks that no loader worker died in any of the file phases.
 
@@ -61,8 +69,11 @@
 training loader dropped with batches in flight with and without its
 workers' exit hook (``data/dataloading.py::WorkerInit``), and the workers
 that died in each; without the hook every worker has ``faulthandler`` on
-for all its threads, writing to a file of its own, and the report carries
-what those files hold.
+for all its threads, writing to a file of its own, and the native
+terminate / SIGABRT handler of ``csrc/terminate_probe.cpp`` (built for the
+probe only), which writes the aborting thread's frames with their shared
+objects and the worker's threads to a second file; the report carries what
+those files hold.
 
 Every phase raises on failure.  Each phase prints one JSON line; the line
 before the last holds the kernels, the last line is the result.  Exits
@@ -283,6 +294,9 @@ def check_phase_conv():
             row["ms"] = cuda_ms(lambda: phase_conv(x, wgt, s, p))
             row["ms_fused"] = cuda_ms(lambda: phase_conv(x, wgt, s, p, **fused))
             row["ms_bf16"] = cuda_ms(lambda: phase_conv(x16, wgt16, s, p))
+            x16_nchw, w16_oihw = x16.permute(0, 3, 1, 2), w_oihw.bfloat16()
+            row["library_bf16_ms"] = cuda_ms(
+                lambda: F.conv2d(x16_nchw, w16_oihw, stride=s, padding=p))
             row["plain_ms"] = cuda_ms(
                 lambda: phase_conv_reference(x, wgt, s, p))
             row["library_ms"] = cuda_ms(
@@ -585,10 +599,214 @@ def serving_stages(smi: str, exp, model, iters: int = 10):
                             for e in top]}
 
 
+def enclosing_rects(rows: torch.Tensor) -> torch.Tensor:
+    """Detection rows ``[..., 29]`` -> the polygons' enclosing rectangles
+    ``[..., 4]`` (the boxes the NMS and COCO-24p AP use)."""
+    from eop_tpu_torch.ops.polygon import polygon_points_from_radii
+
+    pts = polygon_points_from_radii(rows[..., :2].float(),
+                                    rows[..., 2:26].float())
+    return torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
+
+
+def detections_vs(dets, ref) -> dict:
+    """Each image's detections against a reference's: the counts, and for
+    each detection the best IoU of its enclosing rectangle with one of the
+    reference's (median, and the share at 0.5 or more)."""
+    from eop_tpu_torch.ops.boxes import bboxes_iou
+
+    best = []
+    for b in range(dets.rows.shape[0]):
+        got = enclosing_rects(dets.rows[b][dets.valid[b]])
+        want = enclosing_rects(ref.rows[b][ref.valid[b]])
+        if len(got) and len(want):
+            best += bboxes_iou(got, want).amax(dim=1).cpu().tolist()
+    return {"count": int(dets.valid.sum()), "count_ref": int(ref.valid.sum()),
+            "matched_iou_median": float(np.median(best)) if best else 0.0,
+            "matched_iou_ge_0_5": (float(np.mean(np.asarray(best) >= 0.5))
+                                   if best else 0.0)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def serve_exp_file(smi: str, exp_text: str, requests: int = 4) -> dict:
+    """``python -m eop_tpu_torch.tools.serve -f <exp file>`` as a user starts
+    it (the card, batch 8), a few raw 640x640 requests over HTTP, then the
+    server stopped."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    exp_path = os.path.join(root, "exp_bf16.py")
+    with open(exp_path, "w") as f:
+        f.write(exp_text)
+    port = free_port()
+    cmd = [sys.executable, "-m", "eop_tpu_torch.tools.serve", "-f", exp_path,
+           "--batch", str(SERVE_BATCH), "--host", "127.0.0.1", "--port",
+           str(port), "--max-wait-ms", "20"]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        while True:  # the server prints its address once it listens
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError(f"serve -f ended: {''.join(lines)}")
+            lines.append(line)
+            if line.startswith("serving on"):
+                break
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"serve -f did not start: {lines}")
+        start_s = time.perf_counter() - t0
+        url = f"http://127.0.0.1:{port}"
+        rng = np.random.RandomState(4)
+        codes, n_dets, ms = [], [], []
+        for _ in range(requests):
+            body = rng.randint(0, 256, (640, 640, 3), np.uint8).tobytes()
+            req = urllib.request.Request(
+                f"{url}/v1/detect", data=body, method="POST",
+                headers={"X-Raw-Shape": "640,640,3"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                codes.append(r.status)
+                n_dets.append(len(json.loads(r.read())["detections"]))
+            ms.append(1e3 * (time.perf_counter() - t))
+        with urllib.request.urlopen(f"{url}/v1/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+        shutil.rmtree(root, ignore_errors=True)
+    report = {"serve_f_start_s": start_s, "serve_f_http_codes": codes,
+              "serve_f_detections": n_dets,
+              "serve_f_request_ms_median": float(np.median(ms)),
+              "serve_f_device_calls": stats.get("device_calls"),
+              "serve_f_banner": [ln.strip() for ln in lines[-2:]]}
+    if codes != [200] * requests or min(n_dets) <= 0:
+        raise AssertionError(f"serve -f: {report}")
+    return report
+
+
+# a bf16 exp file as users write one (parsed by exp/build.py, not imported)
+BF16_EXP_FILE = """from eop_tpu.exp import Exp24P as _Base
+
+
+class Exp(_Base):
+    def __init__(self):
+        super().__init__()
+        self.depth, self.width = 0.33, 0.50
+        self.num_classes = 80
+        self.compute_dtype = "bfloat16"
+        self.test_conf = 1e-05
+"""
+
+
+def serve_bf16(smi: str, model32):
+    """The bf16 24p-s serving call at B=8, 640 px: the early convs' launches
+    (counts set to 0 just before one call; all fused, on the tensor-core
+    variants), the detections against the fp32 path's on the same frames
+    (``model32``, the same seeded weights), the stages' device time, the
+    card against the CPU, and ``serve -f`` with a bf16 exp file."""
+    import eop_tpu_torch.ops.phase_conv  # noqa: F401  (the module itself)
+
+    pcm = sys.modules["eop_tpu_torch.ops.phase_conv"]
+    exp = serving_exp()
+    exp.compute_dtype = "bfloat16"
+    model = exp.get_model("cuda")
+    raw = np.random.RandomState(3).randint(0, 256, (SERVE_BATCH, 640, 640, 3),
+                                           np.uint8)
+    serve = exp.get_serving_fn(model, (640, 640), "cuda")
+    serve(raw)  # the weights' packing and cuDNN's first calls
+    launch, variants = pcm._launch_forward, []
+
+    def recording(x, w, *args, **kwargs):
+        y, variant = launch(x, w, *args, **kwargs)
+        variants.append(f"{variant}:{str(x.dtype).split('.')[-1]}")
+        return y, variant
+
+    _reset_counts()
+    pcm._launch_forward = recording
+    try:
+        dets = serve(raw)
+        torch.cuda.synchronize()
+    finally:
+        pcm._launch_forward = launch
+    launches = {"phase_conv": pcm.phase_conv.launches}
+    fused = pcm.phase_conv.fused_launches
+    ref = serving_exp().get_serving_fn(model32, (640, 640), "cuda")(raw)
+    report = {"phase": "serve_bf16", "card": smi, "compute_dtype": "bfloat16",
+              "batch": SERVE_BATCH, "phase_conv_launches": launches[
+                  "phase_conv"], "phase_conv_fused_launches": fused,
+              "variants": variants, "head_dtype": str(model.head.dtype),
+              **{f"vs_fp32_{k}": v for k, v in detections_vs(dets,
+                                                             ref).items()}}
+    want_variants = ["wgmma_rows:bfloat16"] + ["wgmma_taps:bfloat16"] * 7
+    if (launches["phase_conv"] != 8 or fused != 8
+            or variants != want_variants or report["vs_fp32_count"] == 0
+            or report["vs_fp32_matched_iou_median"] < 0.5):
+        raise AssertionError(f"bf16 serving: {report}")
+    stages = serving_stages(smi, exp, model)
+    report.update({k: v for k, v in stages.items()
+                   if k not in ("phase", "card")})
+    del model
+    vs_cpu = card_vs_cpu(exp)
+    report.update({f"card_vs_cpu_{k}": v for k, v in vs_cpu.items()
+                   if k != "phase"})
+    report.update(serve_exp_file(smi, BF16_EXP_FILE))
+    return report, launches
+
+
+def remat_bn_check(smi: str) -> dict:
+    """One bf16 training step at B=32 from the same seeded state on the same
+    batch with and without ``remat``: the BatchNorm running statistics after
+    it equal (the recompute updates nothing), ``num_batches_tracked`` 1."""
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
+
+    exp = training_exp()
+    exp.compute_dtype = "bfloat16"
+    imgs, labels = exp.get_data_loader(TRAIN_BATCH).batch
+    stats = {}
+    for remat in (False, True):
+        exp.remat = remat
+        model = exp.get_model("cuda", seed=0)
+        state = create_train_state(model, exp.get_optimizer(model,
+                                                            TRAIN_BATCH),
+                                   use_ema=False, with_dwa=True)
+        make_train_step_24p(Loss24PConfig(num_classes=exp.num_classes))(
+            state, imgs, labels)
+        stats[remat] = {k: v.detach().clone() for k, v in model.named_buffers()}
+        del model, state
+    worst, tracked = 0.0, set()
+    for k, v in stats[False].items():
+        if k.endswith("num_batches_tracked"):
+            tracked |= {int(v), int(stats[True][k])}
+            continue
+        scale = v.abs().max().clamp(min=1e-30)
+        worst = max(worst, ((stats[True][k] - v).abs().max() / scale).item())
+    report = {"bn_buffers": len(stats[False]),
+              "bn_running_stats_max_rel_diff": worst,
+              "num_batches_tracked": sorted(tracked)}
+    if worst > 1e-6 or tracked != {1}:
+        raise AssertionError(f"remat changed the BN statistics: {report}")
+    return report
+
+
 def card_vs_cpu(exp):
     """One image through the port on the card (kernels, BN and SiLU fused
     into their epilogue) and on the CPU (plain versions with the same folded
-    epilogue), same seeded weights."""
+    epilogue), same seeded weights, in the exp's compute dtype: fp32 head
+    maps within 1e-3 of their scale and the same count of detections; bf16
+    (the two round at other points: tensor cores and cuDNN against oneDNN)
+    within 5e-2 and counts within a tenth."""
     from eop_tpu_torch.data.transforms import letterbox_batch_device
     from eop_tpu_torch.eval.postprocess import postprocess_24p_heads
 
@@ -607,12 +825,16 @@ def card_vs_cpu(exp):
     errs = [(g - c).abs().max().item() for g, c in zip(out["cuda"][0],
                                                        out["cpu"][0])]
     scale = max(c.abs().max().item() for c in out["cpu"][0])
-    tol = 1e-3 * max(1.0, scale)  # fp32, TF32 off, ~100 layers deep
+    bf16 = exp.compute_dtype == "bfloat16"
+    # fp32: TF32 off, ~100 layers deep
+    tol = (5e-2 if bf16 else 1e-3) * max(1.0, scale)
     valid = [int(out[d][1].sum()) for d in ("cuda", "cpu")]
-    report = {"phase": "card_vs_cpu", "head_max_abs_err": max(errs),
-              "head_scale": scale, "tol": tol, "valid_cuda": valid[0],
-              "valid_cpu": valid[1]}
-    if not max(errs) <= tol or valid[0] != valid[1] or valid[0] == 0:
+    report = {"phase": "card_vs_cpu", "compute_dtype": exp.compute_dtype,
+              "head_max_abs_err": max(errs), "head_scale": scale, "tol": tol,
+              "valid_cuda": valid[0], "valid_cpu": valid[1]}
+    counts_ok = (abs(valid[0] - valid[1]) <= 0.1 * valid[1] if bf16
+                 else valid[0] == valid[1])
+    if not max(errs) <= tol or not counts_ok or valid[0] == 0:
         raise AssertionError(f"card and CPU disagree: {report}")
     return report
 
@@ -741,6 +963,34 @@ def check_phase_conv_backward():
             row["dgrad_bytes"] = 4.0 * (x.numel() + dy.numel() + wgt.numel())
             row["dgrad_bound_ms"], row["dgrad_bound_by"] = conv_bound(
                 flops, row["dgrad_bytes"])
+            # the same in bf16, as the bf16 training step launches them
+            x16, w16, dy16 = x.bfloat16(), wgt.bfloat16(), dy.bfloat16()
+            x16_nchw, dy16_nchw = x16.permute(0, 3, 1, 2), dy16.permute(
+                0, 3, 1, 2)
+            w16_oihw = w_oihw.bfloat16()
+
+            def library_bf16(mask):
+                return torch.ops.aten.convolution_backward(
+                    dy16_nchw, x16_nchw, w16_oihw, None, [s, s], [p, p],
+                    [1, 1], False, [0, 0], 1, mask)
+
+            bf16_bytes = 2.0 * (x.numel() + dy.numel() + wgt.numel())
+            bf16_bound = 1e3 * max(flops / PEAK_BF16_FLOPS,
+                                   bf16_bytes / PEAK_BYTES)
+            row["wgrad_ms_bf16"] = cuda_ms(
+                lambda: phase_conv_wgrad(x16, dy16, k, s, p))
+            row["wgrad_library_ms_bf16"] = cuda_ms(
+                lambda: library_bf16([False, True, False]))
+            row["dgrad_ms_bf16"] = cuda_ms(
+                lambda: phase_conv_dgrad(dy16, w16, x.shape, s, p))
+            row["dgrad_library_ms_bf16"] = cuda_ms(
+                lambda: library_bf16([True, False, False]))
+            for kind in ("wgrad", "dgrad"):
+                row[f"{kind}_bytes_bf16"] = bf16_bytes
+                row[f"{kind}_bound_ms_bf16"] = bf16_bound
+                row[f"{kind}_bound_by_bf16"] = (
+                    "operations" if flops / PEAK_BF16_FLOPS
+                    >= bf16_bytes / PEAK_BYTES else "bytes")
             if row["dgrad_on_path"]:
                 # the weight packing of this data gradient, alone
                 taps = (flip_taps(k) if s == 1 else
@@ -816,19 +1066,24 @@ def _reset_counts():
     packed_weights.packs = 0
 
 
-def run_trainer(exp):
+def run_trainer(exp, want=STEP_LAUNCHES):
     """``Trainer24P(exp, ...).train()`` on the card at batch 32 for
     ``TRAIN_WARMUP + TRAIN_TIMED`` steps, the counts set to 0 just before
-    it; checks the steps and the launches of every step.  Returns the state,
-    the trainer, the per-step metrics and the timing summary."""
+    it; checks the steps and the launches of every step against ``want``.
+    The forward kernel's launches are also counted by phase of the step:
+    in the forward, and in the backward (a ``remat`` step's recompute).
+    Returns the state, the trainer, the per-step metrics and the timing
+    summary."""
+    from eop_tpu_torch.ops.phase_conv import phase_conv
     from eop_tpu_torch.train.trainer_24p import Trainer24P
 
-    events, steps = [], []
+    events, steps, forwards = [], [], []
 
     def hook(name, metrics=None):
         if name == "step":
             steps.append((metrics, _launch_counts(), time.perf_counter()))
             return
+        forwards.append(phase_conv.launches)
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events.append((name, ev))
@@ -858,12 +1113,15 @@ def run_trainer(exp):
         per_step.append({k: counts[k] - prev[k] for k in counts})
         prev = counts
     for i, d in enumerate(per_step):
-        if {k: d[k] for k in STEP_LAUNCHES} != STEP_LAUNCHES:
-            raise AssertionError(f"step {i} launched {d}, expected "
-                                 f"{STEP_LAUNCHES}")
+        if {k: d[k] for k in want} != want:
+            raise AssertionError(f"step {i} launched {d}, expected {want}")
     names = ["start", "forward", "loss", "backward", "optimizer"]
     if [nm for nm, _ in events] != names * n:
         raise AssertionError("unexpected phase marks")
+    # forward-kernel launches a step by phase: [start..forward],
+    # [loss..backward]
+    by_phase = {"in_forward": forwards[-4] - forwards[-5],
+                "in_backward": forwards[-2] - forwards[-3]}
     split = []
     for i in range(TRAIN_WARMUP, n):
         ev = [e for _, e in events[5 * i: 5 * i + 5]]
@@ -893,6 +1151,7 @@ def run_trainer(exp):
         "images_per_s_timed_steps": 1e3 * TRAIN_BATCH * len(host_ms)
         / float(sum(host_ms)),
         "launches_per_step": per_step[-1],
+        "forward_launches_per_step_by_phase": by_phase,
         "launches": launches,
         "max_memory_allocated_bytes": peak,
         "wall_s": wall_s,
@@ -900,14 +1159,23 @@ def run_trainer(exp):
     return state, trainer, timing
 
 
-def train_main_path(smi: str):
+def train_main_path(smi: str, compute_dtype: str = "float32",
+                    remat: bool = False):
     """A few steps of ``Trainer24P`` on the card over one batch already on
-    the card; returns the report and the launch counts of this run."""
+    the card, in ``compute_dtype`` and with ``remat`` as the exp file would
+    set them; returns the report and the launch counts of this run.  A
+    ``remat`` step launches the forward kernel again in its backward's
+    recompute: 16/8/7/7."""
     from eop_tpu_torch.train.steps import make_train_step_24p
     from eop_tpu_torch.losses import Loss24PConfig
 
     exp = training_exp()
-    state, _, timing = run_trainer(exp)
+    exp.compute_dtype, exp.remat = compute_dtype, remat
+    want = dict(STEP_LAUNCHES, forward=STEP_LAUNCHES["forward"] * (1 + remat))
+    state, _, timing = run_trainer(exp, want)
+    if timing["forward_launches_per_step_by_phase"] != {
+            "in_forward": 8, "in_backward": 8 if remat else 0}:
+        raise AssertionError(f"forward launches by phase: {timing}")
     losses = timing["losses"]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
@@ -941,7 +1209,8 @@ def train_main_path(smi: str):
     # tensor-core kernels, the 8 weight gradients and 2 stride-2 data
     # gradients the backward's, each data gradient packs its weights once;
     # the CUDA-core backward kernels do not run
-    want = {"conv_taps_kernel": 12, "conv_rows_kernel": 1,
+    # (a remat step's recompute adds 7 + 1 forward launches)
+    want = {"conv_taps_kernel": 12 + 7 * remat, "conv_rows_kernel": 1 + remat,
             "wgrad_tc_kernel": 8, "wgrad_tc_reduce_kernel": 8,
             "dgrad_tc_kernel": 2, "pack_taps_kernel": 7,
             "wgrad_partial_kernel": 0, "wgrad_reduce_kernel": 0,
@@ -949,22 +1218,34 @@ def train_main_path(smi: str):
     if {k: v["count"] for k, v in own_kernels.items()} != want:
         raise AssertionError(f"profiled kernels {own_kernels}, expected "
                              f"counts {want}")
+    own_ms = sum(v["ms"] for v in own_kernels.values())
+    phase = "train" if (compute_dtype, remat) == ("float32", False) else (
+        "train_remat" if remat else "train_bf16")
     report = {
-        "phase": "train", "card": smi, "model": "yolox_24p_s",
+        "phase": phase, "card": smi, "model": "yolox_24p_s",
+        "compute_dtype": compute_dtype, "remat": remat,
         "depth": exp.depth, "width": exp.width,
         "num_classes": exp.num_classes, "input_size": list(exp.input_size),
         "batch": TRAIN_BATCH, "gts_per_image": TRAIN_GTS, **timing,
         "profiled_device_busy_ms": busy_ms,
         "own_kernels": own_kernels,
+        # the hand-written kernels' device time and share of the step
+        "own_kernels_ms": own_ms, "own_kernels_share": own_ms / busy_ms,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "ms": e.self_device_time_total / 1e3} for e in top],
     }
     return report, timing["launches"]
 
 
-def train_card_vs_cpu():
+def train_card_vs_cpu(compute_dtype: str = "float32"):
     """Forward, assignment, loss and backward of one batch (B = 2, 640 px)
-    on the card and on the CPU from the same seeded state."""
+    on the card and on the CPU from the same seeded state.  fp32: the loss
+    within 1e-4, the same assignment, every gradient within 1e-3 of its
+    largest value.  bf16: the two round at other points (tensor-core convs
+    and the fused kernels on the card, oneDNN on the CPU) and the loss is
+    discrete, as in tests/test_torch_bf16.py: the loss within 5e-2, the
+    foreground count within a quarter, the gradients finite and their
+    median cosine reported."""
     from eop_tpu_torch.exp import get_exp
     from eop_tpu_torch.losses import (
         DWAState,
@@ -976,9 +1257,11 @@ def train_card_vs_cpu():
     from eop_tpu_torch.utils.synth import synthetic_24p_batch
 
     exp = get_exp(exp_name="yolox_24p_s")
+    exp.compute_dtype = compute_dtype
     config = Loss24PConfig(num_classes=exp.num_classes)
     imgs, labels = synthetic_24p_batch(torch.Generator().manual_seed(1), 2,
                                        size=640, ngt=TRAIN_GTS)
+    t0 = time.perf_counter()
     out = {}
     for dev in ("cuda", "cpu"):
         model = exp.get_model(dev, seed=0).train()
@@ -999,22 +1282,35 @@ def train_card_vs_cpu():
     rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
     same = (torch.equal(out["cuda"][1], out["cpu"][1])
             and torch.equal(out["cuda"][2], out["cpu"][2]))
-    worst, worst_name = 0.0, None
+    worst, worst_name, cosines = 0.0, None, []
     for name, g in out["cpu"][3].items():
-        err = ((out["cuda"][3][name] - g).abs().max()
-               / g.abs().max().clamp(min=1e-30)).item()
+        got = out["cuda"][3][name]
+        err = ((got - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
         if err > worst:
             worst, worst_name = err, name
-    report = {"phase": "train_card_vs_cpu", "batch": 2,
-              "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
-              "loss_rel_err": rel, "loss_tol": 1e-4,
+        a, b = got.double().flatten(), g.double().flatten()
+        if b.norm() > 0:
+            cosines.append((a @ b / (a.norm() * b.norm())).item())
+    fg = [int(out[d][1].sum()) for d in ("cuda", "cpu")]
+    bf16 = compute_dtype == "bfloat16"
+    report = {"phase": "train_card_vs_cpu", "compute_dtype": compute_dtype,
+              "batch": 2, "loss_cuda": out["cuda"][0],
+              "loss_cpu": out["cpu"][0], "loss_rel_err": rel,
+              "loss_tol": 5e-2 if bf16 else 1e-4,
               "assignment_equal": same,
-              "num_fg": int(out["cpu"][1].sum()),
+              "num_fg": fg[1], "num_fg_cuda": fg[0],
               "grad_tensors": len(out["cpu"][3]),
               "grad_worst_rel_to_max": worst, "grad_worst_tensor": worst_name,
-              "grad_tol": 1e-3}
-    if not (rel <= 1e-4 and same and worst <= 1e-3
-            and report["num_fg"] > 0):
+              "grad_tol": None if bf16 else 1e-3,
+              "grad_cosine_median": float(np.median(cosines)),
+              "grad_cosine_min": min(cosines),
+              "wall_s": time.perf_counter() - t0}
+    if bf16:
+        ok = (rel <= 5e-2 and abs(fg[0] - fg[1]) <= 0.25 * fg[1]
+              and all(torch.isfinite(g).all() for g in out["cuda"][3].values()))
+    else:
+        ok = rel <= 1e-4 and same and worst <= 1e-3
+    if not (ok and fg[1] > 0):
         raise AssertionError(f"card and CPU disagree: {report}")
     return report
 
@@ -1166,39 +1462,80 @@ def eval_files(smi: str, img_dir: str, lab_dir: str):
 class FaultLogInit:
     """``worker_init_fn`` of the probe's loaders without the exit hook:
     ``faulthandler`` on for every thread of the worker, writing to a file of
-    its own in ``directory``, then the exp's seed reset."""
+    its own in ``directory``, then the native terminate / SIGABRT handler
+    of ``csrc/terminate_probe.cpp``, which names the aborting thread, its
+    frames' shared objects and every thread of the worker in a second file
+    (``*.native.txt``); then the exp's seed reset."""
 
     def __init__(self, directory: str):
         self.directory = directory
 
     def __call__(self, worker_id: int) -> None:
+        import ctypes
         import faulthandler
 
+        from eop_tpu_torch import _build
         from eop_tpu_torch.data.dataloading import worker_init_reset_seed
 
         path = os.path.join(self.directory,
-                            f"worker{worker_id}-pid{os.getpid()}.txt")
+                            f"worker{worker_id}-pid{os.getpid()}")
         # faulthandler keeps the file open until the process ends
-        faulthandler.enable(open(path, "w"), all_threads=True)
+        faulthandler.enable(open(path + ".txt", "w"), all_threads=True)
+        # installed after faulthandler: it dumps first, then hands the
+        # signal on to faulthandler's handler
+        install = _build.load("terminate_probe").terminate_probe_install
+        install.argtypes, install.restype = [ctypes.c_char_p], ctypes.c_int
+        err = install((path + ".native.txt").encode())
+        if err:
+            raise OSError(err, "terminate_probe_install failed")
         worker_init_reset_seed(worker_id)
 
 
+def native_dump(text: str) -> dict:
+    """One native dump (``csrc/terminate_probe.cpp``): what aborted the
+    worker on which thread, the frames' shared objects and symbols, and the
+    worker's threads."""
+    lines = text.splitlines()
+
+    def section(title):
+        i = next((j for j, ln in enumerate(lines) if ln.startswith(title)),
+                 None)
+        out = []
+        for ln in ([] if i is None else lines[i + 1:]):
+            if ln.startswith(("-- ", "== ")):
+                break
+            out.append(ln.strip())
+        return out
+
+    return {"aborted": [ln for ln in lines
+                        if ln.startswith("== ") and ln != "== end"],
+            "objects": section("-- objects")[:24],
+            "threads": section("-- threads")}
+
+
 def fault_dumps(directory: str, lines: int = 40) -> dict:
-    """What the workers' faulthandler files hold: how many are not empty,
-    the threads each names, and the head of up to four of them."""
-    dumps = []
+    """What the workers' files hold: how many faulthandler files are not
+    empty, the threads each names and the head of up to four of them; the
+    native dumps, each parsed (:func:`native_dump`)."""
+    dumps, native = [], []
     for name in sorted(os.listdir(directory)):
         with open(os.path.join(directory, name)) as f:
             text = f.read()
-        if text.strip():
+        if name.endswith(".native.txt"):
+            if text.strip():
+                native.append({"file": name, **native_dump(text)})
+        elif text.strip():
             dumps.append((name, text.splitlines()))
     return {
-        "worker_files": len(os.listdir(directory)),
+        "worker_files": sum(not n.endswith(".native.txt")
+                            for n in os.listdir(directory)),
         "nonempty": len(dumps),
         "threads": [[ln for ln in body if "hread 0x" in ln]
                     for _, body in dumps],
         "heads": [{"file": name, "lines": body[:lines]}
                   for name, body in dumps[:4]],
+        "native_dumps": len(native),
+        "native": native[:4],
     }
 
 
@@ -1241,7 +1578,8 @@ def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
 
 def run_cli(smi: str, img_dir: str, lab_dir: str):
     """The two command lines as users run them: train 24p-s for one epoch
-    (2 iterations) with an evaluation, then evaluate its checkpoint."""
+    (2 iterations) in bf16 (``compute_dtype bfloat16``) with an evaluation,
+    then evaluate its checkpoint (fp32 weights) in fp32."""
     import re
 
     out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
@@ -1254,7 +1592,7 @@ def run_cli(smi: str, img_dir: str, lab_dir: str):
                     "-f", "load_train/yolox_24p_train.py", "-b",
                     str(TRAIN_BATCH), "--data-dir", img_dir, "--label-dir",
                     lab_dir, "--max-epoch", "1", "--eval", "eval_interval",
-                    "1", "output_dir", out]),
+                    "1", "compute_dtype", "bfloat16", "output_dir", out]),
                 ("eval", None)):
             if cmd is None:
                 ckpt_dir = os.path.join(out, "yolox_24p")
@@ -1300,7 +1638,8 @@ def probe_worker_exit(drops: int = 8) -> int:
     this process, drop the training loader with batches in flight ``drops``
     times as the port builds it and ``drops`` times without its workers'
     exit hook, and print the workers that died in each and, for the run
-    without the hook, what the workers' faulthandler files hold."""
+    without the hook, what the workers' faulthandler and native dumps
+    hold."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1312,6 +1651,10 @@ def probe_worker_exit(drops: int = 8) -> int:
     root = tempfile.mkdtemp(prefix="chip_smoke_probe_")
     report = {"phase": "probe_worker_exit", "card": smi}
     try:
+        from eop_tpu_torch import _build
+
+        # built here once (not installed here): the workers load the file
+        _build.load("terminate_probe")
         img_dir, lab_dir, _ = write_dataset(root)
         fault_dir = os.path.join(root, "faulthandler")
         os.makedirs(fault_dir)
@@ -1363,6 +1706,10 @@ def main() -> int:
     emit(serve_report)
     emit(serving_stages(smi, exp, model))
     emit(card_vs_cpu(exp))
+    t0 = time.perf_counter()
+    serve16_report, serve16_launches = serve_bf16(smi, model)
+    serve16_report["phase_s"] = time.perf_counter() - t0
+    emit(serve16_report)
     del model
     relu_report, relu_launches = serve_relu(smi)
     emit(relu_report)
@@ -1373,6 +1720,25 @@ def main() -> int:
     train_report, repeat_launches = train_main_path(smi)
     emit(train_report)
     emit(train_card_vs_cpu())
+    # the bf16 step, then the same with remat (the exp file's settings)
+    t0 = time.perf_counter()
+    train16_report, train16_launches = train_main_path(smi, "bfloat16")
+    train16_report["card_vs_cpu"] = train_card_vs_cpu("bfloat16")
+    train16_report["phase_s"] = time.perf_counter() - t0
+    emit(train16_report)
+    t0 = time.perf_counter()
+    remat_report, remat_launches = train_main_path(smi, "bfloat16", True)
+    remat_report.update(remat_bn_check(smi))
+    remat_report["phase_s"] = time.perf_counter() - t0
+    peaks = [r["max_memory_allocated_bytes"]
+             for r in (remat_report, train16_report)]
+    remat_report.update(
+        bf16_step_ms=train16_report["step_ms"],
+        bf16_max_memory_allocated_bytes=peaks[1],
+        peak_memory_ratio_to_bf16=peaks[0] / peaks[1])
+    emit(remat_report)
+    if not peaks[0] < peaks[1]:
+        raise AssertionError(f"remat did not lower the peak memory: {peaks}")
 
     # a loader that finds a dead worker while it stops raises in __del__,
     # which reaches sys.unraisablehook: count those of the file phases
@@ -1412,12 +1778,20 @@ def main() -> int:
     # serves (serve; serve_relu without the epilogue) and evaluates (eval) at
     # batch 8 and trains at batch 32
     # (train: one batch repeated; train_files: the file loader)
+    # (bf16: serve_bf16, and train_bf16 and train_remat, whose recompute
+    # launches the forward again)
     by_path = {"serve": launches["phase_conv"],
                "serve_relu": relu_launches["phase_conv"],
+               "serve_bf16": serve16_launches["phase_conv"],
                "eval": eval_launches["phase_conv"],
                "train": repeat_launches["forward"],
-               "train_files": files_launches["forward"]}
-    train_launches = {k: repeat_launches[k] + files_launches[k]
+               "train_files": files_launches["forward"],
+               "train_bf16": train16_launches["forward"],
+               "train_remat": remat_launches["forward"]}
+    train_paths = {"train": repeat_launches, "train_files": files_launches,
+                   "train_bf16": train16_launches,
+                   "train_remat": remat_launches}
+    train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
 
     # the serving path launches the forward at batch 8, the training step
@@ -1450,8 +1824,7 @@ def main() -> int:
             # JAX differentiates the conv; the Pallas kernel has no VJP
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches[kind],
-            "launches_by_path": {"train": repeat_launches[kind],
-                                 "train_files": files_launches[kind]},
+            "launches_by_path": {k: c[kind] for k, c in train_paths.items()},
             "max_abs_err": back_err[kind]["fp32"],
             "max_abs_err_bf16": back_err[kind]["bf16"],
             # per training step (B=32, 640 px): the main-path shapes summed
@@ -1461,6 +1834,15 @@ def main() -> int:
             "bound_ms": sum(r[f"{kind}_bound_ms"] for r in rows_),
             "bound_by": max(by, key=by.get),
             "library_ms": sum(r[f"{kind}_library_ms"] for r in rows_),
+            # bf16, as the bf16 step launches them (cuDNN in bf16 beside)
+            "ms_bf16": sum(r[f"{kind}_ms_bf16"] for r in rows_),
+            "bound_ms_bf16": sum(r[f"{kind}_bound_ms_bf16"] for r in rows_),
+            "bound_by_bf16": max(
+                ("operations", "bytes"), key=lambda b: sum(
+                    r[f"{kind}_bound_ms_bf16"] for r in rows_
+                    if r[f"{kind}_bound_by_bf16"] == b)),
+            "library_ms_bf16": sum(r[f"{kind}_library_ms_bf16"]
+                                   for r in rows_),
             # the same shapes at B=8
             "ms_b8": sum(r[f"{kind}_ms"] for r in rows_b8),
             "plain_ms_b8": sum(r[f"{kind}_plain_ms"] for r in rows_b8),
@@ -1482,7 +1864,7 @@ def main() -> int:
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
         "launches": by_path["serve"] + by_path["serve_relu"]
-        + by_path["eval"],
+        + by_path["serve_bf16"] + by_path["eval"],
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
         "max_abs_err": err32,
@@ -1492,6 +1874,7 @@ def main() -> int:
         "ms": total("ms"),
         "ms_fused": total("ms_fused"),
         "ms_bf16": total("ms_bf16"),
+        "library_bf16_ms": total("library_bf16_ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
         "bound_by": max(bound, key=bound.get),
@@ -1505,6 +1888,9 @@ def main() -> int:
         "plain_ms_b32": total("plain_ms", train_rows),
         "bound_ms_b32": total("bound_ms", train_rows),
         "library_ms_b32": total("library_ms", train_rows),
+        "ms_bf16_b32": total("ms_bf16", train_rows),
+        "bound_bf16_ms_b32": total("bound_bf16_ms", train_rows),
+        "library_bf16_ms_b32": total("library_bf16_ms", train_rows),
         "variants": {r["name"]: r["variant"] for r in main_rows},
         "card": smi,
     }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
@@ -1518,8 +1904,7 @@ def main() -> int:
             "source": "eop_tpu_torch/csrc/phase_conv_backward_tc.cu",
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches["pack"],
-            "launches_by_path": {"train": repeat_launches["pack"],
-                                 "train_files": files_launches["pack"]},
+            "launches_by_path": {k: c["pack"] for k, c in train_paths.items()},
             "max_abs_err": max(r["pack_max_abs_err"] for r in pack_rows),
             # per training step: the 7 data gradients' packings at B=32
             "batch": TRAIN_BATCH,

@@ -10,6 +10,8 @@ time.
 
 Only the repository's own sources are built: no PyTorch headers, so a build
 takes seconds (``torch.utils.cpp_extension.load`` takes minutes).
+:func:`build_all` leaves out the diagnostics of ``ON_REQUEST``, which are
+built when a caller loads them.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ NVCC_FLAGS = [
 ]
 
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+# built only by load(): no path of the port runs them
+ON_REQUEST = ("terminate_probe",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -104,11 +108,13 @@ def _finish(name: str, proc, tmp: Path, out: Path, t0: float) -> None:
 
 
 def build_all() -> Dict[str, dict]:
-    """Build every ``csrc/*.cu`` and ``csrc/*.cpp`` not yet built, all
-    compiler runs started together; returns ``BUILD_INFO``."""
+    """Build every ``csrc/*.cu`` and ``csrc/*.cpp`` not yet built but those
+    of ``ON_REQUEST``, all compiler runs started together; returns
+    ``BUILD_INFO``."""
     with _lock:
         names = sorted(p.stem for p in (*SRC_DIR.glob("*.cu"),
-                                        *SRC_DIR.glob("*.cpp")))
+                                        *SRC_DIR.glob("*.cpp"))
+                       if p.stem not in ON_REQUEST)
         t0 = time.perf_counter()
         started = []
         for name in names:

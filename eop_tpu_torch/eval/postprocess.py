@@ -1,14 +1,21 @@
 """Batched 24p post-processing with static output capacity (counterpart of
-``eop_tpu/eval/postprocess.py``, fused ``*_heads`` entry).
+``eop_tpu/eval/postprocess.py``, 24p entries).
 
 Every image yields exactly ``max_detections`` rows plus a validity mask,
 computed for the whole batch at once (no per-image Python loop):
 score -> top-k candidates -> decode only the candidates -> polygon ->
 enclosing rectangle -> exact fixpoint NMS -> score-ordered compaction.
 
+* :func:`postprocess_24p_heads` takes the raw head maps (the serving and
+  evaluation path): scores from the logits upcast to fp32, one row gather
+  in the maps' dtype, then the decode in fp32.
+* :func:`postprocess_24p` takes the decoded ``[B, A, 27+C]`` tensor and
+  computes in its dtype, as ``eop_tpu`` does (bf16 scores and rows; the
+  polygon points are fp32 either way).
+
 Ties follow ``lax.top_k``: the lower anchor index comes first (a stable
-descending sort), and the class argmax runs on the sigmoided fp32 values,
-where it picks the first of equal maxima.
+descending sort), and the class argmax picks the first of equal maxima (on
+the sigmoided values).
 """
 
 from __future__ import annotations
@@ -119,5 +126,40 @@ def postprocess_24p_heads(
         torch.cat([centers, radii], dim=-1), boxes, top_scores, c_obj,
         c_cls_conf, c_cls_id, conf_thre, nms_thre, class_agnostic,
         nms_fixpoint_iters, max_detections,
+    )
+    return Detections(rows=rows, valid=valid)
+
+
+def postprocess_24p(
+    decoded: torch.Tensor,
+    num_classes: int,
+    conf_thre: float = 0.01,
+    nms_thre: float = 0.3,
+    class_agnostic: bool = False,
+    max_detections: int = 300,
+    nms_candidates: int = 512,
+    reference_parity: bool = False,
+    nms_fixpoint_iters=None,
+) -> Detections:
+    """Decoded ``[B, A, 27+C]`` (x, y, 24 radii, sigmoided obj and cls, as
+    :func:`~eop_tpu_torch.models.yolox.inference_outputs` gives them) ->
+    rows ``[B, max_det, 29]``: x, y, r1..r24, obj, cls_conf, cls, in
+    ``decoded``'s dtype."""
+    cls_conf, cls_id = torch.max(decoded[..., 27:27 + num_classes], dim=-1)
+    scores = decoded[..., 26] * cls_conf
+    top_scores, order = torch.sort(scores, dim=-1, descending=True,
+                                   stable=True)
+    k = min(nms_candidates, decoded.shape[1])
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    cand = torch.gather(
+        decoded, 1, order[..., None].expand(-1, -1, decoded.shape[-1]))
+    pts = polygon_points_from_radii(cand[..., 0:2], cand[..., 2:26],
+                                    reference_parity)
+    boxes = torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
+    rows, valid = _nms_and_pack(
+        cand[..., :26], boxes, top_scores, cand[..., 26],
+        torch.gather(cls_conf, 1, order), torch.gather(cls_id, 1, order),
+        conf_thre, nms_thre, class_agnostic, nms_fixpoint_iters,
+        max_detections,
     )
     return Detections(rows=rows, valid=valid)

@@ -104,10 +104,6 @@ def get_exp_by_file(exp_file: str) -> Exp24P:
     exp = Exp24P()
     for k, v in read_exp_file(exp_file).items():
         setattr(exp, k, v)
-    try:
-        exp.check_supported()
-    except NotImplementedError as e:
-        raise NotImplementedError(f"{exp_file}: {e}") from None
     return exp
 
 

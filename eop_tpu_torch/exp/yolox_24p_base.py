@@ -18,6 +18,9 @@ from ..models.yolox import YOLOX, init_weights
 from ..utils.device import resolve_device, set_fp32_precision
 from .base_exp import BaseExp
 
+# compute_dtype -> the model's compute dtype (the kernels take these two)
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 class Exp24P(BaseExp):
     def __init__(self):
@@ -58,34 +61,30 @@ class Exp24P(BaseExp):
         self.reference_parity = False  # replicate the theta*cos NMS quirk
         # "exact" = stationarity-checked NMS fixpoint (greedy-exact)
         self.nms_mode = "exact"
-        # bf16 activations and gradient checkpointing: ROADMAP.md queue 1
-        # item 5; until then anything but these defaults raises
+        # "bfloat16": fp32 parameters, BN statistics, optimizer and EMA,
+        # bf16 convs and activations (flax's dtype semantics)
         self.compute_dtype = "float32"
+        # gradient checkpointing of the backbone + neck in training steps
         self.remat = False
         # eop_tpu's TPU MXU packed layout; it changes no result, so the port
         # reads neither (ROADMAP.md queue 1 item 13)
         self.packed_early = "auto"
         self.packed_infer_max_batch = 64
 
-    def check_supported(self) -> None:
-        """Raise on a setting the port does not implement yet."""
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: the port runs float32 "
-                "only until the bf16 model path (ROADMAP.md queue 1 item 5)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat: gradient checkpointing is not ported yet (ROADMAP.md "
-                "queue 1 item 5)")
-
     def get_model(self, device=None, seed: int = 0):
         """26-channel-reg YOLOX in eval mode on ``device`` (the card unless
-        ``"cpu"`` is asked for), channels_last, with seeded random weights;
-        load a state_dict over them for trained weights."""
-        self.check_supported()
+        ``"cpu"`` is asked for), channels_last, with seeded random fp32
+        weights, computing in ``compute_dtype`` and checkpointing its
+        backbone + neck in training where ``remat``; load a state_dict over
+        them for trained weights."""
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port "
+                             f"computes in {sorted(COMPUTE_DTYPES)}")
         device = resolve_device(device)
         model = YOLOX(depth=self.depth, width=self.width,
-                      num_classes=self.num_classes, reg_dim=26, act=self.act)
+                      num_classes=self.num_classes, reg_dim=26, act=self.act,
+                      dtype=COMPUTE_DTYPES[self.compute_dtype],
+                      remat=bool(self.remat))
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 
@@ -95,8 +94,10 @@ class Exp24P(BaseExp):
         forward, decode, NMS.
 
         It enters ``torch.inference_mode`` itself, because the batcher calls
-        it from its own thread and grad mode is thread-local.  On the card
-        it turns TF32 off: the fp32 path is full fp32.
+        it from its own thread and grad mode is thread-local.  The batch
+        goes in as fp32 and the model casts it to its compute dtype, as
+        ``eop_tpu`` does.  On the card it turns TF32 off: the fp32 path is
+        full fp32.
         """
         device = resolve_device(device)
         set_fp32_precision(device)
@@ -120,7 +121,7 @@ class Exp24P(BaseExp):
 
     def get_serving_fn(self, model, src_hw, device=None):
         """One call, uint8 ``[B, *src_hw, 3]`` -> ``Detections`` on
-        ``device``: letterbox to ``test_size`` on the device, then
+        ``device``: letterbox to ``test_size`` on the device in fp32, then
         :meth:`get_infer_fn`'s forward, decode and NMS."""
         device = resolve_device(device)
         infer = self.get_infer_fn(model, device)

@@ -16,6 +16,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.blocks import BaseConv
 
@@ -26,14 +27,20 @@ PRIOR_BIAS = -math.log((1.0 - PRIOR_PROB) / PRIOR_PROB)
 
 class YOLOXHead(nn.Module):
     """``reg_dim=4`` is the bbox head, ``reg_dim=26`` the 24-point head
-    (center xy + 24 radii)."""
+    (center xy + 24 radii).  The maps come out in the compute ``dtype``; the
+    1x1 predictions keep fp32 weights and biases and, in another ``dtype``,
+    add the cast bias to the cast conv's output as flax's
+    ``nn.Conv(dtype=..., param_dtype=float32)`` does."""
 
     def __init__(self, num_classes: int = 80, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 reg_dim: int = 4, act: str = "silu"):
+                 reg_dim: int = 4, act: str = "silu",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
         self.reg_dim = reg_dim
+        self.dtype = dtype
+        conv = dict(act=act, dtype=dtype)
         hidden = int(256 * width)
         self.stems = nn.ModuleList()
         self.cls_convs = nn.ModuleList()
@@ -42,23 +49,30 @@ class YOLOXHead(nn.Module):
         self.reg_preds = nn.ModuleList()
         self.obj_preds = nn.ModuleList()
         for c in in_channels:
-            self.stems.append(BaseConv(int(c * width), hidden, 1, act=act))
+            self.stems.append(BaseConv(int(c * width), hidden, 1, **conv))
             for convs in (self.cls_convs, self.reg_convs):
                 convs.append(nn.Sequential(
-                    BaseConv(hidden, hidden, 3, act=act),
-                    BaseConv(hidden, hidden, 3, act=act)))
+                    BaseConv(hidden, hidden, 3, **conv),
+                    BaseConv(hidden, hidden, 3, **conv)))
             self.cls_preds.append(nn.Conv2d(hidden, num_classes, 1))
             self.reg_preds.append(nn.Conv2d(hidden, reg_dim, 1))
             self.obj_preds.append(nn.Conv2d(hidden, 1, 1))
+
+    def _pred(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return conv(x)
+        dt = self.dtype
+        return (F.conv2d(x, conv.weight.to(dt))
+                + conv.bias.to(dt)[:, None, None])
 
     def forward(self, xin):
         outputs = []
         for k, x in enumerate(xin):
             x = self.stems[k](x)
-            cls_out = self.cls_preds[k](self.cls_convs[k](x))
+            cls_out = self._pred(self.cls_preds[k], self.cls_convs[k](x))
             reg_feat = self.reg_convs[k](x)
-            obj_out = self.obj_preds[k](reg_feat)
-            reg_out = self.reg_preds[k](reg_feat)
+            obj_out = self._pred(self.obj_preds[k], reg_feat)
+            reg_out = self._pred(self.reg_preds[k], reg_feat)
             outputs.append(torch.cat([reg_out, obj_out, cls_out], dim=1))
         return outputs
 

@@ -22,26 +22,28 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 class YOLOPAFPN(nn.Module):
     """Returns ``(pan_out2, pan_out1, pan_out0, x2, x1, x0)``: the FPN maps
-    at strides 8/16/32 and the raw backbone taps (the reference's 6-tuple)."""
+    at strides 8/16/32 and the raw backbone taps (the reference's 6-tuple),
+    in the compute ``dtype``."""
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 act: str = "silu"):
+                 act: str = "silu", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.backbone = CSPDarknet(depth, width, IN_FEATURES, act=act)
+        conv = dict(act=act, dtype=dtype)
+        self.backbone = CSPDarknet(depth, width, IN_FEATURES, **conv)
         base_ch = int(width * 64)
         b2, b1, b0 = base_ch * 4, base_ch * 8, base_ch * 16  # dark3/4/5
         c0, c1, c2 = [int(c * width) for c in in_channels]
         n = round(3 * depth)
-        csp = dict(n=n, shortcut=False, act=act)
+        csp = dict(n=n, shortcut=False, **conv)
 
-        self.lateral_conv0 = BaseConv(b0, c1, 1, act=act)
+        self.lateral_conv0 = BaseConv(b0, c1, 1, **conv)
         self.C3_p4 = CSPLayer(c1 + b1, c1, **csp)
-        self.reduce_conv1 = BaseConv(c1, c0, 1, act=act)
+        self.reduce_conv1 = BaseConv(c1, c0, 1, **conv)
         self.C3_p3 = CSPLayer(c0 + b2, c0, **csp)
-        self.bu_conv2 = BaseConv(c0, c0, 3, 2, act=act)
+        self.bu_conv2 = BaseConv(c0, c0, 3, 2, **conv)
         self.C3_n3 = CSPLayer(c0 + c0, c1, **csp)
-        self.bu_conv1 = BaseConv(c1, c1, 3, 2, act=act)
+        self.bu_conv1 = BaseConv(c1, c1, 3, 2, **conv)
         self.C3_n4 = CSPLayer(c1 + c1, c2, **csp)
 
     def forward(self, x):

@@ -1,18 +1,21 @@
 """Top-level YOLOX model (counterpart of ``eop_tpu/models/yolox.py``).
 
 ``forward`` returns ``(head_outs, fpn_outs)``: the raw per-scale head maps
-and the neck's 6-tuple.  Decode (:func:`inference_outputs`,
-:func:`training_outputs`) and postprocess are functions applied by the
-caller.
+and the neck's 6-tuple, in the compute ``dtype``.  Decode
+(:func:`inference_outputs`, :func:`training_outputs`) and postprocess are
+functions applied by the caller.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.blocks import batch_stats_frozen
 from .head import (
     PRIOR_BIAS,
     YOLOXHead,
@@ -23,20 +26,42 @@ from .head import (
 from .pafpn import YOLOPAFPN
 
 
+def _remat_contexts():
+    # the forward as usual; its recompute in the backward leaves the
+    # BatchNorm running statistics alone
+    return contextlib.nullcontext(), batch_stats_frozen()
+
+
 class YOLOX(nn.Module):
     """YOLOPAFPN(CSPDarknet) -> YOLOXHead, attribute names ``backbone`` and
-    ``head`` as in the reference."""
+    ``head`` as in the reference.
+
+    ``dtype`` is the compute dtype of every conv (``ops/blocks.py``).
+    ``remat`` checkpoints the backbone + neck, not the head (JAX:
+    ``nn.remat(YOLOPAFPN)``): in train mode under autograd their activations
+    are not kept but recomputed in the backward, which launches the early
+    convs' forward kernel a second time; the recompute leaves BatchNorm's
+    running statistics alone, so a step updates them once, as JAX's
+    functional remat does.
+    """
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  num_classes: int = 80, reg_dim: int = 4,
                  in_channels: Sequence[int] = (256, 512, 1024),
-                 act: str = "silu"):
+                 act: str = "silu", dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
-        self.backbone = YOLOPAFPN(depth, width, in_channels, act)
-        self.head = YOLOXHead(num_classes, width, in_channels, reg_dim, act)
+        self.backbone = YOLOPAFPN(depth, width, in_channels, act, dtype)
+        self.head = YOLOXHead(num_classes, width, in_channels, reg_dim, act,
+                              dtype)
+        self.remat = remat
 
     def forward(self, x):
-        fpn_outs = self.backbone(x)
+        if self.remat and self.training and torch.is_grad_enabled():
+            fpn_outs = checkpoint(self.backbone, x, use_reentrant=False,
+                                  context_fn=_remat_contexts)
+        else:
+            fpn_outs = self.backbone(x)
         return self.head(fpn_outs[:3]), fpn_outs
 
 
@@ -66,7 +91,8 @@ def inference_outputs(head_outs: Sequence[torch.Tensor],
                       strides: Sequence[int] = (8, 16, 32),
                       reg_dim: int = 4) -> torch.Tensor:
     """Raw per-scale maps -> decoded ``[B, A, reg_dim+1+C]`` predictions with
-    sigmoided obj/cls."""
+    sigmoided obj/cls, in the maps' dtype (JAX decodes in the head's dtype
+    too: bf16 centres near 600 px are 4 px apart)."""
     flat = flatten_head_outputs(head_outs)
     grids, strides_flat = make_grids_and_strides(
         [tuple(o.shape[2:4]) for o in head_outs], strides, flat.device,
@@ -79,7 +105,8 @@ def training_outputs(head_outs: Sequence[torch.Tensor],
                      strides: Sequence[int] = (8, 16, 32), reg_dim: int = 4):
     """Raw per-scale maps -> (decoded ``[B, A, C]`` with decoded regression
     and logit obj/cls, raw regression ``[B, A, reg_dim]`` for the L1 loss,
-    grids ``[A, 2]``, strides ``[A]``): what the training loss consumes."""
+    grids ``[A, 2]``, strides ``[A]``): what the training loss consumes, all
+    in the maps' dtype; the loss upcasts."""
     flat = flatten_head_outputs(head_outs)
     grids, strides_flat = make_grids_and_strides(
         [tuple(o.shape[2:4]) for o in head_outs], strides, flat.device,

@@ -26,9 +26,22 @@ a JAX export loads with ``strict=True``.
 * ``Focus`` computes the exact 6x6/s2 fold of space-to-depth + 3x3 conv
   (JAX ``_FoldedFocusConv``) while keeping the reference parameter shape
   ``[32, 12, 3, 3]``.
+* ``dtype`` is the compute dtype, with flax's ``dtype`` semantics (the JAX
+  blocks' ``dtype``, ``param_dtype=float32``): parameters and BatchNorm
+  statistics stay fp32; each conv casts its input and weight to ``dtype``
+  (the Focus weight is folded in fp32, then cast) and writes ``dtype``;
+  BatchNorm computes its batch statistics in fp32 and writes the input's
+  dtype; activations, residual adds and concats run in ``dtype``.  Under
+  autograd the weight's cast is part of the graph, so the fp32 parameter
+  gets the gradient.  The fused epilogue keeps fp32 ``scale``/``shift`` and
+  rounds once where JAX rounds the conv's output to ``dtype`` before the
+  BatchNorm.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn as nn
@@ -39,6 +52,24 @@ from .phase_conv import phase_conv as _phase_conv
 BN_MOMENTUM = 0.03  # torch convention; flax 0.97
 BN_EPS = 1e-3
 SPP_KERNELS = (5, 9, 13)
+
+_frozen = threading.local()
+
+
+@contextlib.contextmanager
+def batch_stats_frozen():
+    """Train-mode :class:`BatchNorm2d` inside this context normalises with
+    the batch's statistics and leaves ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` alone: the recompute context of a checkpointed
+    forward (``YOLOX(remat=True)``), which must not count the batch twice,
+    as JAX's functional ``nn.remat`` does not.  Per thread: the backward
+    recomputes on its own thread."""
+    before = getattr(_frozen, "on", False)
+    _frozen.on = True
+    try:
+        yield
+    finally:
+        _frozen.on = before
 
 
 def get_activation(name: str = "silu") -> nn.Module:
@@ -58,7 +89,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     with the **biased** batch variance (flax's ``nn.BatchNorm``;
     ``nn.BatchNorm2d`` uses the unbiased one, a factor n/(n-1) per step that
     compounds into the running statistics, the EMA and eval).  Same
-    parameters, buffers and normalisation as the parent."""
+    parameters, buffers and normalisation as the parent.  A bf16 input is
+    normalised with fp32 statistics and buffers and comes out bf16.  Under
+    :func:`batch_stats_frozen` the buffers are not updated."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
@@ -67,11 +100,17 @@ class BatchNorm2d(nn.BatchNorm2d):
         if n <= 1:
             raise ValueError("batch statistics need more than one value per "
                              f"channel, got input {tuple(x.shape)}")
+        frozen = getattr(_frozen, "on", False)
         # F.batch_norm blends momentum * var * n / (n - 1) into a variance
-        # buffer; hand it a scratch one and blend the biased variance
+        # buffer; hand it a scratch one and blend the biased variance (and,
+        # frozen, a scratch mean too: the same kernel, no update)
+        mean = (torch.zeros_like(self.running_mean) if frozen
+                else self.running_mean)
         var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+        y = F.batch_norm(x, mean, var, self.weight, self.bias,
                          True, self.momentum, self.eps)
+        if frozen:
+            return y
         with torch.no_grad():
             self.running_var.mul_(1.0 - self.momentum).add_(
                 var, alpha=(n - 1) / n)
@@ -137,14 +176,15 @@ class BaseConv(nn.Module):
     """Conv2d -> BatchNorm -> ``act``, torch-"same" padding ``(k-1)//2``.
 
     ``phase_conv`` routes the convolution through the ``phase_conv`` kernel.
-    The kernel's HWIO weight and the folded BatchNorm are derived from the
-    parameters once and cached while the module runs in eval mode without
-    autograd; the caches follow the tensors' versions, so ``load_state_dict``
-    refreshes them.
+    The kernel's HWIO weight (in ``dtype``) and the folded BatchNorm are
+    derived from the parameters once and cached while the module runs in
+    eval mode without autograd; the caches follow the tensors' versions, so
+    ``load_state_dict`` refreshes them.
     """
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
-                 stride: int = 1, act: str = "silu", phase_conv: bool = False):
+                 stride: int = 1, act: str = "silu", phase_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
                               (ksize - 1) // 2, bias=False)
@@ -152,19 +192,23 @@ class BaseConv(nn.Module):
         self.act = get_activation(act)
         self.act_name = act
         self.phase_conv = phase_conv
+        self.dtype = dtype
         self._hwio_key = None
         self._hwio_cached = None
         self._bn_key = None
         self._bn_cached = None
 
     def conv_args(self):
-        """(OIHW weight, stride, padding) of the convolution computed."""
-        return self.conv.weight, self.conv.stride[0], self.conv.padding[0]
+        """(OIHW weight in ``dtype``, stride, padding) of the convolution
+        computed."""
+        return (self.conv.weight.to(self.dtype), self.conv.stride[0],
+                self.conv.padding[0])
 
     def _hwio_args(self):
-        """(HWIO weight, stride, padding) for the kernel."""
+        """(HWIO weight in ``dtype``, stride, padding) for the kernel."""
         p = self.conv.weight
-        key = (p.data_ptr(), p._version, p.dtype)
+        # the parameter stays fp32: key on the dtype the cache holds
+        key = (p.data_ptr(), p._version, self.dtype)
         # the cached tensor carries no graph: only for eval without autograd
         cacheable = not self.training and not torch.is_grad_enabled()
         if cacheable and self._hwio_key == key:
@@ -191,6 +235,7 @@ class BaseConv(nn.Module):
         return self._bn_cached
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         if self.phase_conv:
             w, stride, pad = self._hwio_args()
             x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
@@ -212,12 +257,12 @@ class Bottleneck(nn.Module):
     expansion 1.0, channels in == out)."""
 
     def __init__(self, channels: int, shortcut: bool = True,
-                 act: str = "silu", phase_conv: bool = False):
+                 act: str = "silu", phase_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = BaseConv(channels, channels, 1, act=act,
-                              phase_conv=phase_conv)
-        self.conv2 = BaseConv(channels, channels, 3, act=act,
-                              phase_conv=phase_conv)
+        conv = dict(act=act, phase_conv=phase_conv, dtype=dtype)
+        self.conv1 = BaseConv(channels, channels, 1, **conv)
+        self.conv2 = BaseConv(channels, channels, 3, **conv)
         self.use_add = shortcut
 
     def forward(self, x):
@@ -232,14 +277,14 @@ class SPPBottleneck(nn.Module):
     the gradient equally across tied maxima."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 act: str = "silu"):
+                 act: str = "silu", dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = in_channels // 2
-        self.conv1 = BaseConv(in_channels, hidden, 1, act=act)
+        self.conv1 = BaseConv(in_channels, hidden, 1, act=act, dtype=dtype)
         self.m = nn.ModuleList(
             nn.MaxPool2d(ks, stride=1, padding=ks // 2) for ks in SPP_KERNELS)
         self.conv2 = BaseConv(hidden * (len(SPP_KERNELS) + 1), out_channels, 1,
-                              act=act)
+                              act=act, dtype=dtype)
 
     def forward(self, x):
         x = self.conv1(x)
@@ -256,10 +301,10 @@ class CSPLayer(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
                  shortcut: bool = True, act: str = "silu",
-                 phase_conv: bool = False):
+                 phase_conv: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         hidden = out_channels // 2
-        conv = dict(act=act, phase_conv=phase_conv)
+        conv = dict(act=act, phase_conv=phase_conv, dtype=dtype)
         self.conv1 = BaseConv(in_channels, hidden, 1, **conv)
         self.conv2 = BaseConv(in_channels, hidden, 1, **conv)
         self.conv3 = BaseConv(2 * hidden, out_channels, 1, **conv)
@@ -290,11 +335,13 @@ def fold_focus_weight(w: torch.Tensor) -> torch.Tensor:
 
 class _FoldedFocusConv(BaseConv):
     """BaseConv whose parameter is the reference Focus kernel and whose
-    convolution is its 2k x 2k stride-2 fold."""
+    convolution is its 2k x 2k stride-2 fold, folded in fp32 and then cast
+    to ``dtype`` (JAX's order: the other rounds differently)."""
 
     def conv_args(self):
         k = self.conv.kernel_size[0]
-        return fold_focus_weight(self.conv.weight), 2, 2 * ((k - 1) // 2)
+        return (fold_focus_weight(self.conv.weight).to(self.dtype), 2,
+                2 * ((k - 1) // 2))
 
 
 class Focus(nn.Module):
@@ -302,10 +349,12 @@ class Focus(nn.Module):
     the folded stride-2 conv over the raw image."""
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int = 1,
-                 act: str = "silu", phase_conv: bool = False):
+                 act: str = "silu", phase_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv = _FoldedFocusConv(in_channels * 4, out_channels, ksize,
-                                     act=act, phase_conv=phase_conv)
+                                     act=act, phase_conv=phase_conv,
+                                     dtype=dtype)
 
     def forward(self, x):
         return self.conv(x)

@@ -24,13 +24,15 @@ SIN_ANGLES_PARITY = (ANGLES * np.sin(ANGLES)).astype(np.float32)
 
 def polygon_points_from_radii(centers: torch.Tensor, radii: torch.Tensor,
                               reference_parity: bool = False) -> torch.Tensor:
-    """(centers [..., 2], radii [..., 24]) -> xy points [..., 24, 2]."""
+    """(centers [..., 2], radii [..., 24]) -> xy points [..., 24, 2].  The
+    direction tables are fp32, so bf16 inputs give fp32 points (JAX's
+    promotion against the numpy tables)."""
     if reference_parity:
         cos_t, sin_t = COS_ANGLES_PARITY, SIN_ANGLES_PARITY
     else:
         cos_t, sin_t = COS_ANGLES, SIN_ANGLES
-    cos_t = torch.as_tensor(cos_t, device=radii.device, dtype=radii.dtype)
-    sin_t = torch.as_tensor(sin_t, device=radii.device, dtype=radii.dtype)
+    cos_t = torch.as_tensor(cos_t, device=radii.device)
+    sin_t = torch.as_tensor(sin_t, device=radii.device)
     x = centers[..., 0:1] + radii * cos_t
     y = centers[..., 1:2] + radii * sin_t
     return torch.stack([x, y], dim=-1)

@@ -1,12 +1,15 @@
 """Detection server: dynamic batching over the fused serving function.
 
-    python -m eop_tpu_torch.tools.serve [-n yolox_24p_s] [-w model.pth] \
-        [--device cuda] [--batch 8] [--src-hw 720,1280] [--port 8000] \
-        [key value ...]
+    python -m eop_tpu_torch.tools.serve [-n yolox_24p_s | -f exp.py] \
+        [-w model.pth] [--device cuda] [--batch 8] [--src-hw 720,1280] \
+        [--port 8000] [key value ...]
 
-``-w`` takes a PyTorch state_dict in the reference's key names (loaded
-strictly); without it the model serves seeded random weights.  Trailing
-``key value`` pairs override exp attributes (e.g. ``test_conf 0.3``).
+``-f`` reads an exp file (e.g. ``load_eval/yolox_24p_eval.py``) without
+importing it (``exp/build.py``) and takes precedence over ``-n``.  ``-w``
+takes a PyTorch state_dict in the reference's key names (loaded strictly);
+without it the model serves seeded random weights.  Trailing ``key value``
+pairs override exp attributes (e.g. ``test_conf 0.3``, ``compute_dtype
+bfloat16``).
 
 Client:
 
@@ -23,6 +26,8 @@ import argparse
 def make_parser():
     p = argparse.ArgumentParser("eop_tpu_torch.tools.serve")
     p.add_argument("-n", "--name", type=str, default="yolox_24p_s")
+    p.add_argument("-f", "--exp_file", type=str, default=None,
+                   help="exp file (takes precedence over -n)")
     p.add_argument("-w", "--weights", type=str, default=None,
                    help="PyTorch state_dict (.pth) in reference key names")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
@@ -54,7 +59,7 @@ def build_service(args):
     from ..exp import get_exp
     from ..serving.service import DetectionService
 
-    exp = get_exp(exp_name=args.name)
+    exp = get_exp(args.exp_file, args.name)
     if args.opts:
         exp.merge(args.opts)
     model = exp.get_model(args.device)

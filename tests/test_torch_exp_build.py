@@ -4,6 +4,7 @@ and a clear error, naming file and line, for anything but literal
 settings."""
 
 import pytest
+import torch
 
 from eop_tpu.exp import Exp24P as JaxExp24P
 from eop_tpu.exp import get_exp as j_get_exp
@@ -99,17 +100,36 @@ def test_misspelt_field_raises_naming_file_line_and_name(tmp_path):
     ('        self.compute_dtype = "bfloat16"\n', "compute_dtype 'bfloat16'"),
     ("        self.remat = True\n", "remat"),
 ])
-def test_unported_settings_raise(tmp_path, body, what):
-    path = _exp_file(tmp_path, body)
-    with pytest.raises(NotImplementedError,
-                       match=f"{path}: {what}.*queue 1 item 5"):
-        get_exp(path)
-    # set through a command-line override, the model build raises
-    exp = get_exp(exp_name="yolox_24p_s")
-    exp.merge(["compute_dtype", "bfloat16"] if "dtype" in what
+def test_bf16_and_remat_settings_load(tmp_path, body, what):
+    """An exp file (and ``merge``) with ``compute_dtype "bfloat16"`` or
+    ``remat True`` loads, and ``get_model("cpu")`` computes in bf16 (bf16
+    head maps over fp32 parameters) or checkpoints its backbone + neck
+    (run again in the backward of a training step)."""
+    path = _exp_file(tmp_path, body + "        self.depth = 0.33\n"
+                                      "        self.width = 0.125\n"
+                                      "        self.num_classes = 3\n")
+    exp = get_exp(path)
+    cli = get_exp(exp_name="yolox_24p_s")
+    cli.merge(["compute_dtype", "bfloat16"] if "dtype" in what
               else ["remat", "True"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        exp.get_model("cpu")
+    for e in (exp, cli):
+        assert (e.compute_dtype, e.remat) == (
+            ("bfloat16", False) if "dtype" in what else ("float32", True))
+    model = exp.get_model("cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
+    x = torch.rand(1, 3, 64, 64) * 255
+    if "dtype" in what:
+        with torch.no_grad():
+            heads, _ = model(x)
+        assert {h.dtype for h in heads} == {torch.bfloat16}
+        return
+    stem_runs = []
+    model.backbone.backbone.stem.register_forward_hook(
+        lambda *_: stem_runs.append(1))
+    heads, _ = model.train()(x)
+    assert {h.dtype for h in heads} == {torch.float32} and stem_runs == [1]
+    sum(h.sum() for h in heads).backward()
+    assert stem_runs == [1, 1]
 
 
 def test_tpu_layout_fields_are_accepted_with_jax_defaults(tmp_path):

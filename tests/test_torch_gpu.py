@@ -604,3 +604,106 @@ def test_non_silu_model_launches_phase_conv_unfused(cuda, act):
     for g, w in zip(got, want):
         scale = max(1.0, w.abs().max().item())
         assert (g.cpu() - w).abs().max().item() <= 1e-3 * scale
+
+
+# ---- bf16 compute and remat (compute_dtype, remat) ----
+
+def _bf16_exp(remat=False):
+    from eop_tpu_torch.exp import Exp24P
+
+    exp = Exp24P()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    exp.compute_dtype, exp.remat = "bfloat16", remat
+    return exp
+
+
+@pytest.mark.gpu
+def test_bf16_serving_on_card_matches_cpu(cuda):
+    """bf16 24p model, eval mode: 8 fused launches on the tensor-core
+    variants, bf16 head maps within 5e-2 of their scale of the CPU's bf16
+    path (the two round at other points), and detections from both."""
+    exp = _bf16_exp()
+    exp.test_size, exp.test_conf = (128, 128), 1e-5
+    raw = np.random.RandomState(0).randint(0, 256, (2, 128, 128, 3), np.uint8)
+    heads, dets = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = exp.get_model(dev)
+        before = (pc.phase_conv.launches, pc.phase_conv.fused_launches)
+        with torch.inference_mode():
+            out, _ = model(torch.from_numpy(raw).to(dev).float().permute(
+                0, 3, 1, 2))
+        heads[dev] = [o.float().cpu() for o in out]
+        launched = (pc.phase_conv.launches - before[0],
+                    pc.phase_conv.fused_launches - before[1])
+        assert launched == ((8, 8) if dev == "cuda" else (0, 0))
+        assert {o.dtype for o in out} == {torch.bfloat16}
+        dets[dev] = exp.get_serving_fn(model, (128, 128), dev)(raw)
+    assert pc.phase_conv.last_variant == "wgmma_taps"
+    for g, c in zip(heads["cuda"], heads["cpu"]):
+        assert (g - c).abs().max().item() <= 5e-2 * c.abs().max().item()
+    assert int(dets["cuda"].valid.sum()) > 0 and int(dets["cpu"].valid.sum()) > 0
+
+
+def _one_step(exp, dev, imgs, labels):
+    """One training step through make_train_step_24p: the loss, the
+    gradients, the buffers after it and the kernels' launches."""
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
+
+    model = exp.get_model(dev, seed=0)
+    state = create_train_state(model, exp.get_optimizer(model, 2, lr=0.01),
+                               use_ema=False, with_dwa=True)
+    before = (pc.phase_conv.launches, pc.phase_conv.wgrad_launches,
+              pc.phase_conv.dgrad_launches)
+    _, metrics = make_train_step_24p(Loss24PConfig(num_classes=3))(
+        state, imgs.to(dev), labels.to(dev))
+    after = (pc.phase_conv.launches, pc.phase_conv.wgrad_launches,
+             pc.phase_conv.dgrad_launches)
+    return (metrics["total_loss"].item(),
+            {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: b.cpu() for n, b in model.named_buffers()},
+            tuple(b - a for a, b in zip(before, after)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_train_step_on_card_matches_cpu(cuda, remat):
+    """A bf16 training step on the card and on the CPU from one state:
+    launches 8/8/7 (forward/wgrad/dgrad; 16 forward under remat: the
+    recompute; at width 0.25 the 16-channel convs take the CUDA-core
+    backward, which packs nothing), the loss within 5e-2 (bf16 rounding and
+    SimOTA's discrete assignment, tests/test_torch_bf16.py), fp32 finite
+    gradients."""
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    imgs, labels = synthetic_24p_batch(
+        torch.Generator().manual_seed(0), 2, size=128, ngt=3, r_lo=8.0,
+        r_hi=30.0)
+    exp = _bf16_exp(remat)
+    cpu = _one_step(exp, "cpu", imgs, labels)
+    card = _one_step(exp, cuda, imgs, labels)
+    assert cpu[3] == (0, 0, 0)
+    assert card[3] == (16 if remat else 8, 8, 7)
+    assert abs(card[0] - cpu[0]) <= 5e-2 * abs(cpu[0])
+    for n, g in card[1].items():
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), n
+
+
+@pytest.mark.gpu
+def test_remat_on_card_updates_batchnorm_once(cuda):
+    """One bf16 step with and without remat from one state on the card: the
+    BatchNorm running statistics equal, num_batches_tracked 1 in every
+    BatchNorm."""
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    imgs, labels = synthetic_24p_batch(
+        torch.Generator().manual_seed(1), 2, size=128, ngt=3, r_lo=8.0,
+        r_hi=30.0)
+    plain = _one_step(_bf16_exp(False), cuda, imgs, labels)[2]
+    remat = _one_step(_bf16_exp(True), cuda, imgs, labels)[2]
+    for n, b in plain.items():
+        if n.endswith("num_batches_tracked"):
+            assert int(b) == int(remat[n]) == 1, n
+        else:
+            bound = 1e-6 * max(b.abs().max().item(), 1e-30)
+            assert (remat[n] - b).abs().max().item() <= bound, n

@@ -414,3 +414,43 @@ def test_serve_cli_loads_weights_strictly_on_the_cpu(bridged, tmp_path):
     torch.save(bad, path)
     with pytest.raises(RuntimeError, match="Missing key"):
         cli.build_service(args)
+
+
+def test_serve_cli_reads_a_bf16_exp_file(bridged, tmp_path):
+    """``serve -f``: an exp file with ``compute_dtype "bfloat16"`` (parsed,
+    not imported) serves fp32 weights through the bf16 model; its answers
+    are those of the exp's own bf16 serving function on the same weights."""
+    from eop_tpu_torch.tools import serve as cli
+
+    *_, exp, model = bridged
+    weights = tmp_path / "tiny.pth"
+    torch.save(model.state_dict(), weights)
+    exp_file = tmp_path / "exp_bf16.py"
+    exp_file.write_text(
+        "from eop_tpu.exp import Exp24P as _Base\n\n\n"
+        "class Exp(_Base):\n    def __init__(self):\n"
+        "        super().__init__()\n"
+        "        self.depth, self.width = 0.33, 0.125\n"
+        "        self.num_classes = 3\n"
+        '        self.compute_dtype = "bfloat16"\n'
+        "        self.test_size = (64, 64)\n")
+    args = cli.make_parser().parse_args([
+        "-f", str(exp_file), "--device", "cpu", "--batch", "2", "-w",
+        str(weights), "test_conf", "5e-5"])
+    svc = cli.build_service(args)
+    try:
+        img = images(31, (64, 64, 3))
+        dets = svc.detect(img)
+    finally:
+        svc.close()
+    bf16 = tiny(Exp24P())
+    bf16.compute_dtype, bf16.test_conf = "bfloat16", 5e-5
+    ref_model = bf16.get_model("cpu")
+    ref_model.load_state_dict(model.state_dict(), strict=True)
+    assert ref_model.head.dtype == torch.bfloat16
+    out = bf16.get_serving_fn(ref_model, (64, 64), "cpu")(img[None])
+    assert len(dets) == int(out.valid.sum()) > 0
+    rows = out.rows[0][out.valid[0]]
+    np.testing.assert_allclose([d["score"] for d in dets],
+                               (rows[:, 26] * rows[:, 27]).numpy(),
+                               rtol=1e-6)
