@@ -62,8 +62,23 @@
     ... --eval compute_dtype bfloat16`` and ``python -m
     eop_tpu_torch.tools.eval`` on its checkpoint, and checks each prints an
     AP line;
-14. drops the training loader with batches in flight a few more times, and
-    checks that no loader worker died in any of the file phases.
+14. drops the training loader with batches in flight a few more times;
+15. the bbox family at full width, YOLOX-L (depth 1.0, width 1.0, 80
+    classes, 640 px): holds the kernels at YOLOX-L's 12 early-conv shapes
+    (batch 8; the stem and dark3's down conv on the CUDA-core ``direct``
+    forward and ``cuda_cores`` weight gradient) against their plain
+    versions beside cuDNN (with 3 and 7); writes a seeded COCO-format
+    dataset (64 train and 16 val 720x1280 baseline JPEGs, 1-4 rectangles,
+    80 classes); trains YOLOX-L from it with ``python -m
+    eop_tpu_torch.tools.train -n yolox-l -b 8`` as a subprocess for a
+    mosaic + mixup epoch, the no-aug switch and an epoch with the L1 loss
+    (launches 12/12/11/11 every step, L1 0 then positive, EMA evaluation
+    and its AP line each epoch); runs bf16 YOLOX-L steps in this process;
+    one YOLOX-L step (B=2, 320 px) on the card and on the CPU; ``python -m
+    eop_tpu_torch.tools.eval -n yolox-l`` on the checkpoint (AP line) and a
+    label oracle through ``COCOEvaluator`` (AP 1); drops the mosaic loader
+    with batches in flight;
+16. checks that no loader worker died in any of the file phases.
 
 ``python3 chip_smoke.py --probe-worker-exit`` runs only a probe: the
 training loader dropped with batches in flight with and without its
@@ -126,6 +141,23 @@ MAIN_PATH = [
     ("dark2_csp.conv3", (1, 1, 0, 160, 160, 64, 64)),
     ("dark3_conv", (3, 2, 1, 160, 160, 64, 128)),
 ]
+# the 12 convs of YOLOX-L (depth 1.0, width 1.0) that run phase_conv, at 640
+# px: the stem, dark2's down conv, the 9 convs of dark2's CSP layer (n=3)
+# and dark3's down conv; with the forward, weight-gradient and data-gradient
+# variant each takes (None: no data gradient, the stem's input is the image)
+YOLOX_L_PATH = (
+    [("l.stem", (6, 2, 2, 640, 640, 3, 64), "direct", "cuda_cores", None),
+     ("l.dark2_conv", (3, 2, 1, 320, 320, 64, 128), "wgmma_taps", "wgmma",
+      "wgmma_classes")]
+    + [(f"l.dark2_csp.{n}", (1, 1, 0, 160, 160, 128, 64), "wgmma_taps",
+        "wgmma", "flipped:wgmma_taps") for n in ("conv1", "conv2")]
+    + [(f"l.dark2_csp.m{i}.conv{j}", (k, 1, k // 2, 160, 160, 64, 64),
+        "wgmma_taps", "wgmma", "flipped:wgmma_taps")
+       for i in range(3) for j, k in ((1, 1), (2, 3))]
+    + [("l.dark2_csp.conv3", (1, 1, 0, 160, 160, 128, 128), "wgmma_taps",
+        "wgmma", "flipped:wgmma_taps"),
+       ("l.dark3_conv", (3, 2, 1, 160, 160, 128, 256), "direct", "cuda_cores",
+        "wgmma_classes")])
 SERVE_BATCH = 8
 N_REQUESTS, N_CLIENTS = 32, 16
 # shapes off the tensor-core predicates, odd sizes, parity classes without
@@ -233,10 +265,12 @@ def epilogue_inputs(co, seed):
     return scale, shift
 
 
-def check_phase_conv():
+def check_phase_conv(cases=None):
     """Kernel vs plain version on every shape, fp32 and bf16, with and
     without the fused epilogue; times at the main-path shapes, at the
-    serving batch and at the training step's."""
+    serving batch and at the training step's.  ``cases``: (name, case,
+    batch, expected variant or None); by default the JAX package's cases
+    and the 24p-s main path."""
     import torch.nn.functional as F
 
     from eop_tpu_torch.ops.phase_conv import (
@@ -245,11 +279,13 @@ def check_phase_conv():
         phase_conv_reference,
     )
 
-    cases = ([(f"jax_case_{i}", c, 2) for i, c in enumerate(JAX_CASES)]
-             + [(n, c, SERVE_BATCH) for n, c in MAIN_PATH]
-             + [(n, c, TRAIN_BATCH) for n, c in MAIN_PATH])
+    if cases is None:
+        cases = ([(f"jax_case_{i}", c, 2, None)
+                  for i, c in enumerate(JAX_CASES)]
+                 + [(n, c, SERVE_BATCH, None) for n, c in MAIN_PATH]
+                 + [(n, c, TRAIN_BATCH, None) for n, c in MAIN_PATH])
     rows, err32, err16 = [], 0.0, 0.0
-    for seed, (name, case, batch) in enumerate(cases):
+    for seed, (name, case, batch, expect) in enumerate(cases):
         k, s, p, h, w, c, co = case
         row = {"name": name, "case": list(case), "batch": batch}
         scale, shift = epilogue_inputs(co, seed)
@@ -274,6 +310,10 @@ def check_phase_conv():
                 else:
                     err16 = max(err16, err)
             row[f"variant_{key}"] = phase_conv.last_variant
+            if expect is not None and phase_conv.last_variant != expect:
+                raise AssertionError(f"phase_conv {name} {key} ran "
+                                     f"{phase_conv.last_variant}, expected "
+                                     f"{expect}")
         row["variant"] = row["variant_fp32"]
         del got, want
         if batch in (SERVE_BATCH, TRAIN_BATCH):
@@ -849,11 +889,14 @@ def conv_bound(flops: float, n_bytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_phase_conv_backward():
+def check_phase_conv_backward(cases=None):
     """dgrad and wgrad against their plain versions on the main-path shapes
     (at the training step's batch 32, which is what the path gives them, and
     at batch 8) and ragged ones, fp32 and bf16; wgrad twice, bit-equal; the
-    main-path shapes on their tensor-core variants.  Times at the main-path
+    main-path shapes on their tensor-core variants.  ``cases``: (name, case,
+    batch, expected wgrad variant, expected dgrad variant or None), with
+    None for both on a ragged case; by default the 24p-s main path and the
+    ragged cases.  Times at the main-path
     shapes: the tensor-core kernels, the CUDA-core ones they replaced (forced
     through the wrappers' private ``_cuda_cores``, which nothing on the
     main path passes), the plain versions and ``aten::convolution_backward`` (TF32
@@ -874,16 +917,18 @@ def check_phase_conv_backward():
         wgrad_variant,
     )
 
-    cases = ([(n, c, TRAIN_BATCH) for n, c in MAIN_PATH]
-             + [(n, c, SERVE_BATCH) for n, c in MAIN_PATH]
-             + [(f"ragged_{i}", c, 3) for i, c in enumerate(RAGGED_BACKWARD)])
+    if cases is None:
+        cases = ([(n, c, b, WGRAD_VARIANT,
+                   None if n == "stem" else DGRAD_VARIANTS[c[1]])
+                  for b in (TRAIN_BATCH, SERVE_BATCH) for n, c in MAIN_PATH]
+                 + [(f"ragged_{i}", c, 3, None, None)
+                    for i, c in enumerate(RAGGED_BACKWARD)])
     rows = []
     worst = {"dgrad": {"fp32": 0.0, "bf16": 0.0},
              "wgrad": {"fp32": 0.0, "bf16": 0.0}}
-    for seed, (name, case, batch) in enumerate(cases):
+    for seed, (name, case, batch, want_w, want_d) in enumerate(cases):
         k, s, p, h, w, c, co = case
         ho, wo = out_hw(h, w, k, s, p)
-        main = not name.startswith("ragged")
         row = {"name": name, "case": list(case), "batch": batch}
         for dtype, tol, key in ((torch.float32, FP32_TOL, "fp32"),
                                 (torch.bfloat16, BF16_TOL, "bf16")):
@@ -900,11 +945,11 @@ def check_phase_conv_backward():
             if not torch.equal(dw, dw2):
                 raise AssertionError(f"wgrad {name} {key}: two launches on "
                                      f"one input differ")
-            if main and (row[f"wgrad_variant_{key}"] != WGRAD_VARIANT or (
-                    name != "stem" and row[f"dgrad_variant_{key}"]
-                    != DGRAD_VARIANTS[s])):
-                raise AssertionError(f"{name} {key}: not on the tensor-core "
-                                     f"variants: {row}")
+            if want_w is not None and (
+                    row[f"wgrad_variant_{key}"] != want_w
+                    or want_d not in (None, row[f"dgrad_variant_{key}"])):
+                raise AssertionError(f"{name} {key}: not on the expected "
+                                     f"variants {want_w}, {want_d}: {row}")
             for kind, got, want in (
                     ("wgrad", dw, phase_conv_wgrad_reference(x, dy, k, s, p)),
                     ("dgrad", dx, phase_conv_dgrad_reference(
@@ -948,7 +993,7 @@ def check_phase_conv_backward():
             row["wgrad_bound_ms"], row["wgrad_bound_by"] = conv_bound(
                 flops, row["wgrad_bytes"])
             # the stem's input is the image: no data gradient on the path
-            row["dgrad_on_path"] = name != "stem"
+            row["dgrad_on_path"] = want_d is not None
             row["dgrad_variant"] = dgrad_variant(dy.shape, wgt.shape, s, p,
                                                  torch.float32)
             row["dgrad_ms"] = cuda_ms(
@@ -1333,6 +1378,22 @@ def write_dataset(root: str):
     return img_dir, lab_dir, report
 
 
+class TimedIter:
+    """An iterator that records the host's wait for each item."""
+
+    def __init__(self, it, waits):
+        self.it, self.waits = it, waits
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = next(self.it)
+        self.waits.append(time.perf_counter() - t0)
+        return item
+
+
 class TimedLoader:
     """A loader whose iterator records the host's wait for each batch."""
 
@@ -1343,12 +1404,7 @@ class TimedLoader:
         return len(self.loader)
 
     def __iter__(self):
-        it = iter(self.loader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(it)
-            self.waits.append(time.perf_counter() - t0)
-            yield batch
+        return TimedIter(iter(self.loader), self.waits)
 
 
 def train_files(smi: str, img_dir: str, lab_dir: str, repeated: dict):
@@ -1623,6 +1679,387 @@ def run_cli(smi: str, img_dir: str, lab_dir: str):
         shutil.rmtree(out, ignore_errors=True)
     return report
 
+# ---------------------------------------------------------------------------
+# the bbox family: YOLOX-L at full width from COCO files
+
+BBOX_TRAIN_IMAGES, BBOX_VAL_IMAGES, BBOX_CLASSES = 64, 16, 80
+BBOX_BATCH = 8
+# launches of one YOLOX-L training step: 12 forward convs, 12 weight
+# gradients, 11 data gradients (not the stem's), each packing its weights
+BBOX_STEP_LAUNCHES = {"forward": 12, "wgrad": 12, "dgrad": 11, "pack": 11}
+BBOX_BF16_WARMUP, BBOX_BF16_TIMED = 2, 4
+AP_LINE = r"AP50:95\s*=\s*([0-9.]+)\s+AP50\s*=\s*([0-9.]+)"
+
+
+def yolox_l_cases():
+    """The YOLOX-L shapes as check_phase_conv's and
+    check_phase_conv_backward's cases, at batch 8 (served and trained)."""
+    fwd = [(n, c, BBOX_BATCH, v) for n, c, v, _, _ in YOLOX_L_PATH]
+    back = [(n, c, BBOX_BATCH, w, d) for n, c, _, w, d in YOLOX_L_PATH]
+    return fwd, back
+
+
+def write_bbox_dataset(root: str):
+    """The seeded COCO-format dataset of the bbox phases
+    (``utils/synth.write_coco_dataset``: 720x1280 baseline JPEG, quality 95,
+    4:2:0, 1-4 rectangles an image, 80 classes)."""
+    from eop_tpu_torch.utils.synth import write_coco_dataset
+
+    t0 = time.perf_counter()
+    write_coco_dataset(root, BBOX_TRAIN_IMAGES, BBOX_VAL_IMAGES, DATASET_HW,
+                       num_classes=BBOX_CLASSES, seed=0, fmt="jpeg")
+    n_bytes = sum(e.stat().st_size for d in ("train2017", "val2017",
+                                             "annotations")
+                  for e in os.scandir(os.path.join(root, d)))
+    return {"phase": "bbox_dataset", "train_images": BBOX_TRAIN_IMAGES,
+            "val_images": BBOX_VAL_IMAGES, "num_classes": BBOX_CLASSES,
+            "height": DATASET_HW[0], "width": DATASET_HW[1],
+            "format": "baseline JPEG, quality 95, 4:2:0", "bytes": n_bytes,
+            "seconds": time.perf_counter() - t0}
+
+
+def train_bbox_child(out_path: str, argv) -> int:
+    """``python3 chip_smoke.py --train-bbox-child OUT -- ARGS``: run
+    ``eop_tpu_torch.tools.train``'s ``main(ARGS)`` in this process with a
+    hook on its trainer that records, for every step, the kernel launches
+    between the step's start and end, CUDA events around it, its metrics
+    and the host's wait in ``next(it)``; then write them to OUT as JSON.
+    The counts start at 0 with the process."""
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+    from eop_tpu_torch.tools import train as train_cli
+    from eop_tpu_torch.train import trainer as trainer_mod
+
+    steps, waits, marks = [], [], {}
+
+    def hook(name, metrics=None):
+        if name == "start":
+            marks["counts"] = _launch_counts()
+            marks["event"] = torch.cuda.Event(enable_timing=True)
+            marks["event"].record()
+        elif name == "step":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            counts = _launch_counts()
+            steps.append((marks["event"], end, {
+                k: counts[k] - marks["counts"][k] for k in counts},
+                metrics, time.perf_counter()))
+
+    init, before_epoch = trainer_mod.Trainer.__init__, \
+        trainer_mod.Trainer.before_epoch
+
+    def patched_init(self, exp, args):
+        init(self, exp, args)
+        self.hook = hook
+        marks["trainer"] = self
+
+    def patched_before_epoch(self):
+        before_epoch(self)
+        if not isinstance(self._iter, TimedIter):
+            self._iter = TimedIter(self._iter, waits)
+
+    trainer_mod.Trainer.__init__ = patched_init
+    trainer_mod.Trainer.before_epoch = patched_before_epoch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_cli.main(list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trainer = marks["trainer"]
+    report = {
+        "wall_s": wall, "iters_per_epoch": trainer.iters_per_epoch,
+        "epochs": trainer.max_epoch,
+        "step_ms": [a.elapsed_time(b) for a, b, _, _, _ in steps],
+        "host_end_s": [t for _, _, _, _, t in steps],
+        "launches": [c for _, _, c, _, _ in steps],
+        "metrics": [{k: float(v) for k, v in m.items()}
+                    for _, _, _, m, _ in steps],
+        "data_wait_s": waits,
+        "totals": _launch_counts(),
+        "fused_launches": phase_conv.fused_launches,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "best_ap50_95": trainer.best_ap,
+    }
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def train_bbox(smi: str, data_dir: str, out_dir: str):
+    """``python -m eop_tpu_torch.tools.train -n yolox-l -b 8`` over the
+    dataset for two epochs of 8 steps, as a subprocess (through
+    :func:`train_bbox_child`): one mosaic + mixup epoch, then the no-aug
+    switch (``no_aug_epochs 0`` puts it at the start of the second epoch,
+    where the reference places it), one epoch with the L1 loss; each epoch
+    evaluates the EMA weights.  Checks the exit code, finite losses, L1 zero
+    then positive, the launches of every step, the AP line; returns the
+    report and the child's launch totals."""
+    import re
+
+    record = os.path.join(out_dir, "train_bbox.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--train-bbox-child",
+           record, "--", "-n", "yolox-l", "-b", str(BBOX_BATCH),
+           "--data-dir", data_dir, "max_epoch", "2", "no_aug_epochs", "0",
+           "eval_interval", "1", "data_num_workers", "4", "seed", "0",
+           "print_interval", "4", "output_dir", out_dir]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=900)
+    wall = time.perf_counter() - t0
+    log = r.stdout + r.stderr
+    aps = re.findall(AP_LINE, log)
+    if r.returncode != 0 or not aps:
+        raise AssertionError(f"train_bbox: rc {r.returncode}, AP lines "
+                             f"{aps}\n{log[-6000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    iters = rec["iters_per_epoch"]
+    n = len(rec["step_ms"])
+    l1 = [m["l1_loss"] for m in rec["metrics"]]
+    losses = [m["total_loss"] for m in rec["metrics"]]
+    bad = [i for i, c in enumerate(rec["launches"])
+           if {k: c[k] for k in BBOX_STEP_LAUNCHES} != BBOX_STEP_LAUNCHES]
+    host = np.diff(rec["host_end_s"])
+    timed = list(range(2, iters)) + list(range(iters + 2, n))
+    report = {
+        "phase": "train_bbox", "card": smi, "model": "yolox_l",
+        "depth": 1.0, "width": 1.0, "num_classes": BBOX_CLASSES,
+        "input_size": [640, 640], "batch": BBOX_BATCH,
+        "command": " ".join(cmd[4:]), "rc": r.returncode, "wall_s": wall,
+        "steps": n, "iters_per_epoch": iters, "losses": losses,
+        "l1_losses": l1, "num_fg": [m["num_fg"] for m in rec["metrics"]],
+        "launches_per_step": rec["launches"][-1],
+        "step_ms_all": rec["step_ms"],
+        "step_ms": float(np.median([rec["step_ms"][i] for i in timed])),
+        "step_ms_mosaic": float(np.median(rec["step_ms"][2:iters])),
+        "step_ms_no_aug": float(np.median(rec["step_ms"][iters + 2:])),
+        # the host's clock between step ends, over the timed steps of
+        # each epoch (the loader included)
+        "images_per_s_timed_steps": BBOX_BATCH * len(timed) / float(
+            sum(host[i - 1] for i in timed)),
+        "data_wait_ms_all": [1e3 * t for t in rec["data_wait_s"]],
+        "data_wait_ms_median": 1e3 * float(np.median(
+            [rec["data_wait_s"][i] for i in timed])),
+        "first_batch_wait_s": rec["data_wait_s"][0],
+        "switch_first_batch_wait_s": rec["data_wait_s"][iters],
+        "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+        "ap_lines": [[float(a), float(b)] for a, b in aps],
+        "eval_forward_launches": rec["totals"]["forward"] - sum(
+            c["forward"] for c in rec["launches"]),
+        "eval_fused_launches": rec["fused_launches"],
+        "worker_aborts": r.stderr.count("killed by signal"),
+        "switch_logged": "No mosaic aug now" in log,
+    }
+    checkpoints = sorted(os.listdir(os.path.join(out_dir, "yolox_l")))
+    report["checkpoints"] = checkpoints
+    if (n != 2 * iters or bad or not all(np.isfinite(losses))
+            or any(v != 0 for v in l1[:iters])
+            or not all(v > 0 for v in l1[iters:])
+            or len(aps) != 2 or not report["switch_logged"]
+            or "last_mosaic_epoch_ckpt.pth" not in checkpoints
+            or report["eval_fused_launches"] != report["eval_forward_launches"]
+            or report["eval_forward_launches"] <= 0):
+        raise AssertionError(f"train_bbox: steps {bad} launched otherwise "
+                             f"than {BBOX_STEP_LAUNCHES}, or: {report}")
+    return report, rec["totals"], rec["launches"]
+
+
+def bbox_synthetic_batch(batch: int, size: int, gts: int = 8, seed: int = 0,
+                         device="cuda"):
+    """Images ``[B, S, S, 3]`` in 0..255 and label rows ``[B, 120, 5]`` (cls,
+    cx, cy, w, h) with ``gts`` boxes each, seeded."""
+    rng = np.random.RandomState(seed)
+    imgs = rng.uniform(0, 255, (batch, size, size, 3)).astype(np.float32)
+    labels = np.zeros((batch, 120, 5), np.float32)
+    for b in range(batch):
+        for g in range(gts):
+            w, h = rng.uniform(0.05 * size, 0.4 * size, 2)
+            labels[b, g] = (rng.randint(BBOX_CLASSES),
+                            rng.uniform(w / 2, size - w / 2),
+                            rng.uniform(h / 2, size - h / 2), w, h)
+    return (torch.from_numpy(imgs).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def train_bbox_bf16(smi: str):
+    """YOLOX-L bf16 steps in this process (``compute_dtype bfloat16``) at
+    batch 8, 640 px, on one seeded batch on the card: step ms (CUDA events,
+    median of the timed steps), peak memory, launches of every step."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+
+    exp = get_exp(exp_name="yolox-l")
+    exp.compute_dtype = "bfloat16"
+    imgs, labels = bbox_synthetic_batch(BBOX_BATCH, 640)
+    torch.cuda.empty_cache()
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    model = exp.get_model("cuda", seed=0).train()
+    state = create_train_state(model, exp.get_optimizer(model, BBOX_BATCH,
+                                                        8))
+    events, per_step, marks = [], [], {}
+
+    def hook(name, metrics=None):
+        if name == "start":
+            marks["counts"] = _launch_counts()
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+        elif name == "step":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            c = _launch_counts()
+            per_step.append({k: c[k] - marks["counts"][k]
+                             for k in BBOX_STEP_LAUNCHES})
+            marks["metrics"] = marks.get("metrics", []) + [metrics]
+
+    step = make_train_step_bbox(YoloxLossConfig(num_classes=BBOX_CLASSES),
+                                ema_decay=exp.ema_decay, hook=hook)
+    for _ in range(BBOX_BF16_WARMUP + BBOX_BF16_TIMED):
+        state, _ = step(state, imgs, labels)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    ms = [events[2 * i].elapsed_time(events[2 * i + 1])
+          for i in range(BBOX_BF16_WARMUP, BBOX_BF16_WARMUP + BBOX_BF16_TIMED)]
+    losses = [float(m["total_loss"]) for m in marks["metrics"]]
+    report = {"phase": "train_bbox_bf16", "card": smi, "model": "yolox_l",
+              "compute_dtype": "bfloat16", "batch": BBOX_BATCH,
+              "input_size": [640, 640], "losses": losses,
+              "step_ms": float(np.median(ms)), "step_ms_all": ms,
+              "images_per_s": 1e3 * BBOX_BATCH / float(np.median(ms)),
+              "launches_per_step": per_step[-1],
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if (any(p != BBOX_STEP_LAUNCHES for p in per_step)
+            or not all(np.isfinite(losses))):
+        raise AssertionError(f"train_bbox_bf16: {report} {per_step}")
+    del state, model
+    return report, launches
+
+
+def bbox_card_vs_cpu():
+    """One YOLOX-L training step's forward, assignment, loss and backward
+    (B=2, 320 px) from one seeded state on the card and on the CPU: the loss
+    within 1e-3 relative, the same assignment; the gradients' worst
+    difference and cosines reported."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import (
+        SimOTAConfig,
+        YoloxLossConfig,
+        simota_assign,
+        yolox_losses,
+    )
+    from eop_tpu_torch.models.yolox import training_outputs
+
+    exp = get_exp(exp_name="yolox-l")
+    imgs, labels = bbox_synthetic_batch(2, 320, seed=1, device="cpu")
+    cfg = YoloxLossConfig(num_classes=BBOX_CLASSES)
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = exp.get_model(dev, seed=0).train()
+        heads, _ = model(imgs.to(dev).permute(0, 3, 1, 2))
+        decoded, origin, grids, strides = training_outputs(heads, reg_dim=4)
+        lab = labels.to(dev)
+        with torch.no_grad():
+            d = decoded.float()
+            assign = simota_assign(lab, d[..., :4], d[..., 4], d[..., 5:],
+                                   grids, strides, BBOX_CLASSES,
+                                   SimOTAConfig())
+        total, _ = yolox_losses(decoded, origin, lab, grids, strides, cfg)
+        total.backward()
+        out[dev] = (total.item(), assign.fg_mask.cpu(),
+                    assign.matched_gt.cpu(),
+                    {n: p.grad.cpu() for n, p in model.named_parameters()})
+        del model, heads, decoded
+    rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    same = (torch.equal(out["cuda"][1], out["cpu"][1])
+            and torch.equal(out["cuda"][2], out["cpu"][2]))
+    worst, worst_name, cosines = 0.0, None, []
+    for name, g in out["cpu"][3].items():
+        got = out["cuda"][3][name]
+        err = ((got - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+        if err > worst:
+            worst, worst_name = err, name
+        a, b = got.double().flatten(), g.double().flatten()
+        if b.norm() > 0:
+            cosines.append((a @ b / (a.norm() * b.norm())).item())
+    report = {"phase": "bbox_card_vs_cpu", "model": "yolox_l", "batch": 2,
+              "input_size": [320, 320], "loss_cuda": out["cuda"][0],
+              "loss_cpu": out["cpu"][0], "loss_rel_err": rel,
+              "loss_tol": 1e-3, "assignment_equal": same,
+              "num_fg": int(out["cpu"][1].sum()),
+              "grad_tensors": len(out["cpu"][3]),
+              "grad_worst_rel_to_max": worst, "grad_worst_tensor": worst_name,
+              "grad_cosine_median": float(np.median(cosines)),
+              "grad_cosine_min": min(cosines),
+              "wall_s": time.perf_counter() - t0}
+    if not (rel <= 1e-3 and same and report["num_fg"] > 0):
+        raise AssertionError(f"bbox card and CPU disagree: {report}")
+    return report
+
+
+def eval_bbox(smi: str, data_dir: str, ckpt: str):
+    """``python -m eop_tpu_torch.tools.eval -n yolox-l -c CKPT -b 8`` over the
+    val images as a subprocess (exit 0, an AP line), then the label oracle
+    through ``COCOEvaluator`` on the card (AP 1)."""
+    import re
+
+    from eop_tpu_torch.eval import fast_cocoeval
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.utils.synth import LabelOracle
+
+    cmd = [sys.executable, "-m", "eop_tpu_torch.tools.eval", "-n", "yolox-l",
+           "-c", ckpt, "-b", str(EVAL_BATCH), "--data-dir", data_dir,
+           "--per-class-ap", "test_conf", "1e-5", "data_num_workers", "4"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    aps = re.findall(AP_LINE, r.stdout)
+    if r.returncode != 0 or not aps:
+        raise AssertionError(f"eval_bbox: rc {r.returncode}\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    exp = get_exp(exp_name="yolox-l")
+    exp.data_dir, exp.num_classes, exp.data_num_workers = (
+        data_dir, BBOX_CLASSES, 0)
+    evaluator = exp.get_evaluator(EVAL_BATCH)
+    fast_cocoeval.match_image.native_calls = 0
+    o5095, o50, _ = evaluator.evaluate(
+        LabelOracle(evaluator.dataloader.dataset, "cuda"))
+    report = {"phase": "eval_bbox", "card": smi, "command": " ".join(cmd[2:]),
+              "rc": r.returncode, "wall_s": wall,
+              "ap50_95": float(aps[-1][0]), "ap50": float(aps[-1][1]),
+              "per_class_table": "| class" in r.stdout,
+              "worker_aborts": r.stderr.count("killed by signal"),
+              "oracle_ap50_95": float(o5095), "oracle_ap50": float(o50),
+              "oracle_native_matcher_calls":
+                  fast_cocoeval.match_image.native_calls,
+              "oracle_images": evaluator.timings["images"]}
+    if not (abs(o5095 - 1.0) <= 1e-6 and abs(o50 - 1.0) <= 1e-6
+            and report["per_class_table"]
+            and report["oracle_images"] == BBOX_VAL_IMAGES):
+        raise AssertionError(f"eval_bbox: {report}")
+    return report
+
+
+def drop_bbox_loaders(data_dir: str, drops: int = 2) -> dict:
+    """YOLOX-L's mosaic train loader started and dropped with batches in
+    flight, ``drops`` times, as the trainer drops it."""
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(exp_name="yolox-l")
+    exp.data_dir, exp.num_classes = data_dir, BBOX_CLASSES
+    t0 = time.perf_counter()
+    for _ in range(drops):
+        it = iter(exp.get_data_loader(BBOX_BATCH))
+        next(it)
+        del it
+    return {"bbox_drops": drops, "bbox_drop_seconds": time.perf_counter() - t0}
+
 
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
@@ -1699,6 +2136,10 @@ def main() -> int:
     shapes, err32, err16 = check_phase_conv()
     for row in shapes:
         emit({"phase": "phase_conv", "card": smi, **row})
+    l_fwd_cases, l_back_cases = yolox_l_cases()
+    l_shapes, l_err32, l_err16 = check_phase_conv(l_fwd_cases)
+    for row in l_shapes:
+        emit({"phase": "phase_conv_yolox_l", "card": smi, **row})
 
     exp = serving_exp()
     model = exp.get_model("cuda")
@@ -1717,6 +2158,9 @@ def main() -> int:
     back_rows, back_err = check_phase_conv_backward()
     for row in back_rows:
         emit({"phase": "phase_conv_backward", "card": smi, **row})
+    l_back_rows, l_back_err = check_phase_conv_backward(l_back_cases)
+    for row in l_back_rows:
+        emit({"phase": "phase_conv_backward_yolox_l", "card": smi, **row})
     train_report, repeat_launches = train_main_path(smi)
     emit(train_report)
     emit(train_card_vs_cpu())
@@ -1761,6 +2205,18 @@ def main() -> int:
         cli_report = run_cli(smi, img_dir, lab_dir)
         emit(cli_report)
         drops = drop_loaders(img_dir, lab_dir)
+        # the bbox family: YOLOX-L from COCO files
+        bbox_dir = os.path.join(data_root, "coco")
+        emit({**write_bbox_dataset(bbox_dir), "card": smi})
+        bbox_out = os.path.join(data_root, "bbox_out")
+        bbox_report, bbox_launches, _ = train_bbox(smi, bbox_dir, bbox_out)
+        bf16_report, bbox16_launches = train_bbox_bf16(smi)
+        bbox_report["bf16_step"] = bf16_report
+        emit(bbox_report)
+        emit(bbox_card_vs_cpu())
+        emit(eval_bbox(smi, bbox_dir, os.path.join(bbox_out, "yolox_l",
+                                                   "latest_ckpt.pth")))
+        drops.update(drop_bbox_loaders(bbox_dir))
         gc.collect()
     finally:
         sys.unraisablehook = default_hook
@@ -1770,9 +2226,10 @@ def main() -> int:
           "workers_died": len(died),
           "cli_workers_died": (cli_report["train_24p_worker_aborts"]
                                + cli_report["eval_worker_aborts"]),
+          "bbox_workers_died": bbox_report["worker_aborts"],
           "unraisable": unraisable[:5]})
     if died or cli_report["train_24p_worker_aborts"] or (
-            cli_report["eval_worker_aborts"]):
+            cli_report["eval_worker_aborts"]) or bbox_report["worker_aborts"]:
         raise AssertionError(f"loader workers died: {died}")
     # each path's launches, counted from 0 just before it ran: the forward
     # serves (serve; serve_relu without the epilogue) and evaluates (eval) at
@@ -1787,10 +2244,17 @@ def main() -> int:
                "train": repeat_launches["forward"],
                "train_files": files_launches["forward"],
                "train_bf16": train16_launches["forward"],
-               "train_remat": remat_launches["forward"]}
+               "train_remat": remat_launches["forward"],
+               # YOLOX-L: the training child's total (its steps and the
+               # EMA evaluations, which launch the fused forward), and the
+               # in-process bf16 steps
+               "train_bbox": bbox_launches["forward"],
+               "train_bbox_bf16": bbox16_launches["forward"]}
     train_paths = {"train": repeat_launches, "train_files": files_launches,
                    "train_bf16": train16_launches,
-                   "train_remat": remat_launches}
+                   "train_remat": remat_launches,
+                   "train_bbox": bbox_launches,
+                   "train_bbox_bf16": bbox16_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
 
@@ -1807,6 +2271,14 @@ def main() -> int:
 
     pack_rows = [r for r in back_rows if "pack_ms" in r
                  and r["batch"] == TRAIN_BATCH]
+
+    def yolox_l(rows_, keys, **extra):
+        """The YOLOX-L shapes at batch 8 summed (12 forward convs, 12 weight
+        and 11 data gradients), beside the 24p-s figures."""
+        return {"batch": BBOX_BATCH, "shapes": len(rows_),
+                **{k: sum(r[k] for r in rows_) for k in keys}, **extra}
+
+    l_pack_rows = [r for r in l_back_rows if "pack_ms" in r]
 
     def on_path(kind, batch):
         return [r for r in back_rows if "wgrad_ms" in r and r["batch"] == batch
@@ -1825,8 +2297,10 @@ def main() -> int:
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches[kind],
             "launches_by_path": {k: c[kind] for k, c in train_paths.items()},
-            "max_abs_err": back_err[kind]["fp32"],
-            "max_abs_err_bf16": back_err[kind]["bf16"],
+            "max_abs_err": max(back_err[kind]["fp32"],
+                               l_back_err[kind]["fp32"]),
+            "max_abs_err_bf16": max(back_err[kind]["bf16"],
+                                    l_back_err[kind]["bf16"]),
             # per training step (B=32, 640 px): the main-path shapes summed
             "batch": TRAIN_BATCH,
             "ms": sum(r[f"{kind}_ms"] for r in rows_),
@@ -1854,6 +2328,17 @@ def main() -> int:
                                     for r in rows_b8),
             "shapes": len(rows_),
             "variants": {r["name"]: r[f"{kind}_variant"] for r in rows_},
+            "yolox_l": yolox_l(
+                [r for r in l_back_rows
+                 if kind == "wgrad" or r["dgrad_on_path"]],
+                [f"{kind}_{m}" for m in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "ms_bf16",
+                    "bound_ms_bf16", "library_ms_bf16", "cuda_cores_ms")],
+                max_abs_err=l_back_err[kind]["fp32"],
+                max_abs_err_bf16=l_back_err[kind]["bf16"],
+                variants={r["name"]: r[f"{kind}_variant"]
+                          for r in l_back_rows
+                          if kind == "wgrad" or r["dgrad_on_path"]}),
             "note": source_note,
             "card": smi,
         }
@@ -1867,8 +2352,8 @@ def main() -> int:
         + by_path["serve_bf16"] + by_path["eval"],
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
-        "max_abs_err": err32,
-        "max_abs_err_bf16": err16,
+        "max_abs_err": max(err32, l_err32),
+        "max_abs_err_bf16": max(err16, l_err16),
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
         # the conv alone, "ms_fused" with scale, shift and SiLU as served
         "ms": total("ms"),
@@ -1892,6 +2377,13 @@ def main() -> int:
         "bound_bf16_ms_b32": total("bound_bf16_ms", train_rows),
         "library_bf16_ms_b32": total("library_bf16_ms", train_rows),
         "variants": {r["name"]: r["variant"] for r in main_rows},
+        "yolox_l": yolox_l(
+            l_shapes, ("ms", "ms_fused", "ms_bf16", "plain_ms", "bound_ms",
+                       "bound_cuda_core_ms", "bound_bf16_ms", "library_ms",
+                       "library_bf16_ms", "library_fused_ms"),
+            max_abs_err=l_err32, max_abs_err_bf16=l_err16,
+            variants={r["name"]: r["variant"] for r in l_shapes},
+            variants_bf16={r["name"]: r["variant_bf16"] for r in l_shapes}),
         "card": smi,
     }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
                     "stride 1: phase_conv.cu's wgmma_taps on flipped "
@@ -1905,7 +2397,8 @@ def main() -> int:
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches["pack"],
             "launches_by_path": {k: c["pack"] for k, c in train_paths.items()},
-            "max_abs_err": max(r["pack_max_abs_err"] for r in pack_rows),
+            "max_abs_err": max(r["pack_max_abs_err"]
+                               for r in pack_rows + l_pack_rows),
             # per training step: the 7 data gradients' packings at B=32
             "batch": TRAIN_BATCH,
             "ms": sum(r["pack_ms"] for r in pack_rows),
@@ -1914,6 +2407,8 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": None,
             "shapes": len(pack_rows),
+            "yolox_l": yolox_l(l_pack_rows, ("pack_ms", "pack_plain_ms",
+                                             "pack_bound_ms")),
             "card": smi,
         },
     ]})
@@ -1922,5 +2417,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-bbox-child"]:
+        sys.exit(train_bbox_child(sys.argv[2], sys.argv[4:]))
     sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
              else main())

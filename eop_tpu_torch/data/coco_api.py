@@ -203,6 +203,10 @@ class COCO:
         ids = ids if isinstance(ids, (list, tuple)) else [ids]
         return [self.anns[i] for i in ids]
 
+    def loadCats(self, ids=[]):
+        ids = ids if isinstance(ids, (list, tuple)) else [ids]
+        return [self.cats[i] for i in ids]
+
     def loadImgs(self, ids=[]):
         ids = ids if isinstance(ids, (list, tuple)) else [ids]
         return [self.imgs[i] for i in ids]

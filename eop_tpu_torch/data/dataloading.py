@@ -35,10 +35,16 @@ from .image_io import load_decoder
 
 
 def worker_init_reset_seed(worker_id: int) -> None:
-    """A fresh random seed per worker."""
+    """A fresh random seed per worker, for ``random``, ``np.random`` and the
+    worker's copy of the dataset where it has ``reseed`` (the augmenting
+    datasets carry their own generator, which every worker would otherwise
+    inherit in the same state)."""
     seed = uuid.uuid4().int % 2**32
     random.seed(seed)
     np.random.seed(seed)
+    info = torch.utils.data.get_worker_info()
+    if info is not None and hasattr(info.dataset, "reseed"):
+        info.dataset.reseed(seed)
 
 
 class WorkerInit:

@@ -1,17 +1,19 @@
-"""Batched 24p post-processing with static output capacity (counterpart of
-``eop_tpu/eval/postprocess.py``, 24p entries).
+"""Batched post-processing with static output capacity (counterpart of
+``eop_tpu/eval/postprocess.py``), for the 24p and the bbox family.
 
 Every image yields exactly ``max_detections`` rows plus a validity mask,
 computed for the whole batch at once (no per-image Python loop):
-score -> top-k candidates -> decode only the candidates -> polygon ->
-enclosing rectangle -> exact fixpoint NMS -> score-ordered compaction.
+score -> top-k candidates -> decode only the candidates -> the NMS
+rectangle (the box itself, or a polygon's enclosing rectangle) -> exact
+fixpoint NMS (classes apart by a same-class mask) -> score-ordered
+compaction.
 
-* :func:`postprocess_24p_heads` takes the raw head maps (the serving and
-  evaluation path): scores from the logits upcast to fp32, one row gather
-  in the maps' dtype, then the decode in fp32.
-* :func:`postprocess_24p` takes the decoded ``[B, A, 27+C]`` tensor and
-  computes in its dtype, as ``eop_tpu`` does (bf16 scores and rows; the
-  polygon points are fp32 either way).
+* :func:`postprocess_24p_heads` / :func:`postprocess_bbox_heads` take the
+  raw head maps (the serving and evaluation path): scores from the logits
+  upcast to fp32, one row gather in the maps' dtype, then the decode in fp32.
+* :func:`postprocess_24p` / :func:`postprocess_bbox` take the decoded
+  ``[B, A, D]`` tensor and compute in its dtype, as ``eop_tpu`` does (bf16
+  scores and rows; the polygon points are fp32 either way).
 
 Ties follow ``lax.top_k``: the lower anchor index comes first (a stable
 descending sort), and the class argmax picks the first of equal maxima (on
@@ -25,6 +27,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ..models.head import flatten_head_outputs, make_grids_and_strides
+from ..ops.boxes import cxcywh2xyxy
 from ..ops.nms import nms_on_candidates
 from ..ops.polygon import polygon_points_from_radii
 
@@ -70,6 +73,18 @@ def _nms_and_pack(geom, boxes, top_scores, c_obj, c_cls_conf, c_cls_id,
     return _select_rows(rows, keep, max_det)
 
 
+def _top_rows(pred: torch.Tensor, scores: torch.Tensor, k: int):
+    """Stable descending top-``k`` of ``scores`` [B, A] (``lax.top_k``'s
+    order) and the matching rows of ``pred`` [B, A, D]."""
+    top_scores, order = torch.sort(scores, dim=-1, descending=True,
+                                   stable=True)
+    k = min(k, pred.shape[1])
+    top_scores, order = top_scores[:, :k], order[:, :k]
+    cand = torch.gather(pred, 1, order[..., None].expand(-1, -1,
+                                                         pred.shape[-1]))
+    return top_scores, order, cand
+
+
 def _decoded_candidates(flat, grids, strides_flat, reg_dim: int,
                         num_classes: int, k: int):
     """Score -> top-k -> gather -> decode for the raw flattened head output
@@ -80,13 +95,8 @@ def _decoded_candidates(flat, grids, strides_flat, reg_dim: int,
     obj = torch.sigmoid(logits[..., 0])
     cls_probs = torch.sigmoid(logits[..., 1:1 + num_classes])
     cls_conf, cls_id = torch.max(cls_probs, dim=-1)
-    scores = obj * cls_conf
-    top_scores, order = torch.sort(scores, dim=-1, descending=True,
-                                   stable=True)
-    k = min(k, flat.shape[1])
-    top_scores, order = top_scores[:, :k], order[:, :k]
-    cand = torch.gather(
-        flat, 1, order[..., None].expand(-1, -1, flat.shape[-1])).float()
+    top_scores, order, cand = _top_rows(flat, obj * cls_conf, k)
+    cand = cand.float()
     s = strides_flat[order][..., None]
     xy = (cand[..., :2] + grids[order]) * s
     sizes = torch.exp(torch.clamp(cand[..., 2:reg_dim], -30.0, 30.0)) * s
@@ -100,6 +110,56 @@ def _flatten_heads(head_outs, strides):
         [tuple(o.shape[2:4]) for o in head_outs], strides, flat.device,
         torch.float32)
     return flat, grids, strides_flat
+
+
+def postprocess_bbox(
+    decoded: torch.Tensor,
+    num_classes: int,
+    conf_thre: float = 0.7,
+    nms_thre: float = 0.45,
+    class_agnostic: bool = False,
+    max_detections: int = 300,
+    nms_candidates: int = 512,
+    nms_fixpoint_iters=None,
+) -> Detections:
+    """Decoded ``[B, A, 5+C]`` (cx, cy, w, h, sigmoided obj and cls) -> rows
+    ``[B, max_det, 7]``: x1, y1, x2, y2, obj, cls_conf, cls, in
+    ``decoded``'s dtype."""
+    cls_conf, cls_id = torch.max(decoded[..., 5:5 + num_classes], dim=-1)
+    top_scores, order, cand = _top_rows(decoded, decoded[..., 4] * cls_conf,
+                                        nms_candidates)
+    boxes = cxcywh2xyxy(cand[..., :4])
+    rows, valid = _nms_and_pack(
+        boxes, boxes, top_scores, cand[..., 4],
+        torch.gather(cls_conf, 1, order), torch.gather(cls_id, 1, order),
+        conf_thre, nms_thre, class_agnostic, nms_fixpoint_iters,
+        max_detections,
+    )
+    return Detections(rows=rows, valid=valid)
+
+
+def postprocess_bbox_heads(
+    head_outs: Sequence[torch.Tensor],
+    num_classes: int,
+    conf_thre: float = 0.7,
+    nms_thre: float = 0.45,
+    class_agnostic: bool = False,
+    max_detections: int = 300,
+    nms_candidates: int = 512,
+    nms_fixpoint_iters=None,
+    strides=(8, 16, 32),
+) -> Detections:
+    """Raw per-scale bbox head maps (NCHW) -> rows ``[B, max_det, 7]``:
+    x1, y1, x2, y2, obj, cls_conf, cls."""
+    flat, grids, strides_flat = _flatten_heads(head_outs, strides)
+    top_scores, xy, wh, c_obj, c_cls_conf, c_cls_id = _decoded_candidates(
+        flat, grids, strides_flat, 4, num_classes, nms_candidates)
+    boxes = cxcywh2xyxy(torch.cat([xy, wh], dim=-1))
+    rows, valid = _nms_and_pack(
+        boxes, boxes, top_scores, c_obj, c_cls_conf, c_cls_id, conf_thre,
+        nms_thre, class_agnostic, nms_fixpoint_iters, max_detections,
+    )
+    return Detections(rows=rows, valid=valid)
 
 
 def postprocess_24p_heads(
@@ -146,13 +206,8 @@ def postprocess_24p(
     rows ``[B, max_det, 29]``: x, y, r1..r24, obj, cls_conf, cls, in
     ``decoded``'s dtype."""
     cls_conf, cls_id = torch.max(decoded[..., 27:27 + num_classes], dim=-1)
-    scores = decoded[..., 26] * cls_conf
-    top_scores, order = torch.sort(scores, dim=-1, descending=True,
-                                   stable=True)
-    k = min(nms_candidates, decoded.shape[1])
-    top_scores, order = top_scores[:, :k], order[:, :k]
-    cand = torch.gather(
-        decoded, 1, order[..., None].expand(-1, -1, decoded.shape[-1]))
+    top_scores, order, cand = _top_rows(decoded, decoded[..., 26] * cls_conf,
+                                        nms_candidates)
     pts = polygon_points_from_radii(cand[..., 0:2], cand[..., 2:26],
                                     reference_parity)
     boxes = torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)

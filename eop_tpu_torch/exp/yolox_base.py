@@ -1,0 +1,275 @@
+"""The bbox family's experiment: YOLOX-S/M/L/X defaults and the factories
+for the model, the mosaic train loader, multiscale resizing, the optimizer
+with its weight-decay groups, the ``yoloxwarmcos`` schedule, the COCO
+evaluation loader, the evaluator and the fused inference function
+(counterpart of ``eop_tpu/exp/yolox_base.py``).
+
+Not ported yet (each raises where asked for): depthwise convs (YOLOX-Nano
+and -Tiny), backbones other than CSPDarknet, the sharded multi-chip
+inference function."""
+
+from __future__ import annotations
+
+import random
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..eval.postprocess import postprocess_bbox_heads
+from ..models.yolox import YOLOX, init_weights
+from ..utils.device import resolve_device, set_fp32_precision
+from .base_exp import BaseExp
+from .yolox_24p_base import COMPUTE_DTYPES
+
+
+class Exp(BaseExp):
+    def __init__(self):
+        super().__init__()
+        # ---------------- model config ---------------- #
+        self.num_classes = 80
+        self.depth = 1.00
+        self.width = 1.00
+        self.act = "silu"
+        self.backbone_type = "darknet"
+        self.depthwise = False
+        # ---------------- dataloader config ---------------- #
+        self.data_num_workers = 4
+        self.input_size = (640, 640)  # (height, width)
+        self.multiscale_range = 5     # +-range x 32 px
+        self.random_size: Optional[tuple] = None
+        self.data_dir = None
+        self.train_ann = "instances_train2017.json"
+        self.val_ann = "instances_val2017.json"
+        self.test_ann = "instances_test2017.json"
+        # --------------- transform config ----------------- #
+        self.mosaic_prob = 1.0
+        self.mixup_prob = 1.0
+        self.hsv_prob = 1.0
+        self.flip_prob = 0.5
+        self.degrees = 10.0
+        self.translate = 0.1
+        self.shear = 2.0
+        self.mosaic_scale = (0.1, 2)
+        self.mixup_scale = (0.5, 1.5)
+        self.enable_mixup = True
+        # --------------  training config --------------------- #
+        self.warmup_epochs = 5
+        self.max_epoch = 300
+        self.warmup_lr = 0
+        self.basic_lr_per_img = 0.01 / 64.0
+        self.scheduler = "yoloxwarmcos"
+        self.no_aug_epochs = 15
+        self.min_lr_ratio = 0.05
+        self.ema = True
+        self.ema_decay = 0.9998
+        self.weight_decay = 5e-4
+        self.momentum = 0.9
+        self.print_interval = 10
+        self.eval_interval = 10
+        self.ckpt_interval = 1     # epochs between ``latest`` saves
+        self.exp_name = "yolox_base"
+        # -----------------  testing config ------------------ #
+        self.test_size = (640, 640)
+        self.test_conf = 0.01
+        self.nmsthre = 0.65
+        # "exact" = stationarity-checked NMS fixpoint (greedy-exact)
+        self.nms_mode = "exact"
+        # "bfloat16": fp32 parameters, BN statistics, optimizer and EMA,
+        # bf16 convs and activations (flax's dtype semantics)
+        self.compute_dtype = "float32"
+        # gradient checkpointing of the backbone + neck in training steps
+        self.remat = False
+        # eop_tpu's TPU MXU packed layout; it changes no result, so the port
+        # reads neither (ROADMAP.md queue 1 item 13)
+        self.packed_early = "auto"
+        self.packed_infer_max_batch = 64
+
+    # ------------------------------------------------------------------
+    # model and inference
+
+    def get_model(self, device=None, seed: int = 0):
+        """YOLOX with a 4-channel box head, in eval mode on ``device`` (the
+        card unless ``"cpu"``), channels_last, with seeded random fp32
+        weights, computing in ``compute_dtype`` and checkpointing its
+        backbone + neck in training where ``remat``."""
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port "
+                             f"computes in {sorted(COMPUTE_DTYPES)}")
+        if self.depthwise or self.backbone_type != "darknet":
+            raise NotImplementedError(
+                f"depthwise={self.depthwise}, backbone_type="
+                f"{self.backbone_type!r}: the port has CSPDarknet with plain "
+                "convs only (DWConv and other backbones: ROADMAP.md queue 1)")
+        device = resolve_device(device)
+        model = YOLOX(depth=self.depth, width=self.width,
+                      num_classes=self.num_classes, reg_dim=4, act=self.act,
+                      dtype=COMPUTE_DTYPES[self.compute_dtype],
+                      remat=bool(self.remat))
+        init_weights(model, seed)
+        return model.to(device, memory_format=torch.channels_last).eval()
+
+    def get_infer_fn(self, model, device=None):
+        """One call, a letterboxed NHWC batch ``[B, *test_size, 3]`` (float
+        or uint8, on the host or the card) -> ``Detections`` rows ``[B, 300,
+        7]`` on ``device``: forward, decode, NMS, under
+        ``torch.inference_mode``; TF32 off on the card."""
+        device = resolve_device(device)
+        set_fp32_precision(device)
+        nms_iters = self._nms_iters()
+
+        def infer(imgs):
+            with torch.inference_mode():
+                x = torch.as_tensor(imgs).to(device, non_blocking=True)
+                head_outs, _ = model(x.float().permute(0, 3, 1, 2))
+                return postprocess_bbox_heads(
+                    head_outs, num_classes=self.num_classes,
+                    conf_thre=self.test_conf, nms_thre=self.nmsthre,
+                    nms_fixpoint_iters=nms_iters)
+
+        return infer
+
+    # ------------------------------------------------------------------
+    # training data
+
+    def get_data_loader(self, batch_size, is_distributed=False, no_aug=False,
+                        cache_img=False, rank=0, world_size=1, seed=None):
+        """The mosaic train loader over ``data_dir``'s ``train_ann``:
+        batches ``[images [B, H, W, 3], labels [B, 120, 5], info, ids]``
+        drawn for ever from the rank-strided shuffled stream seeded by
+        ``seed``; its length is the iterations of one epoch."""
+        from ..data.coco_dataset import COCODataset
+
+        dataset = COCODataset(
+            data_dir=self.data_dir, json_file=self.train_ann,
+            img_size=self.input_size,
+            preproc=self.build_train_transform(max_labels=50),
+            cache=cache_img)
+        return self.wrap_train_dataset(
+            dataset, batch_size, is_distributed=is_distributed,
+            no_aug=no_aug, rank=rank, world_size=world_size, seed=seed)
+
+    def build_train_transform(self, max_labels: int):
+        from ..data.augment import TrainTransform
+
+        return TrainTransform(max_labels=max_labels, flip_prob=self.flip_prob,
+                              hsv_prob=self.hsv_prob)
+
+    def wrap_train_dataset(self, dataset, batch_size, is_distributed=False,
+                           no_aug=False, rank=0, world_size=1, seed=None):
+        """Mosaic / MixUp around ``dataset``, the infinite rank-strided
+        sampler, the ``(mosaic, index)`` batch sampler and the workers."""
+        from ..data.dataloading import data_loader, worker_init_reset_seed
+        from ..data.mosaic import MosaicDetection
+        from ..data.samplers import InfiniteSampler, YoloBatchSampler
+
+        dataset = MosaicDetection(
+            dataset, mosaic=not no_aug, img_size=self.input_size,
+            preproc=self.build_train_transform(max_labels=120),
+            degrees=self.degrees, translate=self.translate,
+            mosaic_scale=self.mosaic_scale, mixup_scale=self.mixup_scale,
+            shear=self.shear, enable_mixup=self.enable_mixup,
+            mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob,
+            seed=seed)
+        self.dataset = dataset
+        if is_distributed:
+            batch_size = batch_size // world_size
+        sampler = InfiniteSampler(len(dataset), seed=self.seed or 0,
+                                  rank=rank, world_size=world_size)
+        batch_sampler = YoloBatchSampler(sampler, batch_size, drop_last=False,
+                                         mosaic=not no_aug,
+                                         input_dimension=self.input_size)
+        return data_loader(dataset, batch_sampler=batch_sampler,
+                           num_workers=self.data_num_workers,
+                           worker_init_fn=worker_init_reset_seed)
+
+    def random_resize(self, step: int = 0):
+        """A multiscale training size ``(h, w)`` drawn from (seed, step) and
+        keeping ``input_size``'s aspect."""
+        if self.random_size is None:
+            min_size = int(self.input_size[0] / 32) - self.multiscale_range
+            max_size = int(self.input_size[0] / 32) + self.multiscale_range
+            self.random_size = (min_size, max_size)
+        rng = random.Random(((self.seed or 0) * 1_000_003) ^ step)
+        size = rng.randint(*self.random_size)
+        size_factor = self.input_size[1] / self.input_size[0]
+        return (int(32 * size), 32 * int(size * size_factor))
+
+    def preprocess(self, inputs: torch.Tensor, targets: torch.Tensor, tsize):
+        """Multiscale resize of an NHWC batch to ``tsize`` on its device,
+        scaling the ``(cls, cx, cy, w, h)`` label rows with it.  Bilinear,
+        antialiased when shrinking, as ``jax.image.resize`` is."""
+        scale_y = tsize[0] / self.input_size[0]
+        scale_x = tsize[1] / self.input_size[1]
+        if scale_x != 1 or scale_y != 1:
+            inputs = F.interpolate(
+                inputs.permute(0, 3, 1, 2), size=tuple(tsize),
+                mode="bilinear", align_corners=False,
+                antialias=True).permute(0, 2, 3, 1)
+            scale = targets.new_tensor([1.0, scale_x, scale_y, scale_x,
+                                        scale_y])
+            targets = targets * scale
+        return inputs, targets
+
+    # ------------------------------------------------------------------
+    # optimizer and schedule
+
+    def get_optimizer(self, model, batch_size: int, iters_per_epoch: int = 1,
+                      lr: Optional[float] = None):
+        """Nesterov SGD with weight decay on the conv kernels only (BN
+        scales and biases get none), following ``self.scheduler`` per
+        iteration, clamped to the run's last iteration."""
+        from ..train.optimizer import build_sgd
+
+        if lr is None:
+            lr = self.basic_lr_per_img * batch_size
+        sched = self.get_lr_scheduler(lr, iters_per_epoch)
+        total = max(iters_per_epoch * self.max_epoch, 1)
+        return build_sgd(
+            model, lambda it: sched.update_lr(min(max(it, 0), total)),
+            momentum=self.momentum, weight_decay=self.weight_decay,
+            nesterov=True)
+
+    def get_lr_scheduler(self, lr: float, iters_per_epoch: int):
+        from ..train.lr_schedule import LRScheduler
+
+        return LRScheduler(
+            self.scheduler, lr, iters_per_epoch, self.max_epoch,
+            warmup_epochs=self.warmup_epochs,
+            warmup_lr_start=self.warmup_lr,
+            no_aug_epochs=self.no_aug_epochs,
+            min_lr_ratio=self.min_lr_ratio)
+
+    # ------------------------------------------------------------------
+    # evaluation
+
+    def get_eval_loader(self, batch_size):
+        """``data_dir``'s ``val_ann`` images (``val2017/``) in order,
+        letterboxed to ``test_size``, in batches of ``batch_size`` (the last
+        may be short)."""
+        from ..data.augment import ValTransform
+        from ..data.coco_dataset import COCODataset
+        from ..data.dataloading import data_loader
+
+        dataset = COCODataset(
+            data_dir=self.data_dir, json_file=self.val_ann, name="val2017",
+            img_size=self.test_size, preproc=ValTransform())
+        return data_loader(dataset, batch_size=batch_size,
+                           num_workers=self.data_num_workers)
+
+    def get_evaluator(self, batch_size, per_class_AP: bool = False,
+                      per_class_AR: bool = False):
+        """COCO box AP over the val annotations; the thresholds are the
+        infer function's (``test_conf``, ``nmsthre``)."""
+        from ..eval.coco_evaluator import COCOEvaluator
+
+        return COCOEvaluator(
+            dataloader=self.get_eval_loader(batch_size),
+            img_size=self.test_size, num_classes=self.num_classes,
+            per_class_AP=per_class_AP, per_class_AR=per_class_AR)
+
+    def eval(self, model, evaluator):
+        """``evaluator.evaluate`` over ``model`` (in eval mode) on the
+        device its weights are on: (AP50:95, AP50, summary)."""
+        device = next(model.parameters()).device
+        return evaluator.evaluate(self.get_infer_fn(model, device))

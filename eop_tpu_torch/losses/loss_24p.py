@@ -37,6 +37,7 @@ from .simota import (
     SimOTAConfig,
     compact_candidates,
     gather_anchor_geometry,
+    gather_anchors,
     gather_foreground,
     pairwise_cls_cost,
     scatter_assignment,
@@ -78,14 +79,6 @@ class Loss24PAux(NamedTuple):
     # candidate anchors shed by capacity compaction this step (0: the
     # assignment equals the full lattice's)
     cand_dropped: Optional[torch.Tensor] = None
-
-
-def _take(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``t[b, idx[b, j]]`` for ``t`` [B, A, ...] and ``idx`` [B, K]."""
-    extra = t.dim() - 2
-    ix = idx.reshape(idx.shape + (1,) * extra).expand(
-        idx.shape + t.shape[2:])
-    return t.gather(1, ix)
 
 
 def simota_assign_24p(labels_xy, gt_classes, gt_valid, poly_preds,
@@ -147,13 +140,15 @@ def simota_assign_24p(labels_xy, gt_classes, gt_valid, poly_preds,
                  + in_bbox.any(dim=1).long())
         idx, valid, num_dropped = compact_candidates(score, cap)
         in_poly, in_centers, pair_sim = exact_masks_and_sim(
-            x_c[idx], y_c[idx], r[idx], _take(poly_preds, idx))
+            x_c[idx], y_c[idx], r[idx],
+            gather_anchors(poly_preds, idx))
         in_poly = in_poly & valid[:, None, :]
         in_centers = in_centers & valid[:, None, :]
         fg_candidate = in_poly.any(dim=1) | in_centers.any(dim=1)
         fg_k, matched_k, pred_iou_k, num_fg = _match_core_24p(
             pair_sim, in_poly, in_centers, fg_candidate[:, None, :],
-            _take(obj_logits, idx), _take(cls_logits, idx), gt_classes,
+            gather_anchors(obj_logits, idx),
+            gather_anchors(cls_logits, idx), gt_classes,
             gt_valid, config)
         fg_mask, matched_gt, pred_iou = scatter_assignment(
             idx, valid, a, fg_k, matched_k, pred_iou_k)
@@ -221,9 +216,9 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
     # max_labels * max_k anchors per image
     w_fg, fg_idx, matched, pred_iou_k = gather_foreground(
         assign, labels.shape[1], config.simota.max_k)
-    poly_k = _take(poly_preds, fg_idx)              # [B, K, 26]
-    gt_rows = _take(labels_xy, matched)             # [B, K, 50]
-    gt_cls = _take(gt_classes, matched)             # [B, K]
+    poly_k = gather_anchors(poly_preds, fg_idx)     # [B, K, 26]
+    gt_rows = gather_anchors(labels_xy, matched)    # [B, K, 50]
+    gt_cls = gather_anchors(gt_classes, matched)    # [B, K]
 
     # --- per-ray circle-GIoU loss ("24 small tasks") ---
     gt_centers = gt_rows[..., 0:2]
@@ -233,7 +228,7 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
     loss_iou = (per_ray * w_fg[..., None]).sum(dim=(0, 1)) / num_fg
 
     loss_obj = bce_with_logits(obj_logits, fgf).sum() / num_fg
-    cls_logits_k = _take(cls_logits, fg_idx)
+    cls_logits_k = gather_anchors(cls_logits, fg_idx)
     classes = torch.arange(config.num_classes, device=decoded.device)
     cls_target = ((gt_cls.long()[..., None] == classes).float()
                   * pred_iou_k[..., None])
@@ -242,7 +237,7 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
 
     if config.use_l1:
         grids_k, strides_k = gather_anchor_geometry(grids, strides, fg_idx)
-        origin_k = _take(origin_reg.float(), fg_idx)
+        origin_k = gather_anchors(origin_reg.float(), fg_idx)
         tx = gt_centers[..., 0] / strides_k - grids_k[..., 0]
         ty = gt_centers[..., 1] / strides_k - grids_k[..., 1]
         if config.reference_parity:

@@ -1,6 +1,6 @@
 """SimOTA dynamic-k label assignment with static shapes (counterpart of
-``eop_tpu/losses/simota.py``; the bbox-only ``in_boxes_info`` and
-``simota_assign`` wait for the bbox family).
+``eop_tpu/losses/simota.py``): the shared matcher, and the bbox family's
+``in_boxes_info`` and ``simota_assign``.
 
 The JAX package made every shape static for XLA: labels stay padded to
 ``max_labels`` with a ``gt_valid`` mask, the candidate gather is an additive
@@ -21,6 +21,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from ..ops.boxes import bboxes_iou
 
 BIG_COST = 1e6  # disqualifies non-candidate anchors / invalid GTs
 CENTER_RADIUS = 2.5
@@ -198,3 +200,85 @@ def simota_match(cost, pair_iou, is_candidate, gt_valid, max_k: int = MAX_K):
     pred_iou = torch.where(matching, pair_iou, 0.0).sum(dim=-2)
     num_fg = fg_mask.sum(dim=-1).float()
     return matching, fg_mask, matched_gt, pred_iou, num_fg
+
+
+def in_boxes_info(gt_boxes, gt_valid, grids, strides, center_radius: float):
+    """Anchor-centre membership: gt_boxes [B, M, 4] cxcywh, gt_valid [B, M],
+    grids [A, 2], strides [A] -> (is_in_boxes, is_in_centers) [B, M, A],
+    False at invalid GTs."""
+    x_c = (grids[:, 0] + 0.5) * strides  # [A]
+    y_c = (grids[:, 1] + 0.5) * strides
+    cx, cy = gt_boxes[..., 0:1], gt_boxes[..., 1:2]  # [B, M, 1]
+    hw, hh = 0.5 * gt_boxes[..., 2:3], 0.5 * gt_boxes[..., 3:4]
+    d = torch.stack([x_c - (cx - hw), y_c - (cy - hh), (cx + hw) - x_c,
+                     (cy + hh) - y_c], dim=-1)
+    is_in_boxes = d.amin(dim=-1) > 0.0
+    r = center_radius * strides
+    cd = torch.stack([x_c - (cx - r), y_c - (cy - r), (cx + r) - x_c,
+                      (cy + r) - y_c], dim=-1)
+    is_in_centers = cd.amin(dim=-1) > 0.0
+    valid = gt_valid[..., None]
+    return is_in_boxes & valid, is_in_centers & valid
+
+
+def gather_anchors(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[b, idx[b, j]]`` for ``t`` [B, A, ...] and ``idx`` [B, K]."""
+    extra = t.dim() - 2
+    ix = idx.reshape(idx.shape + (1,) * extra).expand(
+        idx.shape + t.shape[2:])
+    return t.gather(1, ix)
+
+
+def simota_assign(labels, bbox_preds, obj_logits, cls_logits, grids, strides,
+                  num_classes: int, config: SimOTAConfig) -> Assignment:
+    """SimOTA for the bbox head over a batch: labels [B, M, 5] rows (cls, cx,
+    cy, w, h) zero-padded, bbox_preds [B, A, 4] decoded cxcywh, obj_logits
+    [B, A], cls_logits [B, A, C], grids [A, 2], strides [A].
+
+    With ``config.cand_cap`` below A the pairwise stages run on the
+    compacted candidates, centre-box anchors ranked first; they equal the
+    full lattice's while the candidates fit."""
+    gt_valid = labels.sum(dim=-1) > 0
+    gt_boxes, gt_classes = labels[..., 1:5], labels[..., 0]
+    in_boxes, in_centers = in_boxes_info(gt_boxes, gt_valid, grids, strides,
+                                         config.center_radius)
+    b, a = bbox_preds.shape[:2]
+    m = gt_boxes.shape[1]
+    valid = gt_valid[..., None]
+
+    def assign_core(bbox_p, obj_l, cls_l, in_b, in_c, is_candidate):
+        in_both = in_b & in_c
+        pair_iou = torch.where(valid, bboxes_iou(gt_boxes, bbox_p, xyxy=False),
+                               0.0)
+        iou_cost = -torch.log(pair_iou + 1e-8)
+        cls_cost = pairwise_cls_cost(cls_l, obj_l, gt_classes, num_classes)
+        cost = (cls_cost
+                + config.iou_weight * iou_cost
+                + 100000.0 * (~in_both)
+                + BIG_COST * (~is_candidate)
+                + BIG_COST * (~valid))
+        return simota_match(cost, pair_iou, is_candidate, gt_valid,
+                            config.max_k)
+
+    cap = config.cand_cap
+    num_gt = gt_valid.sum(dim=-1).float()
+    if cap and cap < a:
+        score = 2 * in_centers.any(dim=1).long() + in_boxes.any(dim=1).long()
+        idx, cand_valid, num_dropped = compact_candidates(score, cap)
+        keep = cand_valid[:, None, :]
+        cols = idx[:, None, :].expand(b, m, cap)
+        _, fg_k, matched_k, pred_iou_k, num_fg = assign_core(
+            gather_anchors(bbox_preds, idx), gather_anchors(obj_logits, idx),
+            gather_anchors(cls_logits, idx), in_boxes.gather(2, cols) & keep,
+            in_centers.gather(2, cols) & keep, keep.expand(b, m, cap))
+        fg_mask, matched_gt, pred_iou = scatter_assignment(
+            idx, cand_valid, a, fg_k, matched_k, pred_iou_k)
+        return Assignment(fg_mask, matched_gt, pred_iou, num_fg, num_gt,
+                          num_dropped)
+    fg_candidate = (in_boxes.any(dim=1) | in_centers.any(dim=1))[:, None, :]
+    _, fg_mask, matched_gt, pred_iou, num_fg = assign_core(
+        bbox_preds, obj_logits, cls_logits, in_boxes, in_centers,
+        fg_candidate.expand(b, m, a))
+    return Assignment(fg_mask, matched_gt, pred_iou, num_fg, num_gt,
+                      torch.zeros(b, dtype=torch.int64,
+                                  device=fg_mask.device))

@@ -67,3 +67,49 @@ def nms_on_candidates(boxes: torch.Tensor, valid: torch.Tensor,
             else class_ids[..., :, None] == class_ids[..., None, :])
     return _suppress(iou, valid, iou_threshold, same_class=same,
                      fixpoint_iters=fixpoint_iters)
+
+
+def _top_candidates(scores: torch.Tensor, max_candidates: Optional[int]):
+    """``lax.top_k`` over the last axis: descending, the lower index first
+    among equal scores."""
+    n = scores.shape[-1]
+    k = n if max_candidates is None else min(max_candidates, n)
+    top, order = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return top[..., :k], order[..., :k]
+
+
+def _gather_rows(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """``t[..., order[..., j], :]`` for ``t`` [..., N, D]."""
+    idx = order[..., None].expand(*order.shape, t.shape[-1])
+    return torch.gather(t, -2, idx)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+        score_threshold: float = 0.0, max_candidates: Optional[int] = None,
+        fixpoint_iters: Union[int, str, None] = None):
+    """Class-agnostic NMS with static shapes: boxes [..., N, 4] xyxy, scores
+    [..., N].  Candidates scoring below ``score_threshold`` are invalid (``>=``
+    keeps).  Returns (keep [..., K], order [..., K]): ``keep[j]`` says
+    whether candidate ``order[j]`` (an index into N) survives."""
+    top, order = _top_candidates(scores, max_candidates)
+    keep = nms_on_candidates(_gather_rows(boxes, order),
+                             top >= score_threshold, iou_threshold,
+                             fixpoint_iters=fixpoint_iters)
+    return keep, order
+
+
+def batched_class_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                      class_ids: torch.Tensor, iou_threshold: float,
+                      score_threshold: float = 0.0,
+                      max_candidates: Optional[int] = None,
+                      fixpoint_iters: Union[int, str, None] = None):
+    """Per-class NMS (torchvision ``batched_nms`` semantics) as a same-class
+    mask on the suppression matrix, not by offsetting each class's
+    coordinates: with exp-decoded boxes one huge box would collapse a class
+    onto a single fp32 value.  Returns (keep, order) as :func:`nms`."""
+    top, order = _top_candidates(scores, max_candidates)
+    keep = nms_on_candidates(_gather_rows(boxes, order),
+                             top >= score_threshold, iou_threshold,
+                             class_ids=torch.gather(class_ids, -1, order),
+                             fixpoint_iters=fixpoint_iters)
+    return keep, order

@@ -1,6 +1,9 @@
-"""COCO-24p AP of a checkpoint over image and label files (counterpart of
-the 24p family of ``tools/eval.py``).
+"""COCO AP of a checkpoint (counterpart of ``tools/eval.py``): the bbox
+family over a COCO-format directory, the 24p family over image and label
+files (COCO-24p AP).
 
+    python -m eop_tpu_torch.tools.eval -n yolox-l -c CKPT -b 8 \
+        --data-dir COCO_DIR [--per-class-ap] [--device cuda] [key value ...]
     python -m eop_tpu_torch.tools.eval -f load_eval/yolox_24p_eval.py \
         -c CKPT -b 8 --data-dir IMGS --label-dir LABELS [--device cuda] \
         [key value ...]
@@ -30,7 +33,10 @@ def make_parser():
     parser.add_argument("--nms", type=float, default=None)
     parser.add_argument("--tsize", type=int, default=None)
     parser.add_argument("--data-dir", type=str, default=None)
-    parser.add_argument("--label-dir", type=str, default=None)
+    parser.add_argument("--label-dir", type=str, default=None,
+                        help="24p txt labels directory (24p family)")
+    parser.add_argument("--per-class-ap", action="store_true",
+                        help="print the per-class AP table (bbox family)")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return parser
@@ -52,14 +58,18 @@ def eval_weights(path: str):
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    from ..exp import get_exp
+    from ..exp import Exp, get_exp
 
     exp = get_exp(args.exp_file, args.name)
+    bbox = isinstance(exp, Exp)
     if args.opts:
         exp.merge(args.opts)
     if args.data_dir:
         exp.data_dir = args.data_dir
     if args.label_dir:
+        if bbox:
+            raise SystemExit("--label-dir reads 24p labels; a bbox exp "
+                             "reads data_dir/annotations")
         exp.label_dir = args.label_dir
     if args.conf is not None:
         exp.test_conf = args.conf
@@ -67,14 +77,19 @@ def main(argv=None):
         exp.nmsthre = args.nms
     if args.tsize is not None:
         exp.test_size = (args.tsize, args.tsize)
-    if not (exp.data_dir and exp.label_dir):
+    if bbox and not exp.data_dir:
+        raise SystemExit("set --data-dir (or data_dir) to a COCO-format "
+                         "directory")
+    if not bbox and not (exp.data_dir and exp.label_dir):
         raise SystemExit("set --data-dir and --label-dir (or data_dir and "
                          "label_dir) to the images and the 24p txt labels")
 
     model = exp.get_model(args.device)
     if args.ckpt:
         model.load_state_dict(eval_weights(args.ckpt), strict=True)
-    evaluator = exp.get_evaluator(batch_size=args.batch_size)
+    evaluator = (exp.get_evaluator(args.batch_size,
+                                   per_class_AP=args.per_class_ap)
+                 if bbox else exp.get_evaluator(batch_size=args.batch_size))
     ap50_95, ap50, summary = exp.eval(model, evaluator)
     print(summary)
     print(f"AP50:95 = {ap50_95:.4f}  AP50 = {ap50:.4f}", flush=True)

@@ -1,3 +1,9 @@
-from .steps import TrainState, create_train_state, make_train_step_24p
+from .steps import (
+    TrainState,
+    create_train_state,
+    make_train_step_24p,
+    make_train_step_bbox,
+)
 
-__all__ = ["TrainState", "create_train_state", "make_train_step_24p"]
+__all__ = ["TrainState", "create_train_state", "make_train_step_24p",
+           "make_train_step_bbox"]

@@ -26,9 +26,9 @@ import torch
 from ..losses import Loss24PConfig
 from ..utils.device import resolve_device
 from ..utils.logger import logger, setup_logger
-from ..utils.metric import CandidateDropMonitor
+from ..utils.metric import CandidateDropMonitor, fetch_metrics
 from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
-from .steps import create_train_state, make_train_step_24p
+from .steps import create_train_state, eval_weights, make_train_step_24p
 
 
 class Trainer24P:
@@ -170,10 +170,7 @@ class Trainer24P:
         model's mode, autograd state and weights stay as they are.  Built at
         the first evaluation and loaded anew at each: the in-place loads
         move the tensor versions that key its packed and folded weights."""
-        weights = state.model.state_dict()
-        if self.exp.ema and state.ema_params is not None:
-            weights = {**weights, **state.ema_params,
-                       **(state.ema_batch_stats or {})}
+        weights = eval_weights(state, self.exp.ema)
         if self._eval_model is None:
             self._eval_model = self.exp.get_model(self.device)
         self._eval_model.load_state_dict(weights, strict=True)
@@ -195,19 +192,9 @@ class Trainer24P:
         return state
 
     def _fetch(self, rows):
-        """``[(step, device metrics)]`` -> the same with numpy metrics, in
-        one device-to-host transfer."""
-        flat = torch.cat([v.detach().reshape(-1).double()
-                          for _, m in rows for v in m.values()]).cpu().numpy()
+        """``[(step, device metrics)]`` -> numpy metrics, in one transfer."""
         self.host_fetches += 1
-        out, at = [], 0
-        for step, m in rows:
-            host = {}
-            for k, v in m.items():
-                host[k] = flat[at:at + v.numel()].reshape(v.shape)
-                at += v.numel()
-            out.append((step, host))
-        return out
+        return fetch_metrics(rows)
 
     def _tb_rows(self, rows):
         if self.tblogger is not None:

@@ -10,13 +10,16 @@ the two packages feeds both the same numpy arrays instead.
 (``tools/make_synth_datasets.py``'s recipe), its images under ``.jpg`` names
 as BMP, baseline JPEG or PNG content, written with numpy and the standard
 library alone (``write_bmp``, ``write_jpeg``, ``write_png``) so that a
-machine without an image library writes and reads it.  ``LabelOracle``: an
-``infer_fn`` that answers with a dataset's labels, for which an evaluator
-must give AP 1.
+machine without an image library writes and reads it.  ``write_coco_dataset``:
+the bbox family's seeded COCO-format dataset (``make_synth_datasets.py``'s
+``make_coco`` recipe: coloured rectangles on dark noise, the class is the
+colour).  ``LabelOracle``: an ``infer_fn`` that answers with a dataset's
+labels, for which an evaluator must give AP 1.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import zlib
@@ -416,6 +419,67 @@ def write_24p_dataset(root: str, n: int, hw, seed: int = 0,
     return img_dir, lab_dir
 
 
+def class_colours(num_classes: int, seed: int = 0) -> np.ndarray:
+    """``num_classes`` distinct bright BGR colours, seeded."""
+    rng = np.random.RandomState(seed)
+    out = set()
+    while len(out) < num_classes:
+        out.add(tuple(int(v) for v in rng.randint(80, 256, 3)))
+    return np.array(sorted(out), np.uint8)[rng.permutation(num_classes)]
+
+
+def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
+                       num_classes: int = 80, seed: int = 0,
+                       fmt: str = "jpeg"):
+    """A seeded COCO-format dataset under ``root``: ``train2017/`` and
+    ``val2017/`` images of ``hw`` (``{id:012}.jpg`` names, ``fmt`` content:
+    ``"jpeg"`` quality 95 4:2:0, ``"png"`` or ``"bmp"``), each 1 to 4 filled
+    rectangles on dark noise whose colour is the class, and
+    ``annotations/instances_{train,val}2017.json`` with category ids 1 ..
+    ``num_classes``.  Returns ``root``."""
+    if fmt not in _WRITERS:
+        raise ValueError(f"fmt {fmt!r}: one of {sorted(_WRITERS)}")
+    h, w = hw
+    # sides from 30 px (less on small images) to 35 % of the image
+    side_lo = [min(30, max(4, v // 8)) for v in hw]
+    side_hi = [max(lo + 1, int(v * 0.35)) for lo, v in zip(side_lo, hw)]
+    colours = class_colours(num_classes, seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    cats = [{"id": c + 1, "name": f"class{c}", "supercategory": "synthetic"}
+            for c in range(num_classes)]
+    for split, n, split_seed in (("train2017", n_train, seed),
+                                 ("val2017", n_val, seed + 1)):
+        rng = np.random.RandomState(split_seed)
+        os.makedirs(os.path.join(root, split))
+        images, annotations = [], []
+        for img_id in range(1, n + 1):
+            img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+            for _ in range(rng.randint(1, 5)):
+                bw = int(rng.randint(side_lo[1], side_hi[1]))
+                bh = int(rng.randint(side_lo[0], side_hi[0]))
+                x, y = int(rng.randint(0, w - bw)), int(rng.randint(0, h - bh))
+                cat = int(rng.randint(num_classes))
+                img[y:y + bh, x:x + bw] = colours[cat]
+                annotations.append({
+                    "id": len(annotations) + 1, "image_id": img_id,
+                    "category_id": cat + 1,
+                    "bbox": [float(x), float(y), float(bw), float(bh)],
+                    "area": float(bw * bh), "iscrowd": 0,
+                    "segmentation": [[float(x), float(y), float(x + bw),
+                                      float(y), float(x + bw), float(y + bh),
+                                      float(x), float(y + bh)]],
+                })
+            name = f"{img_id:012}.jpg"
+            _WRITERS[fmt](os.path.join(root, split, name), img)
+            images.append({"id": img_id, "width": w, "height": h,
+                           "file_name": name})
+        with open(os.path.join(root, "annotations",
+                               f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations,
+                       "categories": cats}, f)
+    return root
+
+
 def label_detections(targets, max_det: int = 10):
     """Padded label rows ``[B, max_labels, 51]`` (``TrainTransform24P``'s)
     -> detection rows ``[B, max_det, 29]`` (cx, cy, 24 radii, score 0.9,
@@ -432,10 +496,27 @@ def label_detections(targets, max_det: int = 10):
     return rows, valid
 
 
+def box_label_detections(records, max_det: int = 10):
+    """Box annotations ``[N, 5]`` (x1, y1, x2, y2, cls) per image ->
+    detection rows ``[B, max_det, 7]`` (the box, score 0.9, class score 1,
+    class) and their valid mask ``[B, max_det]``, numpy."""
+    rows = np.zeros((len(records), max_det, 7), np.float32)
+    valid = np.zeros((len(records), max_det), bool)
+    for i, rec in enumerate(records):
+        n = min(len(rec), max_det)
+        rows[i, :n, :4] = rec[:n, :4]
+        rows[i, :n, 4:6] = 0.9, 1.0
+        rows[i, :n, 6] = rec[:n, 4]
+        valid[i, :n] = True
+    return rows, valid
+
+
 class LabelOracle:
     """``infer_fn`` whose detections are ``dataset``'s labels, in order, on
-    ``device``.  Pure in its input: a batch seen again (evaluators run their
-    first batch twice) gets the same detections."""
+    ``device``: a 24p dataset's label rows, or a box dataset's annotations
+    (one with ``load_anno``; they are in the letterboxed pixels at the
+    evaluation size).  Pure in its input: a batch seen again (evaluators run
+    their first batch twice) gets the same detections."""
 
     def __init__(self, dataset, device, max_det: int = 10):
         self.dataset, self.device, self.max_det = dataset, device, max_det
@@ -446,10 +527,14 @@ class LabelOracle:
 
         key = hash(np.asarray(imgs).tobytes())
         if key not in self.cache:
-            targets = [self.dataset[self.next + i][1]
-                       for i in range(len(imgs))]
+            index = range(self.next, self.next + len(imgs))
             self.next += len(imgs)
-            rows, valid = label_detections(targets, self.max_det)
+            if hasattr(self.dataset, "load_anno"):
+                rows, valid = box_label_detections(
+                    [self.dataset.load_anno(i) for i in index], self.max_det)
+            else:
+                rows, valid = label_detections(
+                    [self.dataset[i][1] for i in index], self.max_det)
             self.cache[key] = Detections(
                 torch.from_numpy(rows).to(self.device),
                 torch.from_numpy(valid).to(self.device))

@@ -707,3 +707,103 @@ def test_remat_on_card_updates_batchnorm_once(cuda):
         else:
             bound = 1e-6 * max(b.abs().max().item(), 1e-30)
             assert (remat[n] - b).abs().max().item() <= bound, n
+
+
+# --- the bbox family (YOLOX-S..X by name; YOLOX-L at full width)
+
+# the 12 convs of YOLOX-L that run phase_conv at 1/5 of 640 px, with the
+# forward, weight-gradient and data-gradient variant each takes at 640 px
+# (None: the stem has no data gradient)
+YOLOX_L_SHAPES = (
+    [((6, 2, 2, 128, 128, 3, 64), "direct", "cuda_cores", None),
+     ((3, 2, 1, 64, 64, 64, 128), "wgmma_taps", "wgmma", "wgmma_classes")]
+    + [((1, 1, 0, 32, 32, 128, 64), "wgmma_taps", "wgmma",
+        "flipped:wgmma_taps")] * 2
+    + [((k, 1, k // 2, 32, 32, 64, 64), "wgmma_taps", "wgmma",
+        "flipped:wgmma_taps") for _ in range(3) for k in (1, 3)]
+    + [((1, 1, 0, 32, 32, 128, 128), "wgmma_taps", "wgmma",
+        "flipped:wgmma_taps"),
+       ((3, 2, 1, 32, 32, 128, 256), "direct", "cuda_cores",
+        "wgmma_classes")])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+def test_yolox_l_shapes_take_their_variants(cuda, dtype, tol):
+    """The YOLOX-L early convs: forward (with and without the fused
+    epilogue), weight and data gradient against their plain versions, each
+    on the variant the 640 px path takes (the stem and dark3's down conv on
+    the CUDA-core direct forward and cuda_cores weight gradient)."""
+    tdt = getattr(torch, dtype)
+    for i, (shape, fwd, wg, dg) in enumerate(YOLOX_L_SHAPES):
+        k, s, p, h, w, c, co = shape
+        x, wgt, scale, shift = _case(i, shape, tdt, cuda)
+        _assert_kernel_matches_plain(x, wgt, s, p, tol)
+        assert pc.phase_conv.last_variant == fwd, shape
+        _assert_kernel_matches_plain(x, wgt, s, p, tol, scale=scale,
+                                     shift=shift, act="silu")
+        ho, wo = pc.out_hw(h, w, k, s, p)
+        dy = torch.randn((2, ho, wo, co), device=cuda).to(tdt)
+        for got, want, what in (
+                (pc.phase_conv_wgrad(x, dy, k, s, p),
+                 pc.phase_conv_wgrad_reference(x, dy, k, s, p), "wgrad"),
+                (pc.phase_conv_dgrad(dy, wgt, x.shape, s, p),
+                 pc.phase_conv_dgrad_reference(dy, wgt, x.shape, s, p),
+                 "dgrad")):
+            bound = tol * max(1.0, want.float().abs().max().item())
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= bound, (shape, what, err, bound)
+        assert pc.phase_conv.last_wgrad_variant == wg, shape
+        if dg is not None:
+            assert pc.phase_conv.last_dgrad_variant == dg, shape
+
+
+@pytest.mark.gpu
+def test_bbox_train_step_on_card_matches_cpu(cuda):
+    """One YOLOX bbox training step (depth 0.33, width 0.25, 3 classes, 128
+    px, B=2) from one state on the card and on the CPU: the same
+    foreground count, the loss within 1e-4, every gradient within 1e-3 of
+    its largest value; 8 / 8 / 7 launches (forward / wgrad / dgrad)."""
+    from eop_tpu_torch.exp import Exp
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+
+    exp = Exp()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (2, 128, 128, 3)).astype(
+        np.float32))
+    labels = torch.zeros((2, 50, 5))
+    for b in range(2):
+        for g in range(4):
+            w, h = rng.uniform(12, 50, 2)
+            labels[b, g] = torch.tensor([rng.randint(3), rng.uniform(w, 128 - w),
+                                         rng.uniform(h, 128 - h), w, h])
+    out = {}
+    for dev in ("cpu", cuda):
+        model = exp.get_model(dev, seed=0).train()
+        state = create_train_state(model, exp.get_optimizer(model, 2, 1))
+        before = (pc.phase_conv.launches, pc.phase_conv.wgrad_launches,
+                  pc.phase_conv.dgrad_launches)
+        grads = {}
+
+        def hook(name, metrics=None):
+            if name == "backward":
+                grads.update({n: p.grad.cpu()
+                              for n, p in model.named_parameters()})
+
+        step = make_train_step_bbox(YoloxLossConfig(num_classes=3), hook=hook)
+        _, metrics = step(state, imgs.to(dev), labels.to(dev))
+        after = (pc.phase_conv.launches, pc.phase_conv.wgrad_launches,
+                 pc.phase_conv.dgrad_launches)
+        out[str(dev)] = (metrics, grads,
+                         tuple(b - a for a, b in zip(before, after)))
+    (m_cpu, g_cpu, n_cpu), (m_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu == (0, 0, 0) and n_gpu == (8, 8, 7)
+    assert m_gpu["num_fg"].item() == m_cpu["num_fg"].item()
+    assert abs(m_gpu["total_loss"].item() - m_cpu["total_loss"].item()) <= \
+        1e-4 * abs(m_cpu["total_loss"].item())
+    for n, g in g_cpu.items():
+        bound = 1e-3 * max(g.abs().max().item(), 1e-12)
+        assert (g_gpu[n] - g).abs().max().item() <= bound, n
