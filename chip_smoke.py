@@ -78,7 +78,25 @@
     eop_tpu_torch.tools.eval -n yolox-l`` on the checkpoint (AP line) and a
     label oracle through ``COCOEvaluator`` (AP 1); drops the mosaic loader
     with batches in flight;
-16. checks that no loader worker died in any of the file phases.
+16. YOLOX-Nano, YOLOX-Tiny and YOLOv3: holds the kernels at every new
+    early-conv shape (batch 8: Nano's 416 px, Tiny's 640 px trained and 416
+    px served, YOLOv3's 640 px; forward with and without the epilogue,
+    weight and data gradient, fp32 and bf16) against their plain versions
+    beside cuDNN (with 3 and 7); serves YOLOX-L with ``tools.serve -n
+    yolox-l --batch 8`` behind the HTTP front end (32 raw frames from 16
+    clients, four alone and a JPEG body; ``bbox`` answers against direct
+    calls; 12
+    fused launches a forward; the stages in fp32 and bf16; the card against
+    the CPU) and one YOLOv3 request (10 unfused launches); trains each with
+    ``python -m eop_tpu_torch.tools.train -n NAME -b 8`` as a subprocess for
+    an epoch (launches every step as the model gives them), evaluates each
+    checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
+    at Tiny's 416 px (AP 1); one YOLOv3 and one Nano step on the card
+    against the CPU;
+17. checks that no loader worker died in any of the file phases.
+
+``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
+phase, N times in one process, one line a run.
 
 ``python3 chip_smoke.py --probe-worker-exit`` runs only a probe: the
 training loader dropped with batches in flight with and without its
@@ -581,9 +599,16 @@ def serve_relu(smi: str):
 def serving_stages(smi: str, exp, model, iters: int = 10):
     """Device time of each stage of one serving call at the full batch
     (CUDA events, median of ``iters`` after warmup), beside the host's wall
-    time of the whole call."""
+    time of the whole call; the postprocess is the exp's family's."""
     from eop_tpu_torch.data.transforms import letterbox_batch_device
-    from eop_tpu_torch.eval.postprocess import postprocess_24p_heads
+    from eop_tpu_torch.eval.postprocess import (
+        postprocess_24p_heads,
+        postprocess_bbox_heads,
+    )
+    from eop_tpu_torch.exp import Exp
+
+    post = (postprocess_bbox_heads if isinstance(exp, Exp)
+            else postprocess_24p_heads)
 
     raw = np.random.RandomState(2).randint(0, 256, (SERVE_BATCH, 640, 640, 3),
                                            np.uint8)
@@ -599,7 +624,7 @@ def serving_stages(smi: str, exp, model, iters: int = 10):
             ev[1].record()
             heads, _ = model(imgs.permute(0, 3, 1, 2))
             ev[2].record()
-            dets = postprocess_24p_heads(
+            dets = post(
                 heads, exp.num_classes, conf_thre=exp.test_conf,
                 nms_thre=exp.nmsthre, nms_fixpoint_iters=exp._nms_iters())
             ev[3].record()
@@ -649,22 +674,24 @@ def enclosing_rects(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
 
 
-def detections_vs(dets, ref) -> dict:
+def detections_vs(dets, ref, boxes=enclosing_rects) -> dict:
     """Each image's detections against a reference's: the counts, and for
-    each detection the best IoU of its enclosing rectangle with one of the
-    reference's (median, and the share at 0.5 or more)."""
+    each detection the best IoU of its box (``boxes`` of its rows: the
+    polygon's enclosing rectangle by default) with one of the reference's
+    (median, and the share at 0.5 or more; an empty box counts 0)."""
     from eop_tpu_torch.ops.boxes import bboxes_iou
 
     best = []
     for b in range(dets.rows.shape[0]):
-        got = enclosing_rects(dets.rows[b][dets.valid[b]])
-        want = enclosing_rects(ref.rows[b][ref.valid[b]])
+        got = boxes(dets.rows[b][dets.valid[b]])
+        want = boxes(ref.rows[b][ref.valid[b]]).to(got.device)
         if len(got) and len(want):
             best += bboxes_iou(got, want).amax(dim=1).cpu().tolist()
+    best = np.nan_to_num(np.asarray(best, np.float64))
     return {"count": int(dets.valid.sum()), "count_ref": int(ref.valid.sum()),
-            "matched_iou_median": float(np.median(best)) if best else 0.0,
-            "matched_iou_ge_0_5": (float(np.mean(np.asarray(best) >= 0.5))
-                                   if best else 0.0)}
+            "matched_iou_median": float(np.median(best)) if len(best) else 0.0,
+            "matched_iou_ge_0_5": (float(np.mean(best >= 0.5))
+                                   if len(best) else 0.0)}
 
 
 def free_port() -> int:
@@ -1036,8 +1063,9 @@ def check_phase_conv_backward(cases=None):
                 row[f"{kind}_bound_by_bf16"] = (
                     "operations" if flops / PEAK_BF16_FLOPS
                     >= bf16_bytes / PEAK_BYTES else "bytes")
-            if row["dgrad_on_path"]:
-                # the weight packing of this data gradient, alone
+            if row["dgrad_on_path"] and row["dgrad_variant"] != "cuda_cores":
+                # the weight packing of this data gradient, alone (the
+                # CUDA-core data gradient reads unpacked weights)
                 taps = (flip_taps(k) if s == 1 else
                         [ky * k + kx for _, _, ts in dgrad_class_plan(k, p)
                          for ky, kx, _, _ in ts])
@@ -1328,11 +1356,11 @@ def train_card_vs_cpu(compute_dtype: str = "float32"):
     same = (torch.equal(out["cuda"][1], out["cpu"][1])
             and torch.equal(out["cuda"][2], out["cpu"][2]))
     worst, worst_name, cosines = 0.0, None, []
-    for name, g in out["cpu"][3].items():
-        got = out["cuda"][3][name]
+    for tensor, g in out["cpu"][3].items():
+        got = out["cuda"][3][tensor]
         err = ((got - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
         if err > worst:
-            worst, worst_name = err, name
+            worst, worst_name = err, tensor
         a, b = got.double().flatten(), g.double().flatten()
         if b.norm() > 0:
             cosines.append((a @ b / (a.norm() * b.norm())).item())
@@ -1939,11 +1967,11 @@ def train_bbox_bf16(smi: str):
     return report, launches
 
 
-def bbox_card_vs_cpu():
-    """One YOLOX-L training step's forward, assignment, loss and backward
-    (B=2, 320 px) from one seeded state on the card and on the CPU: the loss
-    within 1e-3 relative, the same assignment; the gradients' worst
-    difference and cosines reported."""
+def bbox_card_vs_cpu(name: str = "yolox-l"):
+    """One training step's forward, assignment, loss and backward of the
+    exp ``name`` (B=2, 320 px) from one seeded state on the card and on the
+    CPU: the loss within 1e-3 relative, the same assignment; the gradients'
+    worst difference and cosines reported."""
     from eop_tpu_torch.exp import get_exp
     from eop_tpu_torch.losses import (
         SimOTAConfig,
@@ -1953,7 +1981,7 @@ def bbox_card_vs_cpu():
     )
     from eop_tpu_torch.models.yolox import training_outputs
 
-    exp = get_exp(exp_name="yolox-l")
+    exp = get_exp(exp_name=name)
     imgs, labels = bbox_synthetic_batch(2, 320, seed=1, device="cpu")
     cfg = YoloxLossConfig(num_classes=BBOX_CLASSES)
     t0 = time.perf_counter()
@@ -1978,15 +2006,15 @@ def bbox_card_vs_cpu():
     same = (torch.equal(out["cuda"][1], out["cpu"][1])
             and torch.equal(out["cuda"][2], out["cpu"][2]))
     worst, worst_name, cosines = 0.0, None, []
-    for name, g in out["cpu"][3].items():
-        got = out["cuda"][3][name]
+    for tensor, g in out["cpu"][3].items():
+        got = out["cuda"][3][tensor]
         err = ((got - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
         if err > worst:
-            worst, worst_name = err, name
+            worst, worst_name = err, tensor
         a, b = got.double().flatten(), g.double().flatten()
         if b.norm() > 0:
             cosines.append((a @ b / (a.norm() * b.norm())).item())
-    report = {"phase": "bbox_card_vs_cpu", "model": "yolox_l", "batch": 2,
+    report = {"phase": "bbox_card_vs_cpu", "model": name, "batch": 2,
               "input_size": [320, 320], "loss_cuda": out["cuda"][0],
               "loss_cpu": out["cpu"][0], "loss_rel_err": rel,
               "loss_tol": 1e-3, "assignment_equal": same,
@@ -2061,6 +2089,484 @@ def drop_bbox_loaders(data_dir: str, drops: int = 2) -> dict:
     return {"bbox_drops": drops, "bbox_drop_seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# YOLOX-Nano, YOLOX-Tiny and YOLOv3 (Darknet-53 + YOLOFPN); bbox serving
+
+# the variants that each zoo model's phase_conv convs must take, by conv
+# (its path under the backbone): forward, weight gradient and data gradient
+# (None: no data gradient, the input is the image).  C and Co off the
+# tensor-core predicates (Tiny's 24 / 48 / 96, Nano's 16) take the
+# CUDA-core direct / cuda_cores kernels.  The shapes come from the models
+# themselves (:func:`zoo_path`).
+_CUDA_CORES = ("direct", "cuda_cores", "cuda_cores")
+_TAPS = ("wgmma_taps", "wgmma", "flipped:wgmma_taps")
+_CLASSES = ("wgmma_taps", "wgmma", "wgmma_classes")
+ZOO_VARIANTS = {
+    "yolox-nano": {
+        "stem.conv": ("direct", "cuda_cores", None),
+        "dark2.0.pconv": _CUDA_CORES,
+        "dark2.1.conv1": _CUDA_CORES,
+        "dark2.1.conv2": _CUDA_CORES,
+        "dark2.1.m.0.conv1": _CUDA_CORES,
+        "dark2.1.m.0.conv2.pconv": _CUDA_CORES,
+        "dark2.1.conv3": _TAPS,
+        "dark3.0.pconv": _TAPS},
+    "yolox-tiny": {
+        "stem.conv": ("direct", "cuda_cores", None),
+        **{n: _CUDA_CORES for n in (
+            "dark2.0", "dark2.1.conv1", "dark2.1.conv2", "dark2.1.m.0.conv1",
+            "dark2.1.m.0.conv2", "dark2.1.conv3", "dark3.0")}},
+    "yolov3": {
+        "stem.0": ("direct", "wgmma", None),
+        "stem.1": _CLASSES,
+        "stem.2.layer1": _TAPS,
+        "stem.2.layer2": _TAPS,
+        "dark2.0": _CLASSES,
+        **{f"dark2.{i}.layer{j}": _TAPS for i in (1, 2) for j in (1, 2)},
+        "dark3.0": ("direct", "cuda_cores", "wgmma_classes")},
+}
+ZOO_NAMES = tuple(ZOO_VARIANTS)
+# the reference's per-card batch (-b 64 over 8 cards): the zoo trains, and
+# serves, at batch 8
+ZOO_BATCH = 8
+# forward launches of one serving call: YOLOX-L's 12 early convs fused with
+# their BN + SiLU; YOLOv3's 10 lrelu convs unfused
+YOLOX_L_FORWARD, YOLOV3_FORWARD = 12, len(ZOO_VARIANTS["yolov3"])
+# serve_bbox: frames posted one at a time, each answered as a direct call
+N_ALONE = 4
+
+
+def zoo_path() -> list:
+    """Every phase_conv conv of the zoo at each size its model runs it, one
+    row a conv (so sums are per forward): (tag, conv, (k, stride, padding,
+    H, W, C, Co), forward, weight-gradient and data-gradient variant,
+    trained).  The shapes are read by hooks from one CPU forward of each
+    model at its input size (tag ``nano``, ``tiny``, ``yolov3``; trained)
+    and at its test size where that differs (Tiny's 416: ``tiny416``,
+    served only; the reference's input_scale typo trains Tiny at 640); the
+    variants are :data:`ZOO_VARIANTS`', which must name exactly the convs
+    that ran."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops.blocks import BaseConv
+
+    def record(seen, name):
+        def hook(module, args):
+            w, s, p = module.conv_args()
+            co, c, k, _ = w.shape
+            seen.append((name, (k, s, p, *args[0].shape[2:], c, co)))
+        return hook
+
+    rows = []
+    for name, want in ZOO_VARIANTS.items():
+        exp = get_exp(exp_name=name)
+        model = exp.get_model("cpu").eval()
+        tag = name.removeprefix("yolox-")
+        for size in dict.fromkeys((tuple(exp.input_size),
+                                   tuple(exp.test_size))):
+            seen = []
+            hooks = [m.register_forward_pre_hook(record(
+                seen, n.removeprefix("backbone.backbone.")))
+                for n, m in model.named_modules()
+                if isinstance(m, BaseConv) and m.phase_conv]
+            with torch.no_grad():
+                model(torch.zeros(1, 3, *size))
+            for h in hooks:
+                h.remove()
+            if sorted(n for n, _ in seen) != sorted(want):
+                raise AssertionError(f"zoo_path {name}: phase_conv convs "
+                                     f"{[n for n, _ in seen]}, variants "
+                                     f"for {list(want)}")
+            trained = size == tuple(exp.input_size)
+            t = tag if trained else f"{tag}{size[0]}"
+            rows += [(t, n, shape, *want[n], trained) for n, shape in seen]
+    return rows
+
+
+def zoo_cases():
+    """check_phase_conv's and check_phase_conv_backward's cases of the
+    zoo: every shape forward (served and trained), those at each model's
+    input size backward (Tiny's 416-px shapes are served only)."""
+    path = zoo_path()
+    fwd = [(f"{m}.{n}", c, ZOO_BATCH, v) for m, n, c, v, _, _, _ in path]
+    back = [(f"{m}.{n}", c, ZOO_BATCH, w, d)
+            for m, n, c, _, w, d, trained in path if trained]
+    return fwd, back
+
+
+def step_launches(name: str) -> dict:
+    """The kernel launches one training step of zoo model ``name`` makes,
+    from :data:`ZOO_VARIANTS`: every phase_conv conv launches its forward
+    and weight gradient; every one with a data gradient launches it, and
+    packs its weights first on a tensor-core variant."""
+    dgrads = [d for _, _, d in ZOO_VARIANTS[name].values() if d is not None]
+    n = len(ZOO_VARIANTS[name])
+    return {"forward": n, "wgrad": n, "dgrad": len(dgrads),
+            "pack": sum(d != "cuda_cores" for d in dgrads)}
+
+
+def match_bboxes(got: list, want: np.ndarray, tol: float = 0.05) -> bool:
+    """HTTP ``bbox`` dicts against rows ``[n, 7]`` of a direct call: the
+    same count, each row with an unused answer of its class within ``tol``
+    px on every side and its score within 1e-4."""
+    if len(got) != len(want):
+        return False
+    free = list(range(len(got)))
+    for row in want:
+        score = float(row[4] * row[5])
+        hit = next((i for i in free if got[i]["class_id"] == int(row[6])
+                    and max(abs(a - b) for a, b in zip(got[i]["bbox"],
+                                                       row[:4])) <= tol
+                    and abs(got[i]["score"] - score) <= 1e-4), None)
+        if hit is None:
+            return False
+        free.remove(hit)
+    return True
+
+
+def box_iou_median(got: list, want: np.ndarray) -> float:
+    """The median over HTTP ``bbox`` dicts of each one's best IoU with a
+    row of a direct call's ``[n, 7]`` of the same class; 0 where either is
+    empty."""
+    from eop_tpu_torch.ops.boxes import bboxes_iou
+
+    if not len(got) or not len(want):
+        return float(len(got) == len(want))
+    a = torch.tensor([d["bbox"] for d in got], dtype=torch.float64)
+    b = torch.from_numpy(want[:, :4]).double()
+    same = (torch.tensor([d["class_id"] for d in got])[:, None]
+            == torch.from_numpy(want[:, 6]).long()[None])
+    return float((bboxes_iou(a, b) * same).amax(dim=1).median())
+
+
+def heads_vs(model, ref_model, raw: np.ndarray, test_size) -> dict:
+    """The raw head maps of ``model`` against ``ref_model``'s (another
+    device or dtype) on the same uint8 frames, letterboxed to
+    ``test_size``: the largest difference and the reference's scale."""
+    from eop_tpu_torch.data.transforms import letterbox_batch_device
+
+    maps = []
+    for m in (model, ref_model):
+        dev = next(m.parameters()).device
+        with torch.inference_mode():
+            x = torch.from_numpy(raw).to(dev).float()
+            imgs, _ = letterbox_batch_device(x, raw.shape[1:3], test_size)
+            maps.append([h.float().cpu() for h in m(imgs.permute(0, 3, 1,
+                                                                 2))[0]])
+    return {"head_max_abs_err": max((a - b).abs().max().item()
+                                    for a, b in zip(*maps)),
+            "head_scale": max(b.abs().max().item() for b in maps[1])}
+
+
+def bbox_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Detection rows ``[..., 7]`` -> their boxes ``[..., 4]`` (x1 y1 x2
+    y2)."""
+    return rows[..., :4].float()
+
+
+def serve_bbox(smi: str):
+    """``tools.serve -n yolox-l --batch 8`` as its parser reads it, in this
+    process, behind the threaded HTTP front end: 16 clients post 32 raw
+    640x640 frames (each answer's ``bbox`` dicts against a direct
+    ``get_serving_fn`` call on its frame by IoU: the batcher forms other
+    batches), then four frames one at a time (answers equal to a direct
+    call on the frame alone) and one JPEG body (equal to its raw twin's);
+    12 fused launches a forward (counts set to 0 just before the server
+    starts); the stages in
+    fp32 and bf16 (the bf16 model's launches, its head maps against fp32's
+    within 5e-2 of their scale); the card against the CPU on one frame
+    (head maps within 1e-3; detections by IoU, reported); then ``serve -n
+    yolov3``: one request, 10 unfused launches.  Returns the report and the
+    launches by path."""
+    from eop_tpu_torch.data.image_io import imdecode
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+    from eop_tpu_torch.serving.http import make_http_server
+    from eop_tpu_torch.tools import serve as serve_cli
+    from eop_tpu_torch.utils.synth import encode_jpeg
+
+    opts = ["--batch", str(SERVE_BATCH), "--max-wait-ms", "20", "test_conf",
+            "1e-5"]
+    _reset_counts()
+    t0 = time.perf_counter()
+    svc = serve_cli.build_service(serve_cli.make_parser().parse_args(
+        ["-n", "yolox-l"] + opts))
+    warmup_s = time.perf_counter() - t0
+    server = make_http_server(svc, host="127.0.0.1", port=0)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}/v1/detect"
+    rng = np.random.RandomState(7)
+    frames = [rng.randint(0, 256, (640, 640, 3), np.uint8)
+              for _ in range(N_REQUESTS)]
+    answers, lat_ms = [None] * N_REQUESTS, [0.0] * N_REQUESTS
+
+    def post(body, headers):
+        req = urllib.request.Request(url, data=body, method="POST",
+                                     headers=headers)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    def client(j):
+        for i in range(j, N_REQUESTS, N_CLIENTS):
+            t = time.perf_counter()
+            answers[i] = post(frames[i].tobytes(),
+                              {"X-Raw-Shape": "640,640,3"})
+            lat_ms[i] = (time.perf_counter() - t) * 1e3
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(j,))
+                   for j in range(N_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        # four frames posted one at a time: each is a batch of its own
+        alone = [post(frames[i].tobytes(), {"X-Raw-Shape": "640,640,3"})[1]
+                 for i in range(N_ALONE)]
+        jpeg = encode_jpeg(frames[0])
+        jpeg_code, jpeg_answer = post(jpeg, {})
+        _, twin_answer = post(imdecode(jpeg).tobytes(),
+                              {"X-Raw-Shape": "640,640,3"})
+        torch.cuda.synchronize()
+        launches = phase_conv.launches
+        fused = phase_conv.fused_launches
+        stats = svc.stats()
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        srv.join(timeout=30)
+    codes = [a[0] if a else None for a in answers]
+    if any(t.is_alive() for t in clients) or codes != [200] * N_REQUESTS:
+        raise AssertionError(f"serve_bbox HTTP codes {codes}")
+    # the direct call on each frame: alone, as the frames posted alone were
+    # served, and in batches of 8 for the concurrent answers, whose batches
+    # the batcher formed (another batch size may round otherwise in the
+    # last bits, which moves near-equal scores across the 300-row cap)
+    exp = serve_cli.load_exp(serve_cli.make_parser().parse_args(
+        ["-n", "yolox-l"] + opts))
+    model = exp.get_model("cuda")
+    serve = exp.get_serving_fn(model, (640, 640), "cuda")
+
+    def rows(out, b):
+        return out.rows[b][out.valid[b]].cpu().numpy()
+
+    alone_equal = sum(match_bboxes(a["detections"], rows(serve(f[None]), 0))
+                      for a, f in zip(alone, frames))
+    direct = []
+    for i in range(0, N_REQUESTS, SERVE_BATCH):
+        out = serve(np.stack(frames[i:i + SERVE_BATCH]))
+        direct += [rows(out, b) for b in range(out.rows.shape[0])]
+    iou = [box_iou_median(a[1]["detections"], d)
+           for a, d in zip(answers, direct)]
+    n_dets = [len(a[1]["detections"]) for a in answers]
+    forwards = stats["device_calls"]
+    report = {
+        "phase": "serve_bbox", "card": smi, "model": "yolox_l",
+        "command": "tools.serve -n yolox-l " + " ".join(opts),
+        "depth": exp.depth, "width": exp.width,
+        "num_classes": exp.num_classes, "test_size": list(exp.test_size),
+        "batch": SERVE_BATCH, "requests": N_REQUESTS, "clients": N_CLIENTS,
+        "http_200": codes.count(200), "batches": stats["batches"],
+        "mean_batch_occupancy": stats["mean_batch_occupancy"],
+        "forward_calls": forwards, "valid_detections": sum(n_dets),
+        "alone_answers_equal_direct_call": alone_equal,
+        "answers_iou_median_vs_direct_min": min(iou),
+        "has_bbox_dicts": all("bbox" in d for a in answers
+                              for d in a[1]["detections"]),
+        "jpeg_code": jpeg_code,
+        "jpeg_equals_raw_twin": (jpeg_answer["detections"]
+                                 == twin_answer["detections"]),
+        "phase_conv_launches": launches, "phase_conv_fused_launches": fused,
+        "request_ms_p50": float(np.percentile(lat_ms, 50)),
+        "request_ms_max": float(max(lat_ms)),
+        "wall_s": wall_s, "warmup_s": warmup_s,
+    }
+    if (sum(n_dets) <= 0 or alone_equal != N_ALONE or min(iou) < 0.99
+            or not report["has_bbox_dicts"]
+            or jpeg_code != 200 or not report["jpeg_equals_raw_twin"]
+            or launches != YOLOX_L_FORWARD * forwards or fused != launches):
+        raise AssertionError(f"serve_bbox: {report}")
+    by_path = {"serve_bbox": launches}
+
+    report["stages_fp32"] = serving_stages(smi, exp, model)
+    # the card against the CPU on one frame, the same seeded weights: the
+    # head maps (1e-3 of their scale); the detections by IoU, reported (at
+    # seeded weights every image fills the 300-row cap with near-equal
+    # scores, so the last bits reorder its tail)
+    raw1 = frames[1][None]
+    cpu_model = exp.get_model("cpu")
+    report["card_vs_cpu"] = {
+        **heads_vs(model, cpu_model, raw1, exp.test_size),
+        **detections_vs(serve(raw1), exp.get_serving_fn(
+            cpu_model, (640, 640), "cpu")(raw1), bbox_rows)}
+    del cpu_model
+    # bf16: one call at batch 8 (its launches), its head maps against
+    # fp32's (5e-2 of their scale), then its stages
+    exp16 = serve_cli.load_exp(serve_cli.make_parser().parse_args(
+        ["-n", "yolox-l"] + opts + ["compute_dtype", "bfloat16"]))
+    model16 = exp16.get_model("cuda")
+    serve16 = exp16.get_serving_fn(model16, (640, 640), "cuda")
+    batch8 = np.stack(frames[:SERVE_BATCH])
+    serve16(batch8)  # warm
+    _reset_counts()
+    dets16 = serve16(batch8)
+    torch.cuda.synchronize()
+    by_path["serve_bbox_bf16"] = phase_conv.launches
+    report["bf16"] = {
+        "phase_conv_launches": phase_conv.launches,
+        "phase_conv_fused_launches": phase_conv.fused_launches,
+        "vs_fp32": {**heads_vs(model16, model, batch8, exp.test_size),
+                    **detections_vs(dets16, serve(batch8), bbox_rows)},
+        "stages": serving_stages(smi, exp16, model16)}
+    del model, model16
+    # YOLOv3 served: one request, its lrelu convs unfused
+    svc3 = serve_cli.build_service(serve_cli.make_parser().parse_args(
+        ["-n", "yolov3", "--batch", "1", "test_conf", "1e-5"]))
+    try:
+        _reset_counts()
+        dets3 = svc3.detect(frames[2])
+        torch.cuda.synchronize()
+        by_path["serve_yolov3"] = phase_conv.launches
+        report["yolov3"] = {"phase_conv_launches": phase_conv.launches,
+                            "phase_conv_fused_launches":
+                                phase_conv.fused_launches,
+                            "detections": len(dets3),
+                            "has_bbox": all("bbox" in d for d in dets3)}
+    finally:
+        svc3.close()
+    vs_cpu, vs32 = report["card_vs_cpu"], report["bf16"]["vs_fp32"]
+    checks = (vs_cpu["head_max_abs_err"] <= 1e-3 * max(1.0, vs_cpu[
+        "head_scale"]) and vs_cpu["count"] == vs_cpu["count_ref"] > 0
+        and vs32["head_max_abs_err"] <= 5e-2 * max(1.0, vs32["head_scale"])
+        and report["bf16"]["phase_conv_launches"] == YOLOX_L_FORWARD
+        == report["bf16"]["phase_conv_fused_launches"]
+        and report["yolov3"]["phase_conv_launches"] == YOLOV3_FORWARD
+        and report["yolov3"]["phase_conv_fused_launches"] == 0
+        and report["yolov3"]["detections"] > 0
+        and report["yolov3"]["has_bbox"])
+    if not checks:
+        raise AssertionError(f"serve_bbox: {report}")
+    return report, by_path
+
+
+def train_zoo(smi: str, data_dir: str, out_dir: str):
+    """``python -m eop_tpu_torch.tools.train -n NAME -b 8`` for YOLOX-Nano,
+    YOLOX-Tiny and YOLOv3 over the bbox dataset, each as a subprocess
+    through :func:`train_bbox_child`: one epoch of 8 steps after the no-aug
+    switch (``max_epoch 1 no_aug_epochs 0``: L1 on; the mosaic path is
+    train_bbox's), multiscale from each exp's own ``random_size``.  Every
+    step's launches must be what :func:`step_launches` computes from the
+    model; step ms by CUDA events, peak memory.  Returns the report, the
+    launches by path and each run's checkpoint."""
+    report, by_path, ckpts = {"phase": "train_zoo", "card": smi}, {}, {}
+    for name in ZOO_NAMES:
+        out = os.path.join(out_dir, name)
+        record = os.path.join(out_dir, f"{name}.json")
+        cmd = [sys.executable, os.path.abspath(__file__),
+               "--train-bbox-child", record, "--", "-n", name, "-b",
+               str(ZOO_BATCH), "--data-dir", data_dir, "max_epoch", "1",
+               "no_aug_epochs", "0", "eval_interval", "10",
+               "data_num_workers", "2", "seed", "0", "print_interval", "4",
+               "output_dir", out]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"train_zoo {name}: rc {r.returncode}\n"
+                                 f"{(r.stdout + r.stderr)[-6000:]}")
+        with open(record) as f:
+            rec = json.load(f)
+        want = step_launches(name)
+        bad = [i for i, c in enumerate(rec["launches"])
+               if {k: c[k] for k in want} != want]
+        losses = [m["total_loss"] for m in rec["metrics"]]
+        ms = rec["step_ms"][2:]
+        row = {"command": " ".join(cmd[4:]), "wall_s": wall,
+               "steps": len(rec["step_ms"]), "losses": losses,
+               "l1_losses": [m["l1_loss"] for m in rec["metrics"]],
+               "num_fg": [m["num_fg"] for m in rec["metrics"]],
+               "expected_launches": want,
+               "launches_per_step": rec["launches"][-1],
+               "step_ms_all": rec["step_ms"],
+               "step_ms": float(np.median(ms)),
+               "images_per_s": 1e3 * ZOO_BATCH / float(np.median(ms)),
+               "first_batch_wait_s": rec["data_wait_s"][0],
+               "max_memory_allocated_bytes":
+                   rec["max_memory_allocated_bytes"],
+               "worker_aborts": r.stderr.count("killed by signal")}
+        report[name] = row
+        by_path[f"train_{name}"] = {k: rec["totals"][k] for k in want}
+        if (bad or len(losses) != rec["iters_per_epoch"]
+                or not all(np.isfinite(losses))
+                or not all(v > 0 for v in row["l1_losses"])
+                or row["worker_aborts"]):
+            raise AssertionError(f"train_zoo {name}: steps {bad} launched "
+                                 f"otherwise than {want}, or: {row}")
+        ckpts[name] = os.path.join(out, name.replace("-", "_"),
+                                   "latest_ckpt.pth")
+    return report, by_path, ckpts
+
+
+def eval_zoo(smi: str, data_dir: str, ckpts: dict):
+    """``tools.eval -n NAME -c CKPT -b 8`` in this process for each zoo
+    model (the AP line; its forward launches counted from 0 just before, 8
+    or 10 a forward, fused where the model is SiLU), then the label oracle
+    through YOLOX-Tiny's evaluator, at its 416-px test size (AP 1)."""
+    import contextlib
+    import io
+    import re
+
+    from eop_tpu_torch.eval import fast_cocoeval
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+    from eop_tpu_torch.tools import eval as eval_cli
+    from eop_tpu_torch.utils.synth import LabelOracle
+
+    report, by_path = {"phase": "eval_zoo", "card": smi}, {}
+    # the evaluator runs its first batch twice (the first call untimed)
+    forwards = -(-BBOX_VAL_IMAGES // EVAL_BATCH) + 1
+    for name, fused in (("yolox-nano", True), ("yolox-tiny", True),
+                        ("yolov3", False)):
+        per_forward = step_launches(name)["forward"]
+        _reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_cli.main(["-n", name, "-c", ckpts[name], "-b",
+                           str(EVAL_BATCH), "--data-dir", data_dir,
+                           "test_conf", "1e-5", "data_num_workers", "0"])
+        torch.cuda.synchronize()
+        aps = re.findall(AP_LINE, buf.getvalue())
+        row = {"wall_s": time.perf_counter() - t0,
+               "ap_line": [float(v) for v in aps[-1]] if aps else None,
+               "phase_conv_launches": phase_conv.launches,
+               "phase_conv_fused_launches": phase_conv.fused_launches}
+        report[name] = row
+        by_path[f"eval_{name}"] = phase_conv.launches
+        if (not aps or phase_conv.launches != per_forward * forwards
+                or phase_conv.fused_launches != (phase_conv.launches
+                                                 if fused else 0)):
+            raise AssertionError(f"eval_zoo {name}: {row}\n"
+                                 f"{buf.getvalue()[-3000:]}")
+    exp = get_exp(exp_name="yolox-tiny")
+    exp.data_dir, exp.data_num_workers = data_dir, 0
+    evaluator = exp.get_evaluator(EVAL_BATCH)
+    fast_cocoeval.match_image.native_calls = 0
+    o5095, o50, _ = evaluator.evaluate(
+        LabelOracle(evaluator.dataloader.dataset, "cuda"))
+    report["oracle"] = {"exp": "yolox-tiny", "test_size": list(exp.test_size),
+                        "ap50_95": float(o5095), "ap50": float(o50),
+                        "native_matcher_calls":
+                            fast_cocoeval.match_image.native_calls}
+    if not (abs(o5095 - 1.0) <= 1e-6 and abs(o50 - 1.0) <= 1e-6):
+        raise AssertionError(f"eval_zoo oracle: {report['oracle']}")
+    return report, by_path
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -2112,6 +2618,45 @@ def probe_worker_exit(drops: int = 8) -> int:
     return 0
 
 
+def repeat_serve_bbox(runs: int) -> int:
+    """``python3 chip_smoke.py --repeat-serve-bbox N``: the serve_bbox phase
+    N times in one process after the kernels' build, one JSON line a run
+    with its result and the launch-debugging settings of the environment
+    (``CUDA_LAUNCH_BLOCKING=1`` stops at the launch that fails).  Stops at
+    the first failure, printing its traceback: a device-side assert leaves
+    the CUDA context unusable."""
+    import traceback
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch import _build
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build_all()
+    env = {k: os.environ.get(k)
+           for k in ("CUDA_LAUNCH_BLOCKING", "TORCH_USE_CUDA_DSA")}
+    for run in range(runs):
+        t0 = time.perf_counter()
+        row = {"phase": "repeat_serve_bbox", "card": smi, "run": run,
+               "env": env}
+        try:
+            report, _ = serve_bbox(smi)
+        except Exception:  # noqa: BLE001 - reported, then the run stops
+            emit({**row, "ok": False, "seconds": time.perf_counter() - t0,
+                  "error": traceback.format_exc()[-6000:]})
+            return 1
+        emit({**row, "ok": True, "seconds": time.perf_counter() - t0,
+              "forward_calls": report["forward_calls"],
+              "http_200": report["http_200"],
+              "alone_answers_equal_direct_call":
+                  report["alone_answers_equal_direct_call"]})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2140,6 +2685,10 @@ def main() -> int:
     l_shapes, l_err32, l_err16 = check_phase_conv(l_fwd_cases)
     for row in l_shapes:
         emit({"phase": "phase_conv_yolox_l", "card": smi, **row})
+    z_fwd_cases, z_back_cases = zoo_cases()
+    z_shapes, z_err32, z_err16 = check_phase_conv(z_fwd_cases)
+    for row in z_shapes:
+        emit({"phase": "phase_conv_zoo", "card": smi, **row})
 
     exp = serving_exp()
     model = exp.get_model("cuda")
@@ -2154,6 +2703,10 @@ def main() -> int:
     del model
     relu_report, relu_launches = serve_relu(smi)
     emit(relu_report)
+    t0 = time.perf_counter()
+    bbox_serve_report, bbox_serve_launches = serve_bbox(smi)
+    bbox_serve_report["phase_s"] = time.perf_counter() - t0
+    emit(bbox_serve_report)
 
     back_rows, back_err = check_phase_conv_backward()
     for row in back_rows:
@@ -2161,6 +2714,9 @@ def main() -> int:
     l_back_rows, l_back_err = check_phase_conv_backward(l_back_cases)
     for row in l_back_rows:
         emit({"phase": "phase_conv_backward_yolox_l", "card": smi, **row})
+    z_back_rows, z_back_err = check_phase_conv_backward(z_back_cases)
+    for row in z_back_rows:
+        emit({"phase": "phase_conv_backward_zoo", "card": smi, **row})
     train_report, repeat_launches = train_main_path(smi)
     emit(train_report)
     emit(train_card_vs_cpu())
@@ -2216,6 +2772,20 @@ def main() -> int:
         emit(bbox_card_vs_cpu())
         emit(eval_bbox(smi, bbox_dir, os.path.join(bbox_out, "yolox_l",
                                                    "latest_ckpt.pth")))
+        # YOLOX-Nano, YOLOX-Tiny and YOLOv3 trained, evaluated, and one
+        # step of YOLOv3 and of Nano on the card against the CPU
+        t0 = time.perf_counter()
+        zoo_report, zoo_launches, zoo_ckpts = train_zoo(
+            smi, bbox_dir, os.path.join(data_root, "zoo_out"))
+        zoo_report["phase_s"] = time.perf_counter() - t0
+        emit(zoo_report)
+        t0 = time.perf_counter()
+        zoo_eval_report, zoo_eval_launches = eval_zoo(smi, bbox_dir,
+                                                      zoo_ckpts)
+        zoo_eval_report["phase_s"] = time.perf_counter() - t0
+        emit(zoo_eval_report)
+        for name in ("yolov3", "yolox-nano"):
+            emit(bbox_card_vs_cpu(name))
         drops.update(drop_bbox_loaders(bbox_dir))
         gc.collect()
     finally:
@@ -2227,6 +2797,8 @@ def main() -> int:
           "cli_workers_died": (cli_report["train_24p_worker_aborts"]
                                + cli_report["eval_worker_aborts"]),
           "bbox_workers_died": bbox_report["worker_aborts"],
+          "zoo_workers_died": sum(zoo_report[n]["worker_aborts"]
+                                  for n in ZOO_NAMES),
           "unraisable": unraisable[:5]})
     if died or cli_report["train_24p_worker_aborts"] or (
             cli_report["eval_worker_aborts"]) or bbox_report["worker_aborts"]:
@@ -2249,12 +2821,16 @@ def main() -> int:
                # EMA evaluations, which launch the fused forward), and the
                # in-process bf16 steps
                "train_bbox": bbox_launches["forward"],
-               "train_bbox_bf16": bbox16_launches["forward"]}
+               "train_bbox_bf16": bbox16_launches["forward"],
+               # the bbox server (YOLOX-L fp32 over HTTP, its bf16 call,
+               # one YOLOv3 request), the zoo's evaluations and training
+               **bbox_serve_launches, **zoo_eval_launches,
+               **{k: c["forward"] for k, c in zoo_launches.items()}}
     train_paths = {"train": repeat_launches, "train_files": files_launches,
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
                    "train_bbox": bbox_launches,
-                   "train_bbox_bf16": bbox16_launches}
+                   "train_bbox_bf16": bbox16_launches, **zoo_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
 
@@ -2279,6 +2855,21 @@ def main() -> int:
                 **{k: sum(r[k] for r in rows_) for k in keys}, **extra}
 
     l_pack_rows = [r for r in l_back_rows if "pack_ms" in r]
+    z_pack_rows = [r for r in z_back_rows if "pack_ms" in r]
+
+    def zoo(rows_, keys, variant_key=None):
+        """The zoo's shapes at batch 8 summed by model (Nano, Tiny at 640
+        and at 416, YOLOv3), one row per conv."""
+        out = {}
+        for m in ("nano", "tiny", "tiny416", "yolov3"):
+            mine = [r for r in rows_ if r["name"].split(".")[0] == m]
+            if mine:
+                out[m] = {"shapes": len(mine),
+                          **{k: sum(r[k] for r in mine) for k in keys}}
+                if variant_key:
+                    out[m]["variants"] = {r["name"]: r[variant_key]
+                                          for r in mine}
+        return {"batch": ZOO_BATCH, **out}
 
     def on_path(kind, batch):
         return [r for r in back_rows if "wgrad_ms" in r and r["batch"] == batch
@@ -2298,9 +2889,11 @@ def main() -> int:
             "launches": train_launches[kind],
             "launches_by_path": {k: c[kind] for k, c in train_paths.items()},
             "max_abs_err": max(back_err[kind]["fp32"],
-                               l_back_err[kind]["fp32"]),
+                               l_back_err[kind]["fp32"],
+                               z_back_err[kind]["fp32"]),
             "max_abs_err_bf16": max(back_err[kind]["bf16"],
-                                    l_back_err[kind]["bf16"]),
+                                    l_back_err[kind]["bf16"],
+                                    z_back_err[kind]["bf16"]),
             # per training step (B=32, 640 px): the main-path shapes summed
             "batch": TRAIN_BATCH,
             "ms": sum(r[f"{kind}_ms"] for r in rows_),
@@ -2339,6 +2932,12 @@ def main() -> int:
                 variants={r["name"]: r[f"{kind}_variant"]
                           for r in l_back_rows
                           if kind == "wgrad" or r["dgrad_on_path"]}),
+            "zoo": zoo([r for r in z_back_rows
+                        if kind == "wgrad" or r["dgrad_on_path"]],
+                       [f"{kind}_{m}" for m in (
+                           "ms", "plain_ms", "bound_ms", "library_ms",
+                           "ms_bf16", "bound_ms_bf16", "library_ms_bf16")],
+                       f"{kind}_variant"),
             "note": source_note,
             "card": smi,
         }
@@ -2348,12 +2947,12 @@ def main() -> int:
         "route": "cuda",
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
-        "launches": by_path["serve"] + by_path["serve_relu"]
-        + by_path["serve_bf16"] + by_path["eval"],
+        "launches": sum(v for k, v in by_path.items()
+                        if k.startswith(("serve", "eval"))),
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
-        "max_abs_err": max(err32, l_err32),
-        "max_abs_err_bf16": max(err16, l_err16),
+        "max_abs_err": max(err32, l_err32, z_err32),
+        "max_abs_err_bf16": max(err16, l_err16, z_err16),
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
         # the conv alone, "ms_fused" with scale, shift and SiLU as served
         "ms": total("ms"),
@@ -2384,6 +2983,10 @@ def main() -> int:
             max_abs_err=l_err32, max_abs_err_bf16=l_err16,
             variants={r["name"]: r["variant"] for r in l_shapes},
             variants_bf16={r["name"]: r["variant_bf16"] for r in l_shapes}),
+        "zoo": zoo(z_shapes, ("ms", "ms_fused", "ms_bf16", "plain_ms",
+                              "bound_ms", "bound_bf16_ms", "library_ms",
+                              "library_bf16_ms", "library_fused_ms"),
+                   "variant"),
         "card": smi,
     }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
                     "stride 1: phase_conv.cu's wgmma_taps on flipped "
@@ -2398,7 +3001,8 @@ def main() -> int:
             "launches": train_launches["pack"],
             "launches_by_path": {k: c["pack"] for k, c in train_paths.items()},
             "max_abs_err": max(r["pack_max_abs_err"]
-                               for r in pack_rows + l_pack_rows),
+                               for r in pack_rows + l_pack_rows
+                               + z_pack_rows),
             # per training step: the 7 data gradients' packings at B=32
             "batch": TRAIN_BATCH,
             "ms": sum(r["pack_ms"] for r in pack_rows),
@@ -2409,6 +3013,8 @@ def main() -> int:
             "shapes": len(pack_rows),
             "yolox_l": yolox_l(l_pack_rows, ("pack_ms", "pack_plain_ms",
                                              "pack_bound_ms")),
+            "zoo": zoo(z_pack_rows, ("pack_ms", "pack_plain_ms",
+                                     "pack_bound_ms")),
             "card": smi,
         },
     ]})
@@ -2419,5 +3025,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-bbox-child"]:
         sys.exit(train_bbox_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--repeat-serve-bbox"]:
+        sys.exit(repeat_serve_bbox(int(sys.argv[2])))
     sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
              else main())

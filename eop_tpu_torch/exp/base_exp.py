@@ -6,6 +6,12 @@ from __future__ import annotations
 
 import ast
 
+import numpy as np
+import torch
+
+from ..data.transforms import letterbox_batch_device
+from ..utils.device import resolve_device
+
 
 class BaseExp:
     def __init__(self):
@@ -22,6 +28,23 @@ class BaseExp:
         if isinstance(mode, int) and not isinstance(mode, bool):
             return mode
         return "exact" if mode == "exact" else 64
+
+    def get_serving_fn(self, model, src_hw, device=None):
+        """One call, uint8 ``[B, *src_hw, 3]`` -> ``Detections`` on
+        ``device``: letterbox to ``test_size`` on the device in fp32, then
+        the family's ``get_infer_fn``: forward, decode and NMS."""
+        device = resolve_device(device)
+        infer = self.get_infer_fn(model, device)
+        src_hw = tuple(int(v) for v in src_hw)
+        test_size = tuple(self.test_size)
+
+        def serve(raw_uint8):
+            with torch.inference_mode():
+                x = torch.as_tensor(np.asarray(raw_uint8)).to(device)
+                imgs, _ = letterbox_batch_device(x.float(), src_hw, test_size)
+                return infer(imgs)
+
+        return serve
 
     def merge(self, cfg_list):
         """Override attributes from alternating key/value strings.  An

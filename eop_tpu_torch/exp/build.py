@@ -10,10 +10,15 @@ name the file imports it under), checks that ``__init__`` calls
 self.test_size = (416, 416)`` included; ``config_name(__file__)`` is the
 file's stem), and applies those assignments to a fresh instance.  Any other
 statement, and an attribute the class does not have (a misspelt or unported
-field), raises, naming its file and line.
+field), raises, naming its file and line.  One method override is read:
+``exps/default/yolov3.py``'s ``get_model``, which builds ``eop_tpu``'s
+``YOLOv3(num_classes=self.num_classes, width=self.width, dtype=...)``; it
+becomes ``model_kind = "yolov3"``.  Any other method raises, naming the
+file, the line and the method.
 
-By name: ``yolox-s``, ``-m``, ``-l``, ``-x`` read ``exps/default/``;
-``yolox_24p_s`` is a preset of :class:`Exp24P`.
+By name: ``yolox-s``, ``-m``, ``-l``, ``-x``, ``-nano``, ``-tiny`` and
+``yolov3`` read ``exps/default/``; ``yolox_24p_s`` is a preset of
+:class:`Exp24P`.
 """
 
 from __future__ import annotations
@@ -32,14 +37,6 @@ PRESETS = {
 # the exp classes a file may subclass, by the name it imports
 FAMILIES = {"Exp": Exp, "Exp24P": Exp24P}
 DEFAULT_EXP_DIR = Path(__file__).resolve().parents[2] / "exps" / "default"
-# names of exps/default the port cannot build yet, and what each needs
-UNPORTED = {
-    "yolox_nano": "depthwise convs (DWConv)",
-    "yolox_tiny": "the 24-channel early convs (width 0.375) held on the "
-                  "card, and the reference's input_scale field; it comes "
-                  "with YOLOX-Nano's DWConv",
-    "yolov3": "Darknet-53 and YOLOFPN (its exp overrides get_model)",
-}
 
 
 def _self_attrs(target, where: str):
@@ -89,6 +86,28 @@ def _is_docstring(stmt) -> bool:
             and isinstance(stmt.value.value, str))
 
 
+def _self_attr(node, name: str) -> bool:
+    return (isinstance(node, ast.Attribute) and node.attr == name
+            and getattr(node.value, "id", None) == "self")
+
+
+def _builds_yolov3(fn) -> bool:
+    """``fn`` imports ``YOLOv3`` from ``eop_tpu.models`` and builds it with
+    ``num_classes=self.num_classes, width=self.width, dtype=...``, once
+    (``exps/default/yolov3.py``'s ``get_model``)."""
+    imports = [a for n in ast.walk(fn) if isinstance(n, ast.ImportFrom)
+               and n.module == "eop_tpu.models" for a in n.names]
+    calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+             and getattr(n.func, "id", None) == "YOLOv3"]
+    if not (fn.name == "get_model" and len(calls) == 1
+            and [(a.name, a.asname) for a in imports] == [("YOLOv3", None)]):
+        return False
+    kw = {k.arg: k.value for k in calls[0].keywords}
+    return (not calls[0].args and set(kw) == {"num_classes", "width", "dtype"}
+            and _self_attr(kw["num_classes"], "num_classes")
+            and _self_attr(kw["width"], "width"))
+
+
 def read_exp_file(exp_file: str):
     """(the port's exp class the file's ``Exp`` subclasses, the ``self``
     attribute assignments of its ``__init__`` in order as {name:
@@ -107,10 +126,19 @@ def read_exp_file(exp_file: str):
     if exp_cls is None:
         raise ValueError(f"{exp_file} has no class named 'Exp'")
     body = [s for s in exp_cls.body if not _is_docstring(s)]
-    if not (len(body) == 1 and isinstance(body[0], ast.FunctionDef)
+    if not (body and isinstance(body[0], ast.FunctionDef)
             and body[0].name == "__init__"):
-        raise ValueError(f"{exp_file}:{exp_cls.lineno}: class Exp must hold "
-                         "only __init__")
+        raise ValueError(f"{exp_file}:{exp_cls.lineno}: class Exp must start "
+                         "with __init__")
+    overrides = {}
+    for fn in body[1:]:
+        if not (isinstance(fn, ast.FunctionDef) and _builds_yolov3(fn)):
+            name = getattr(fn, "name", type(fn).__name__)
+            raise ValueError(
+                f"{exp_file}:{fn.lineno}: method {name!r} of class Exp is not "
+                "read (the port reads __init__, and a get_model that builds "
+                "eop_tpu.models.YOLOv3)")
+        overrides["model_kind"] = "yolov3"
     init = [s for s in body[0].body if not _is_docstring(s)]
     if not init or not _is_super_init(init[0]):
         raise ValueError(f"{exp_file}:{body[0].lineno}: Exp.__init__ must "
@@ -143,6 +171,11 @@ def read_exp_file(exp_file: str):
                 settings.update(zip(names, value))
             else:
                 settings[names[0]] = value
+    for name, value in overrides.items():
+        if name not in known:
+            raise ValueError(f"{exp_file}:{exp_cls.lineno}: {family.__name__}"
+                             f" has no attribute {name!r}")
+        settings[name] = value
     return family, settings
 
 
@@ -162,10 +195,6 @@ def get_exp_by_name(exp_name: str):
             setattr(exp, k, v)
         return exp
     stem = exp_name.replace("-", "_")
-    if stem in UNPORTED:
-        raise NotImplementedError(
-            f"exp {exp_name!r} needs {UNPORTED[stem]}, which the port does "
-            "not have yet (ROADMAP.md queue 1)")
     path = DEFAULT_EXP_DIR / f"{stem}.py"
     if not path.exists():
         known = sorted([*PRESETS, *(p.stem.replace("_", "-") for p in

@@ -8,11 +8,9 @@ from __future__ import annotations
 import random
 from typing import Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..data.transforms import letterbox_batch_device
 from ..eval.postprocess import postprocess_24p_heads
 from ..models.yolox import YOLOX, init_weights
 from ..utils.device import resolve_device, set_fp32_precision
@@ -118,23 +116,6 @@ class Exp24P(BaseExp):
                 )
 
         return infer
-
-    def get_serving_fn(self, model, src_hw, device=None):
-        """One call, uint8 ``[B, *src_hw, 3]`` -> ``Detections`` on
-        ``device``: letterbox to ``test_size`` on the device in fp32, then
-        :meth:`get_infer_fn`'s forward, decode and NMS."""
-        device = resolve_device(device)
-        infer = self.get_infer_fn(model, device)
-        src_hw = tuple(int(v) for v in src_hw)
-        test_size = tuple(self.test_size)
-
-        def serve(raw_uint8):
-            with torch.inference_mode():
-                x = torch.as_tensor(np.asarray(raw_uint8)).to(device)
-                imgs, _ = letterbox_batch_device(x.float(), src_hw, test_size)
-                return infer(imgs)
-
-        return serve
 
     def get_data_input(self, img_path: str):
         """Letterbox one image file for inference: (float32 ``[1,

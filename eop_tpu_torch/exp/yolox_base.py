@@ -1,12 +1,16 @@
-"""The bbox family's experiment: YOLOX-S/M/L/X defaults and the factories
-for the model, the mosaic train loader, multiscale resizing, the optimizer
-with its weight-decay groups, the ``yoloxwarmcos`` schedule, the COCO
-evaluation loader, the evaluator and the fused inference function
-(counterpart of ``eop_tpu/exp/yolox_base.py``).
+"""The bbox family's experiment: YOLOX-S/M/L/X, -Nano, -Tiny and YOLOv3
+defaults and the factories for the model, the mosaic train loader,
+multiscale resizing, the optimizer with its weight-decay groups, the
+``yoloxwarmcos`` schedule, the COCO evaluation loader, the evaluator and the
+fused inference and serving functions (counterpart of
+``eop_tpu/exp/yolox_base.py``).
 
-Not ported yet (each raises where asked for): depthwise convs (YOLOX-Nano
-and -Tiny), backbones other than CSPDarknet, the sharded multi-chip
-inference function."""
+``model_kind`` stands for the one method override of ``exps/default/``:
+``yolov3.py``'s ``get_model``, which builds ``YOLOv3``; the port's ``ast``
+reader maps that override to ``model_kind = "yolov3"``.
+
+Not ported yet (each raises where asked for): backbones other than
+CSPDarknet, the sharded multi-chip inference function."""
 
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..eval.postprocess import postprocess_bbox_heads
-from ..models.yolox import YOLOX, init_weights
+from ..models.yolox import YOLOX, YOLOv3, init_weights
 from ..utils.device import resolve_device, set_fp32_precision
 from .base_exp import BaseExp
 from .yolox_24p_base import COMPUTE_DTYPES
@@ -33,11 +37,16 @@ class Exp(BaseExp):
         self.act = "silu"
         self.backbone_type = "darknet"
         self.depthwise = False
+        # "yolox" or "yolov3" (YOLOFPN over Darknet-53, lrelu head)
+        self.model_kind = "yolox"
         # ---------------- dataloader config ---------------- #
         self.data_num_workers = 4
         self.input_size = (640, 640)  # (height, width)
         self.multiscale_range = 5     # +-range x 32 px
         self.random_size: Optional[tuple] = None
+        # the reference's exps/default/yolox_tiny.py sets this typo of
+        # input_size, which nothing reads: Tiny trains at input_size
+        self.input_scale: Optional[tuple] = None
         self.data_dir = None
         self.train_ann = "instances_train2017.json"
         self.val_ann = "instances_val2017.json"
@@ -89,23 +98,35 @@ class Exp(BaseExp):
     # model and inference
 
     def get_model(self, device=None, seed: int = 0):
-        """YOLOX with a 4-channel box head, in eval mode on ``device`` (the
-        card unless ``"cpu"``), channels_last, with seeded random fp32
-        weights, computing in ``compute_dtype`` and checkpointing its
-        backbone + neck in training where ``remat``."""
+        """The model of ``model_kind`` with a 4-channel box head, in eval
+        mode on ``device`` (the card unless ``"cpu"``), channels_last, with
+        seeded random fp32 weights, computing in ``compute_dtype``.  YOLOX
+        takes ``depthwise`` and checkpoints its backbone + neck in training
+        where ``remat``; YOLOv3 takes ``num_classes``, ``width`` and the
+        dtype, as ``eop_tpu``'s ``yolov3`` exp builds it."""
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port "
                              f"computes in {sorted(COMPUTE_DTYPES)}")
-        if self.depthwise or self.backbone_type != "darknet":
-            raise NotImplementedError(
-                f"depthwise={self.depthwise}, backbone_type="
-                f"{self.backbone_type!r}: the port has CSPDarknet with plain "
-                "convs only (DWConv and other backbones: ROADMAP.md queue 1)")
+        dtype = COMPUTE_DTYPES[self.compute_dtype]
         device = resolve_device(device)
-        model = YOLOX(depth=self.depth, width=self.width,
-                      num_classes=self.num_classes, reg_dim=4, act=self.act,
-                      dtype=COMPUTE_DTYPES[self.compute_dtype],
-                      remat=bool(self.remat))
+        if self.model_kind == "yolov3":
+            if self.remat:
+                raise ValueError("remat: YOLOv3 has no checkpointed trunk "
+                                 "(eop_tpu's neither)")
+            model = YOLOv3(num_classes=self.num_classes, width=self.width,
+                           dtype=dtype)
+        elif self.model_kind != "yolox":
+            raise ValueError(f"model_kind {self.model_kind!r}: expected "
+                             "'yolox' or 'yolov3'")
+        elif self.backbone_type != "darknet":
+            raise NotImplementedError(
+                f"backbone_type {self.backbone_type!r}: the port has "
+                "CSPDarknet only (other backbones: ROADMAP.md queue 1)")
+        else:
+            model = YOLOX(depth=self.depth, width=self.width,
+                          num_classes=self.num_classes, reg_dim=4,
+                          act=self.act, dtype=dtype, remat=bool(self.remat),
+                          depthwise=bool(self.depthwise))
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 

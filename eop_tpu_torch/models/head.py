@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.blocks import BaseConv
+from ..ops.blocks import BaseConv, conv_class
 
 # obj/cls prediction biases start at -log((1 - p) / p)
 PRIOR_PROB = 1e-2
@@ -30,18 +30,20 @@ class YOLOXHead(nn.Module):
     (center xy + 24 radii).  The maps come out in the compute ``dtype``; the
     1x1 predictions keep fp32 weights and biases and, in another ``dtype``,
     add the cast bias to the cast conv's output as flax's
-    ``nn.Conv(dtype=..., param_dtype=float32)`` does."""
+    ``nn.Conv(dtype=..., param_dtype=float32)`` does.  Where ``depthwise``,
+    the 3x3 convs of both branches are ``DWConv``s (the stems stay 1x1)."""
 
     def __init__(self, num_classes: int = 80, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
                  reg_dim: int = 4, act: str = "silu",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, depthwise: bool = False):
         super().__init__()
         self.num_classes = num_classes
         self.reg_dim = reg_dim
         self.dtype = dtype
         conv = dict(act=act, dtype=dtype)
         hidden = int(256 * width)
+        Conv = conv_class(depthwise)
         self.stems = nn.ModuleList()
         self.cls_convs = nn.ModuleList()
         self.reg_convs = nn.ModuleList()
@@ -52,8 +54,8 @@ class YOLOXHead(nn.Module):
             self.stems.append(BaseConv(int(c * width), hidden, 1, **conv))
             for convs in (self.cls_convs, self.reg_convs):
                 convs.append(nn.Sequential(
-                    BaseConv(hidden, hidden, 3, **conv),
-                    BaseConv(hidden, hidden, 3, **conv)))
+                    Conv(hidden, hidden, 3, **conv),
+                    Conv(hidden, hidden, 3, **conv)))
             self.cls_preds.append(nn.Conv2d(hidden, num_classes, 1))
             self.reg_preds.append(nn.Conv2d(hidden, reg_dim, 1))
             self.obj_preds.append(nn.Conv2d(hidden, 1, 1))

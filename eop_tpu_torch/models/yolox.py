@@ -1,4 +1,5 @@
-"""Top-level YOLOX model (counterpart of ``eop_tpu/models/yolox.py``).
+"""Top-level models (counterpart of ``eop_tpu/models/yolox.py``): ``YOLOX``
+and ``YOLOv3``.
 
 ``forward`` returns ``(head_outs, fpn_outs)``: the raw per-scale head maps
 and the neck's 6-tuple, in the compute ``dtype``.  Decode
@@ -23,7 +24,7 @@ from .head import (
     flatten_head_outputs,
     make_grids_and_strides,
 )
-from .pafpn import YOLOPAFPN
+from .pafpn import YOLOFPN, YOLOPAFPN
 
 
 def _remat_contexts():
@@ -37,23 +38,25 @@ class YOLOX(nn.Module):
     ``head`` as in the reference.
 
     ``dtype`` is the compute dtype of every conv (``ops/blocks.py``).
-    ``remat`` checkpoints the backbone + neck, not the head (JAX:
-    ``nn.remat(YOLOPAFPN)``): in train mode under autograd their activations
-    are not kept but recomputed in the backward, which launches the early
-    convs' forward kernel a second time; the recompute leaves BatchNorm's
-    running statistics alone, so a step updates them once, as JAX's
-    functional remat does.
+    ``depthwise`` makes the 3x3 convs of backbone, neck and head ``DWConv``s
+    (YOLOX-Nano).  ``remat`` checkpoints the backbone + neck, not the head
+    (JAX: ``nn.remat(YOLOPAFPN)``): in train mode under autograd their
+    activations are not kept but recomputed in the backward, which launches
+    the early convs' forward kernel a second time; the recompute leaves
+    BatchNorm's running statistics alone, so a step updates them once, as
+    JAX's functional remat does.
     """
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  num_classes: int = 80, reg_dim: int = 4,
                  in_channels: Sequence[int] = (256, 512, 1024),
                  act: str = "silu", dtype: torch.dtype = torch.float32,
-                 remat: bool = False):
+                 remat: bool = False, depthwise: bool = False):
         super().__init__()
-        self.backbone = YOLOPAFPN(depth, width, in_channels, act, dtype)
+        self.backbone = YOLOPAFPN(depth, width, in_channels, act, dtype,
+                                  depthwise)
         self.head = YOLOXHead(num_classes, width, in_channels, reg_dim, act,
-                              dtype)
+                              dtype, depthwise)
         self.remat = remat
 
     def forward(self, x):
@@ -63,6 +66,26 @@ class YOLOX(nn.Module):
         else:
             fpn_outs = self.backbone(x)
         return self.head(fpn_outs[:3]), fpn_outs
+
+
+class YOLOv3(nn.Module):
+    """YOLOFPN(Darknet) -> the box head with lrelu over its 128 / 256 / 512
+    channels (``eop_tpu``'s ``YOLOv3``, the ``yolov3`` exp's model).
+    ``forward`` returns ``(head_outs, fpn_outs)`` as :class:`YOLOX` does,
+    ``fpn_outs`` the neck's 3-tuple."""
+
+    IN_CHANNELS = (128, 256, 512)
+
+    def __init__(self, num_classes: int = 80, width: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = YOLOFPN(53, dtype)
+        self.head = YOLOXHead(num_classes, width, self.IN_CHANNELS, 4,
+                              "lrelu", dtype)
+
+    def forward(self, x):
+        fpn_outs = self.backbone(x)
+        return self.head(fpn_outs), fpn_outs
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:

@@ -175,6 +175,9 @@ def maxpool_same(x: torch.Tensor, ksize: int) -> torch.Tensor:
 class BaseConv(nn.Module):
     """Conv2d -> BatchNorm -> ``act``, torch-"same" padding ``(k-1)//2``.
 
+    ``groups`` > 1 is a grouped convolution (``DWConv``'s depthwise one),
+    always ``F.conv2d``: ``eop_tpu`` computes it with XLA's
+    ``feature_group_count``, never in Pallas.
     ``phase_conv`` routes the convolution through the ``phase_conv`` kernel.
     The kernel's HWIO weight (in ``dtype``) and the folded BatchNorm are
     derived from the parameters once and cached while the module runs in
@@ -184,19 +187,21 @@ class BaseConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, act: str = "silu", phase_conv: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
         super().__init__()
+        if phase_conv and groups != 1:
+            raise ValueError("phase_conv computes ungrouped convolutions only")
         self.conv = nn.Conv2d(in_channels, out_channels, ksize, stride,
-                              (ksize - 1) // 2, bias=False)
+                              (ksize - 1) // 2, groups=groups, bias=False)
         self.bn = BatchNorm2d(out_channels, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = get_activation(act)
         self.act_name = act
         self.phase_conv = phase_conv
         self.dtype = dtype
-        self._hwio_key = None
-        self._hwio_cached = None
-        self._bn_key = None
-        self._bn_cached = None
+        # (key, value) pairs, each replaced by one assignment, so that a
+        # thread reading a cache never pairs a key with another key's value
+        self._hwio_cache = (None, None)
+        self._bn_cache = (None, None)
 
     def conv_args(self):
         """(OIHW weight in ``dtype``, stride, padding) of the convolution
@@ -211,12 +216,13 @@ class BaseConv(nn.Module):
         key = (p.data_ptr(), p._version, self.dtype)
         # the cached tensor carries no graph: only for eval without autograd
         cacheable = not self.training and not torch.is_grad_enabled()
-        if cacheable and self._hwio_key == key:
-            return self._hwio_cached
+        cached_key, cached = self._hwio_cache
+        if cacheable and cached_key == key:
+            return cached
         w, stride, pad = self.conv_args()
         args = (w.permute(2, 3, 1, 0).contiguous(), stride, pad)
         if cacheable:
-            self._hwio_key, self._hwio_cached = key, args
+            self._hwio_cache = (key, args)
         return args
 
     def _folded_bn(self):
@@ -226,13 +232,15 @@ class BaseConv(nn.Module):
         bn = self.bn
         key = tuple((t.data_ptr(), t._version) for t in (
             bn.weight, bn.bias, bn.running_mean, bn.running_var))
-        if self._bn_key != key:
-            scale = bn.weight.float() * torch.rsqrt(
-                bn.running_var.float() + bn.eps)
-            shift = bn.bias.float() - bn.running_mean.float() * scale
-            self._bn_key = key
-            self._bn_cached = (scale.contiguous(), shift.contiguous())
-        return self._bn_cached
+        cached_key, cached = self._bn_cache
+        if cached_key == key:
+            return cached
+        scale = bn.weight.float() * torch.rsqrt(
+            bn.running_var.float() + bn.eps)
+        shift = bn.bias.float() - bn.running_mean.float() * scale
+        folded = (scale.contiguous(), shift.contiguous())
+        self._bn_cache = (key, folded)
+        return folded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -248,26 +256,65 @@ class BaseConv(nn.Module):
             y = _phase_conv(x_nhwc, w, stride, pad).permute(0, 3, 1, 2)
         else:
             w, stride, pad = self.conv_args()
-            y = F.conv2d(x, w, None, stride, pad)
+            y = F.conv2d(x, w, None, stride, pad, groups=self.conv.groups)
         return self.act(self.bn(y))
+
+
+class DWConv(nn.Module):
+    """Depthwise conv + pointwise conv (reference ``DWConv``): ``dconv`` is
+    the ``ksize`` conv grouped by channel (``F.conv2d``), ``pconv`` the 1x1
+    conv, which takes ``phase_conv`` where asked."""
+
+    def __init__(self, in_channels: int, out_channels: int, ksize: int,
+                 stride: int = 1, act: str = "silu", phase_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dconv = BaseConv(in_channels, in_channels, ksize, stride,
+                              act=act, dtype=dtype, groups=in_channels)
+        self.pconv = BaseConv(in_channels, out_channels, 1, act=act,
+                              phase_conv=phase_conv, dtype=dtype)
+
+    def forward(self, x):
+        return self.pconv(self.dconv(x))
+
+
+def conv_class(depthwise: bool):
+    """The 3x3 conv of a block: :class:`DWConv` where ``depthwise``."""
+    return DWConv if depthwise else BaseConv
 
 
 class Bottleneck(nn.Module):
     """Bottleneck (reference ``Bottleneck`` as CSPLayer builds it:
-    expansion 1.0, channels in == out)."""
+    expansion 1.0, channels in == out; ``conv2`` a :class:`DWConv` where
+    ``depthwise``)."""
 
     def __init__(self, channels: int, shortcut: bool = True,
                  act: str = "silu", phase_conv: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, depthwise: bool = False):
         super().__init__()
         conv = dict(act=act, phase_conv=phase_conv, dtype=dtype)
         self.conv1 = BaseConv(channels, channels, 1, **conv)
-        self.conv2 = BaseConv(channels, channels, 3, **conv)
+        self.conv2 = conv_class(depthwise)(channels, channels, 3, **conv)
         self.use_add = shortcut
 
     def forward(self, x):
         y = self.conv2(self.conv1(x))
         return y + x if self.use_add else y
+
+
+class ResLayer(nn.Module):
+    """YOLOv3's residual layer (reference ``ResLayer``): a 1x1 conv to half
+    the channels, a 3x3 conv back, both lrelu, plus the input."""
+
+    def __init__(self, channels: int, phase_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        conv = dict(act="lrelu", phase_conv=phase_conv, dtype=dtype)
+        self.layer1 = BaseConv(channels, channels // 2, 1, **conv)
+        self.layer2 = BaseConv(channels // 2, channels, 3, **conv)
+
+    def forward(self, x):
+        return x + self.layer2(self.layer1(x))
 
 
 class SPPBottleneck(nn.Module):
@@ -297,11 +344,13 @@ class SPPBottleneck(nn.Module):
 
 class CSPLayer(nn.Module):
     """C3 CSP bottleneck with 3 convs (reference ``CSPLayer``, expansion
-    0.5)."""
+    0.5; the bottlenecks' 3x3 convs are :class:`DWConv` where
+    ``depthwise``)."""
 
     def __init__(self, in_channels: int, out_channels: int, n: int = 1,
                  shortcut: bool = True, act: str = "silu",
-                 phase_conv: bool = False, dtype: torch.dtype = torch.float32):
+                 phase_conv: bool = False, dtype: torch.dtype = torch.float32,
+                 depthwise: bool = False):
         super().__init__()
         hidden = out_channels // 2
         conv = dict(act=act, phase_conv=phase_conv, dtype=dtype)
@@ -309,7 +358,8 @@ class CSPLayer(nn.Module):
         self.conv2 = BaseConv(in_channels, hidden, 1, **conv)
         self.conv3 = BaseConv(2 * hidden, out_channels, 1, **conv)
         self.m = nn.Sequential(*(
-            Bottleneck(hidden, shortcut, **conv) for _ in range(n)))
+            Bottleneck(hidden, shortcut, depthwise=depthwise, **conv)
+            for _ in range(n)))
 
     def forward(self, x):
         x1 = self.m(self.conv1(x))

@@ -1,5 +1,6 @@
 """DetectionService: images in, detection dicts out, batched on the device
-(counterpart of ``eop_tpu/serving/service.py``).
+(counterpart of ``eop_tpu/serving/service.py``), for both families: a bbox
+exp's rows become ``bbox`` dicts, a 24p exp's polygons.
 
 Wraps the fused serving function (``exp.get_serving_fn``: uint8 letterbox
 + forward + decode + NMS) behind a ``DynamicBatcher``:
@@ -134,23 +135,34 @@ class DetectionService:
 
     def _to_dicts(self, rows: np.ndarray, valid: np.ndarray,
                   host_ratio: float) -> List[dict]:
-        """24p rows ``[x, y, r1..r24, obj, cls_conf, cls]`` -> dicts."""
+        """Rows -> dicts, by the rows' width: 7 is the bbox family's ``[x1,
+        y1, x2, y2, obj, cls_conf, cls]`` (a ``bbox``), 29 the 24p family's
+        ``[x, y, r1..r24, obj, cls_conf, cls]`` (``center``, ``radii``,
+        ``points``)."""
         ratio = self.dev_ratio * host_ratio
+        d = rows.shape[-1]
+        if d not in (7, 29):
+            raise ValueError(f"detection rows of width {d}: expected 7 "
+                             "(bbox) or 29 (24p)")
         out = []
         for row in rows[valid.astype(bool)]:
-            obj, cls_conf, cls_id = float(row[26]), float(row[27]), int(row[28])
-            center = row[:2] / ratio
-            radii = row[2:26] / ratio
+            obj, cls_conf, cls_id = (float(row[d - 3]), float(row[d - 2]),
+                                     int(row[d - 1]))
             det = {
                 "class_id": cls_id,
                 "score": obj * cls_conf,
                 "obj": obj,
                 "cls_conf": cls_conf,
-                "center": center.tolist(),
-                "radii": radii.tolist(),
-                "points": _polygon_points(center, radii).tolist(),
             }
             if self.class_names:
                 det["class_name"] = self.class_names[cls_id]
+            if d == 7:
+                det["bbox"] = (row[:4] / ratio).tolist()
+            else:
+                center = row[:2] / ratio
+                radii = row[2:26] / ratio
+                det["center"] = center.tolist()
+                det["radii"] = radii.tolist()
+                det["points"] = _polygon_points(center, radii).tolist()
             out.append(det)
         return out

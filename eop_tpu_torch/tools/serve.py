@@ -1,13 +1,18 @@
 """Detection server: dynamic batching over the fused serving function.
 
-    python -m eop_tpu_torch.tools.serve [-n yolox_24p_s | -f exp.py] \
-        [-w model.pth] [--device cuda] [--batch 8] [--src-hw 720,1280] \
-        [--port 8000] [key value ...]
+    python -m eop_tpu_torch.tools.serve [-n yolox_24p_s | -n yolox-l | \
+        -f exp.py] [-w model.pth] [--device cuda] [--batch 8] \
+        [--src-hw 720,1280] [--port 8000] [key value ...]
 
-``-f`` reads an exp file (e.g. ``load_eval/yolox_24p_eval.py``) without
-importing it (``exp/build.py``) and takes precedence over ``-n``.  ``-w``
-takes a PyTorch state_dict in the reference's key names (loaded strictly);
-without it the model serves seeded random weights.  Trailing ``key value``
+``-n`` names the 24p preset ``yolox_24p_s`` (the default) or a bbox exp of
+``exps/default/`` (``yolox-s|m|l|x|nano|tiny``, ``yolov3``); ``-f`` reads an
+exp file of either family (e.g. ``load_eval/yolox_24p_eval.py``) without
+importing it (``exp/build.py``) and takes precedence over ``-n``.  The exp's
+family decides the answer: a bbox exp's detections carry ``bbox``, a 24p
+exp's ``center``, ``radii`` and ``points``.  ``-w`` takes the port's
+checkpoint (its EMA weights where it has them) or a PyTorch state_dict in
+the reference's key names, loaded strictly; without it the model serves
+seeded random weights.  Trailing ``key value``
 pairs override exp attributes (e.g. ``test_conf 0.3``, ``compute_dtype
 bfloat16``).
 
@@ -29,7 +34,8 @@ def make_parser():
     p.add_argument("-f", "--exp_file", type=str, default=None,
                    help="exp file (takes precedence over -n)")
     p.add_argument("-w", "--weights", type=str, default=None,
-                   help="PyTorch state_dict (.pth) in reference key names")
+                   help="the port's checkpoint or a reference-keyed "
+                        "state_dict (.pth)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--src-hw", type=str, default=None,
@@ -52,20 +58,25 @@ def parse_hw(text: str):
     return parts
 
 
-def build_service(args):
-    import torch
-
-    from ..data.coco_classes import COCO_CLASSES
+def load_exp(args):
+    """The exp ``-f`` / ``-n`` names, with the trailing overrides."""
     from ..exp import get_exp
-    from ..serving.service import DetectionService
 
     exp = get_exp(args.exp_file, args.name)
     if args.opts:
         exp.merge(args.opts)
+    return exp
+
+
+def build_service(args):
+    from ..data.coco_classes import COCO_CLASSES
+    from ..serving.service import DetectionService
+    from .eval import eval_weights
+
+    exp = load_exp(args)
     model = exp.get_model(args.device)
     if args.weights:
-        sd = torch.load(args.weights, map_location="cpu", weights_only=True)
-        model.load_state_dict(sd, strict=True)
+        model.load_state_dict(eval_weights(args.weights), strict=True)
     else:
         print("WARNING: serving RANDOM weights (seed 0, no -w) — smoke use "
               "only", flush=True)

@@ -4,6 +4,13 @@ The port's own copy of ``eop_tpu/utils/torch_export.py`` (the port imports
 nothing of ``eop_tpu``): the same rename table and layout transforms, so a
 checkpoint trained by the JAX package, or its freshly initialised variables
 in the parity tests, loads into the port's modules with ``strict=True``.
+
+YOLOv3 (classic Darknet + YOLOFPN) has names of its own: ``eop_tpu`` maps
+them one way only, reference -> flax (``torch_import.py::map_yolofpn_key``),
+and ``torch_export.py`` has no inverse.  :func:`unmap_yolofpn_key` is that
+inverse; a tree is YOLOv3's when it has Darknet's ``stem_group``.  A
+``DWConv``'s ``dconv`` / ``pconv`` carry the same names in both packages and
+its grouped kernel ``[k, k, 1, C]`` transposes to torch's ``[C, 1, k, k]``.
 """
 
 from __future__ import annotations
@@ -32,6 +39,21 @@ _INVERSE_RENAMES = [
 ]
 
 
+# classic Darknet (YOLOv3's backbone) and YOLOFPN: flax names -> the
+# reference's positional Sequential indices; dark5 is handled apart
+_INVERSE_RENAMES_YOLOFPN = [
+    (r"\bstem_conv\.", r"stem.0."),
+    (r"\bstem_group\.conv\.", r"stem.1."),
+    (r"\bstem_group\.res_(\d+)\.", lambda m: f"stem.{int(m.group(1)) + 2}."),
+    (r"\bdark(\d)\.conv\.", r"dark\1.0."),
+    (r"\bdark(\d)\.res_(\d+)\.",
+     lambda m: f"dark{m.group(1)}.{int(m.group(2)) + 1}."),
+    (r"\bout(\d)\.cbl(\d)\.", r"out\1.\2."),
+]
+# the SPP block's five entries follow dark5's stride conv and ResLayers
+_SPP_BLOCK = ("conv0", "conv1", "spp", "conv2", "conv3")
+
+
 def unmap_key(path: str) -> str:
     """Flax dotted path prefix -> torch dotted key prefix (the patterns
     anchor on a trailing dot, so a final component rewrites too)."""
@@ -39,6 +61,37 @@ def unmap_key(path: str) -> str:
     for pat, repl in _INVERSE_RENAMES:
         path = re.sub(pat, repl, path)
     return path[:-1]
+
+
+def unmap_yolofpn_key(path: str, dark5_res: int) -> str:
+    """A YOLOv3 flax dotted path prefix -> torch dotted key prefix;
+    ``dark5_res`` is the number of ResLayers in dark5 (4 at depth 53, 1 at
+    21), which places the SPP block's entries after them."""
+    path = path + "."
+
+    def dark5(m):
+        group, name = m.group(1), m.group(2)
+        if group == "group":
+            i = 0 if name == "conv" else int(name[len("res_"):]) + 1
+        else:
+            i = 1 + dark5_res + _SPP_BLOCK.index(name)
+        return f"dark5.{i}."
+
+    path = re.sub(r"\bdark5_(group|spp)\.(conv\d?|spp|res_\d+)\.", dark5,
+                  path)
+    for pat, repl in _INVERSE_RENAMES_YOLOFPN + _INVERSE_RENAMES:
+        path = re.sub(pat, repl, path)
+    return path[:-1]
+
+
+def _unmapper(paths):
+    """The prefix renamer for a tree's dotted paths: YOLOv3's where the
+    tree has Darknet's ``stem_group``, else the YOLOX one."""
+    if not any(".stem_group." in f".{p}." for p in paths):
+        return unmap_key
+    res = {int(m.group(1)) for p in paths
+           for m in [re.search(r"\bdark5_group\.res_(\d+)\b", p)] if m}
+    return lambda path: unmap_yolofpn_key(path, len(res))
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -60,8 +113,10 @@ def state_dict_from_jax(variables: Mapping[str, Mapping]
     """
     out: Dict[str, torch.Tensor] = {}
     bn_prefixes = set()
+    unmap = _unmapper([".".join(path) for tree in variables.values()
+                       for path, _ in _walk(tree)])
     for path, v in _walk(variables.get("params", {})):
-        prefix = unmap_key(".".join(path[:-1]))
+        prefix = unmap(".".join(path[:-1]))
         leaf = path[-1]
         if leaf == "kernel" and v.ndim == 4:
             out[f"{prefix}.weight"] = v.transpose(3, 2, 0, 1)
@@ -72,7 +127,7 @@ def state_dict_from_jax(variables: Mapping[str, Mapping]
         else:
             raise ValueError(f"unexpected param leaf {leaf!r} at {prefix}")
     for path, v in _walk(variables.get("batch_stats", {})):
-        prefix = unmap_key(".".join(path[:-1]))
+        prefix = unmap(".".join(path[:-1]))
         leaf = path[-1]
         if leaf == "mean":
             out[f"{prefix}.running_mean"] = v

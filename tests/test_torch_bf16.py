@@ -39,6 +39,18 @@ from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
 from eop_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_models import nchw, perturbed
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIZE, BATCH, CLASSES = 64, 2, 3
 MODEL = dict(depth=0.33, width=0.25, num_classes=CLASSES, reg_dim=26)
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -151,7 +163,7 @@ def test_bf16_eval_fused_path_against_the_unfused_path(common, act):
         fused = heads_np(model(nchw(x))[0])
     early = [m for m in model.modules() if getattr(m, "phase_conv", False)]
     assert len(early) == 8
-    assert all((m._bn_cached is not None) == (act == "silu") for m in early)
+    assert all((m._bn_cache[1] is not None) == (act == "silu") for m in early)
     with torch.enable_grad():
         unfused = heads_np(model(nchw(x))[0])
     for g, w in zip(fused, unfused):

@@ -20,6 +20,18 @@ from eop_tpu_torch.train.checkpoint import load_checkpoint
 from eop_tpu_torch.train.trainer_24p import Trainer24P
 from eop_tpu_torch.utils.synth import write_24p_dataset
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 TINY = ["depth", "0.33", "width", "0.25", "num_classes", "3",
         "input_size", "(64, 64)", "test_size", "(64, 64)",

@@ -11,6 +11,18 @@ from eop_tpu.exp import get_exp as j_get_exp
 from eop_tpu_torch.exp import Exp24P, get_exp
 from eop_tpu_torch.exp.build import read_exp_file
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 
 

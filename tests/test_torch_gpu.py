@@ -166,7 +166,7 @@ def test_model_on_card_matches_cpu(cuda):
         launched = pc.phase_conv.launches - before
         assert launched == (8 if dev == "cuda" else 0)
         # eval mode without autograd: BN and SiLU ran in the kernels' epilogue
-        assert all(m._bn_cached is not None for m in model.modules()
+        assert all(m._bn_cache[1] is not None for m in model.modules()
                    if getattr(m, "phase_conv", False) is True)
     for g, c in zip(heads["cuda"], heads["cpu"]):
         np.testing.assert_allclose(g.numpy(), c.numpy(), atol=1e-3, rtol=1e-3)
@@ -807,3 +807,151 @@ def test_bbox_train_step_on_card_matches_cpu(cuda):
     for n, g in g_cpu.items():
         bound = 1e-3 * max(g.abs().max().item(), 1e-12)
         assert (g_gpu[n] - g).abs().max().item() <= bound, n
+
+
+# ---- YOLOX-Nano, YOLOX-Tiny, YOLOv3 and bbox serving ----
+
+# (shape, forward, wgrad, dgrad variant): each new early-conv shape at a
+# tenth of its size (Tiny 640 / 416 px, Nano 416 px, YOLOv3 640 px); the
+# channel counts decide the variants
+ZOO_SHAPES = [
+    ((6, 2, 2, 42, 42, 3, 16), "direct", "cuda_cores", "cuda_cores"),
+    ((1, 1, 0, 10, 10, 16, 32), "direct", "cuda_cores", "cuda_cores"),
+    ((1, 1, 0, 10, 10, 32, 16), "direct", "cuda_cores", "cuda_cores"),
+    ((1, 1, 0, 6, 6, 32, 64), "wgmma_taps", "wgmma", "flipped:wgmma_taps"),
+    ((6, 2, 2, 64, 64, 3, 24), "direct", "cuda_cores", "cuda_cores"),
+    ((3, 2, 1, 32, 32, 24, 48), "direct", "cuda_cores", "cuda_cores"),
+    ((3, 1, 1, 16, 16, 24, 24), "direct", "cuda_cores", "cuda_cores"),
+    ((3, 2, 1, 16, 16, 48, 96), "direct", "cuda_cores", "cuda_cores"),
+    ((3, 1, 1, 64, 64, 3, 32), "direct", "wgmma", "cuda_cores"),
+    ((3, 2, 1, 64, 64, 32, 64), "wgmma_taps", "wgmma", "wgmma_classes"),
+    ((3, 2, 1, 16, 16, 128, 256), "direct", "cuda_cores", "wgmma_classes"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+def test_zoo_shapes_take_their_variants(cuda, dtype, tol):
+    """Nano's, Tiny's and YOLOv3's early convs: forward (with and without
+    the fused epilogue), weight and data gradient against their plain
+    versions, each on the variant its channels give."""
+    tdt = getattr(torch, dtype)
+    for i, (shape, fwd, wg, dg) in enumerate(ZOO_SHAPES):
+        k, s, p, h, w, c, co = shape
+        x, wgt, scale, shift = _case(i, shape, tdt, cuda)
+        _assert_kernel_matches_plain(x, wgt, s, p, tol)
+        assert pc.phase_conv.last_variant == fwd, shape
+        _assert_kernel_matches_plain(x, wgt, s, p, tol, scale=scale,
+                                     shift=shift, act="silu")
+        ho, wo = pc.out_hw(h, w, k, s, p)
+        dy = torch.randn((2, ho, wo, co), device=cuda).to(tdt)
+        for got, want, what in (
+                (pc.phase_conv_wgrad(x, dy, k, s, p),
+                 pc.phase_conv_wgrad_reference(x, dy, k, s, p), "wgrad"),
+                (pc.phase_conv_dgrad(dy, wgt, x.shape, s, p),
+                 pc.phase_conv_dgrad_reference(dy, wgt, x.shape, s, p),
+                 "dgrad")):
+            bound = tol * max(1.0, want.float().abs().max().item())
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= bound, (shape, what, err, bound)
+        assert pc.phase_conv.last_wgrad_variant == wg, shape
+        assert pc.phase_conv.last_dgrad_variant == dg, shape
+
+
+def _zoo_exp(kind):
+    from eop_tpu_torch.exp import Exp
+
+    exp = Exp()
+    exp.num_classes, exp.test_size, exp.test_conf = 3, (64, 64), 1e-5
+    if kind == "nano":
+        exp.depth, exp.width, exp.depthwise = 0.33, 0.25, True
+    else:
+        exp.model_kind = "yolov3"
+    return exp
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,launches,fused", [("nano", 8, 8),
+                                                 ("yolov3", 10, 0)])
+def test_zoo_serving_on_card_matches_cpu(cuda, kind, launches, fused):
+    """The bbox serving function of Nano (DWConv: the pconvs take the
+    kernel, fused) and of YOLOv3 (lrelu: unfused) on the card against the
+    CPU at a canvas other than test_size: the same detections, each box
+    within 1e-2 px of one of the CPU's of its class (seeded weights score
+    every anchor near the 1e-4 prior, so near-equal scores may take
+    another order).  The box-regression weights are scaled by 1e-2 on both
+    devices: at seeded weights YOLOv3's lrelu trunk gives raw regressions
+    near 60, boxes e^60 strides wide, which would hold only saturated
+    exponentials to the bound; scaled, every box lies within the canvas's
+    reach."""
+    exp = _zoo_exp(kind)
+    raw = np.random.RandomState(4).randint(0, 256, (2, 48, 80, 3), np.uint8)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = exp.get_model(dev, seed=3)
+        with torch.no_grad():
+            for p in model.head.reg_preds:
+                p.weight.mul_(1e-2)
+        before = (pc.phase_conv.launches, pc.phase_conv.fused_launches)
+        dets = exp.get_serving_fn(model, (48, 80), dev)(raw)
+        torch.cuda.synchronize()
+        out[str(dev)] = (dets.rows.cpu(), dets.valid.cpu(),
+                         pc.phase_conv.launches - before[0],
+                         pc.phase_conv.fused_launches - before[1])
+    rows_c, valid_c, n_c, _ = out["cpu"]
+    rows_g, valid_g, n_g, f_g = out["cuda"]
+    assert n_c == 0 and (n_g, f_g) == (launches, fused)
+    assert torch.equal(valid_c, valid_g) and valid_c.sum() > 0
+    assert rows_c[valid_c][:, :4].abs().max().item() <= 4 * 80
+    for b in range(rows_c.shape[0]):
+        got, want = rows_g[b][valid_g[b]], rows_c[b][valid_c[b]]
+        dist = (got[:, None, :4] - want[None, :, :4]).abs().amax(dim=-1)
+        dist[got[:, None, 6] != want[None, :, 6]] = float("inf")
+        assert dist.amin(dim=1).max().item() <= 1e-2
+        assert dist.amin(dim=0).max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,name", [("nano", "yolox-nano"),
+                                       ("yolov3", "yolov3")])
+def test_zoo_train_step_on_card_matches_cpu(cuda, kind, name):
+    """One bbox step of Nano and of YOLOv3 (128 px, B=2) on the card and on
+    the CPU from one state: the same foreground count, the loss within
+    1e-4; launches forward / wgrad / dgrad / packing as the smoke's table
+    of each conv's variants gives them."""
+    import chip_smoke
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+
+    exp = _zoo_exp(kind)
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (2, 128, 128, 3)).astype(
+        np.float32))
+    labels = torch.zeros((2, 50, 5))
+    for b in range(2):
+        for g in range(4):
+            w, h = rng.uniform(12, 50, 2)
+            labels[b, g] = torch.tensor([rng.randint(3),
+                                         rng.uniform(w, 128 - w),
+                                         rng.uniform(h, 128 - h), w, h])
+    counters = ("launches", "wgrad_launches", "dgrad_launches",
+                "pack_launches")
+    out = {}
+    for dev in ("cpu", cuda):
+        model = exp.get_model(dev, seed=0).train()
+        state = create_train_state(model, exp.get_optimizer(model, 2, 1))
+        before = [getattr(pc.phase_conv, c) for c in counters]
+        step = make_train_step_bbox(YoloxLossConfig(num_classes=3))
+        _, metrics = step(state, imgs.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        out[str(dev)] = (metrics, tuple(getattr(pc.phase_conv, c) - b
+                                        for c, b in zip(counters, before)))
+    (m_cpu, n_cpu), (m_gpu, n_gpu) = out["cpu"], out["cuda"]
+    want = chip_smoke.step_launches(name)
+    assert n_cpu == (0, 0, 0, 0)
+    assert n_gpu == tuple(want[k] for k in ("forward", "wgrad", "dgrad",
+                                            "pack"))
+    assert m_gpu["num_fg"].item() == m_cpu["num_fg"].item() > 0
+    assert abs(m_gpu["total_loss"].item() - m_cpu["total_loss"].item()) <= \
+        1e-4 * abs(m_cpu["total_loss"].item())

@@ -22,6 +22,18 @@ from eop_tpu_torch.models.head import make_grids_and_strides as t_grids
 from eop_tpu_torch.ops import circle_iou as t_circ
 from eop_tpu_torch.ops import polygon as t_poly
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # both packages export a function under the name of its module
 j_iou = import_module("eop_tpu.losses.iou_loss")
 j_l24 = import_module("eop_tpu.losses.loss_24p")

@@ -14,6 +14,18 @@ import jax.numpy as jnp
 from eop_tpu_torch.ops import phase_conv as pc
 from eop_tpu_torch.ops.blocks import BaseConv, Focus
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the 8 convs of the 24p-s main path (width 0.5) at 1/10 of 640 px, then
 # ragged shapes: (k, stride, padding, H, W, C, Co)
 SHAPES = {

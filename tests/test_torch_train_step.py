@@ -61,6 +61,18 @@ from eop_tpu_torch.utils.weights import (
 
 from importlib import import_module
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 j_l24 = import_module("eop_tpu.losses.loss_24p")
 
 SIZE, BATCH, CLASSES = 128, 2, 3

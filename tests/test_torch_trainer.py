@@ -26,6 +26,18 @@ from eop_tpu_torch.train.trainer_24p import Trainer24P
 from eop_tpu_torch.utils.metric import CandidateDropMonitor
 from eop_tpu_torch.utils.synth import synthetic_24p_batch, write_24p_dataset
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the test workers share the host's cores, and
+    PyTorch's default of a thread per core in each worker oversubscribes
+    them (tests/test_torch_bbox_step.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SIZE, BATCH, ITERS = 64, 2, 3
 
 
