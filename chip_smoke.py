@@ -65,9 +65,9 @@
 14. drops the training loader with batches in flight a few more times;
 15. the bbox family at full width, YOLOX-L (depth 1.0, width 1.0, 80
     classes, 640 px): holds the kernels at YOLOX-L's 12 early-conv shapes
-    (batch 8; the stem and dark3's down conv on the CUDA-core ``direct``
-    forward and ``cuda_cores`` weight gradient) against their plain
-    versions beside cuDNN (with 3 and 7); writes a seeded COCO-format
+    (batch 8; every one on a tensor-core forward and weight gradient) against
+    their plain versions beside cuDNN and the CUDA-core kernels they replaced
+    (with 3 and 7); writes a seeded COCO-format
     dataset (64 train and 16 val 720x1280 baseline JPEGs, 1-4 rectangles,
     80 classes); trains YOLOX-L from it with ``python -m
     eop_tpu_torch.tools.train -n yolox-l -b 8`` as a subprocess for a
@@ -78,11 +78,13 @@
     eop_tpu_torch.tools.eval -n yolox-l`` on the checkpoint (AP line) and a
     label oracle through ``COCOEvaluator`` (AP 1); drops the mosaic loader
     with batches in flight;
-16. YOLOX-Nano, YOLOX-Tiny and YOLOv3: holds the kernels at every new
-    early-conv shape (batch 8: Nano's 416 px, Tiny's 640 px trained and 416
-    px served, YOLOv3's 640 px; forward with and without the epilogue,
-    weight and data gradient, fp32 and bf16) against their plain versions
-    beside cuDNN (with 3 and 7); serves YOLOX-L with ``tools.serve -n
+16. YOLOX-Nano, YOLOX-Tiny, YOLOv3, YOLOX-M and YOLOX-X: holds the kernels
+    at every early-conv shape (batch 8: Nano's 416 px, Tiny's 640 px
+    trained and 416 px served, YOLOv3's, M's and X's 640 px; forward with
+    and without the epilogue, weight and data gradient, fp32 and bf16)
+    against their plain versions beside cuDNN and the CUDA-core kernels
+    (with 3 and 7; M and X are held only here); serves YOLOX-L with
+    ``tools.serve -n
     yolox-l --batch 8`` behind the HTTP front end (32 raw frames from 16
     clients, four alone and a JPEG body; ``bbox`` answers against direct
     calls; 12
@@ -93,7 +95,10 @@
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
     at Tiny's 416 px (AP 1); one YOLOv3 and one Nano step on the card
     against the CPU;
-17. checks that no loader worker died in any of the file phases.
+17. checks that no loader worker died in any of the file phases, that no
+    path launched the CUDA-core ``cuda_cores`` weight gradient, and no path
+    but Nano's the CUDA-core ``direct`` forward (Nano's 16-channel 1x1 convs
+    keep it: ``ops/phase_conv.py::SMALL_1X1``).
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
 phase, N times in one process, one line a run.
@@ -115,6 +120,7 @@ non-zero, printing no result, where there is no card or no ``eop_tpu_torch``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -164,7 +170,7 @@ MAIN_PATH = [
 # and dark3's down conv; with the forward, weight-gradient and data-gradient
 # variant each takes (None: no data gradient, the stem's input is the image)
 YOLOX_L_PATH = (
-    [("l.stem", (6, 2, 2, 640, 640, 3, 64), "direct", "cuda_cores", None),
+    [("l.stem", (6, 2, 2, 640, 640, 3, 64), "wgmma_rows", "wgmma", None),
      ("l.dark2_conv", (3, 2, 1, 320, 320, 64, 128), "wgmma_taps", "wgmma",
       "wgmma_classes")]
     + [(f"l.dark2_csp.{n}", (1, 1, 0, 160, 160, 128, 64), "wgmma_taps",
@@ -174,8 +180,28 @@ YOLOX_L_PATH = (
        for i in range(3) for j, k in ((1, 1), (2, 3))]
     + [("l.dark2_csp.conv3", (1, 1, 0, 160, 160, 128, 128), "wgmma_taps",
         "wgmma", "flipped:wgmma_taps"),
-       ("l.dark3_conv", (3, 2, 1, 160, 160, 128, 256), "direct", "cuda_cores",
+       ("l.dark3_conv", (3, 2, 1, 160, 160, 128, 256), "wgmma_taps", "wgmma",
         "wgmma_classes")])
+# the variants of each kernel, by kind; a path's launches are counted by
+# variant as "kind:variant" (chip_smoke's _launch_counts)
+KERNEL_VARIANTS = {"forward": ("wgmma_taps", "wgmma_rows", "direct"),
+                   "wgrad": ("wgmma", "cuda_cores"),
+                   "dgrad": ("flipped:wgmma_taps", "wgmma_classes",
+                             "cuda_cores")}
+
+
+# each path's launches by variant, filled as the paths run (main adds those
+# it reads from the launch counts the paths return)
+PATH_VARIANTS: dict = {}
+
+
+def variant_counts(triples) -> dict:
+    """Launches by variant of one training step whose convs take the
+    (forward, weight-gradient, data-gradient) variants ``triples`` (None: no
+    data gradient)."""
+    return {f"{kind}:{v}": sum(t[i] == v for t in triples)
+            for i, (kind, names) in enumerate(KERNEL_VARIANTS.items())
+            for v in names}
 SERVE_BATCH = 8
 N_REQUESTS, N_CLIENTS = 32, 16
 # shapes off the tensor-core predicates, odd sizes, parity classes without
@@ -283,6 +309,27 @@ def epilogue_inputs(co, seed):
     return scale, shift
 
 
+@contextlib.contextmanager
+def small_1x1_on_tensor_cores():
+    """Lift ``ops/phase_conv.py::SMALL_1X1`` for the block: the 1x1 convs it
+    keeps on the CUDA-core forward take ``wgmma_taps``, to time what the rule
+    keeps them from (comparisons only)."""
+    from eop_tpu_torch.ops import phase_conv as pcm
+
+    keep, pcm.SMALL_1X1 = pcm.SMALL_1X1, 0
+    try:
+        yield
+    finally:
+        pcm.SMALL_1X1 = keep
+
+
+def _small_1x1(case) -> bool:
+    from eop_tpu_torch.ops.phase_conv import SMALL_1X1
+
+    k, _, _, _, _, c, co = case
+    return k == 1 and c % 8 == co % 8 == 0 and c * co <= SMALL_1X1
+
+
 def check_phase_conv(cases=None):
     """Kernel vs plain version on every shape, fp32 and bf16, with and
     without the fused epilogue; times at the main-path shapes, at the
@@ -352,6 +399,20 @@ def check_phase_conv(cases=None):
             row["ms"] = cuda_ms(lambda: phase_conv(x, wgt, s, p))
             row["ms_fused"] = cuda_ms(lambda: phase_conv(x, wgt, s, p, **fused))
             row["ms_bf16"] = cuda_ms(lambda: phase_conv(x16, wgt16, s, p))
+            # the CUDA-core kernel, forced through the private switch no
+            # path passes: what the tensor-core variants replaced
+            row["direct_ms"] = cuda_ms(
+                lambda: phase_conv(x, wgt, s, p, _direct=True))
+            row["direct_ms_bf16"] = cuda_ms(
+                lambda: phase_conv(x16, wgt16, s, p, _direct=True))
+            if _small_1x1(case):
+                # what the rule keeps this shape from: wgmma_taps
+                with small_1x1_on_tensor_cores():
+                    row["taps_ms"] = cuda_ms(lambda: phase_conv(x, wgt, s, p))
+                    row["taps_ms_bf16"] = cuda_ms(
+                        lambda: phase_conv(x16, wgt16, s, p))
+                    if phase_conv.last_variant != "wgmma_taps":
+                        raise AssertionError(f"{name}: not on wgmma_taps")
             x16_nchw, w16_oihw = x16.permute(0, 3, 1, 2), w_oihw.bfloat16()
             row["library_bf16_ms"] = cuda_ms(
                 lambda: F.conv2d(x16_nchw, w16_oihw, stride=s, padding=p))
@@ -457,7 +518,7 @@ def serve_main_path(smi: str, exp, model):
     from eop_tpu_torch.serving.http import make_http_server
     from eop_tpu_torch.serving.service import DetectionService
 
-    phase_conv.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
     svc = DetectionService.from_exp(exp, model, SERVE_BATCH, (640, 640),
                                     device="cuda", max_wait_ms=20.0,
@@ -502,7 +563,7 @@ def serve_main_path(smi: str, exp, model):
         wall_s = time.perf_counter() - t0
         encoded = encoded_requests(post, bodies[:N_ENCODED])
         torch.cuda.synchronize()
-        launches = {"phase_conv": phase_conv.launches}
+        launches = {"phase_conv": phase_conv.launches, **_variants()}
         stats = svc.stats()
     finally:
         server.shutdown()
@@ -581,7 +642,7 @@ def serve_relu(smi: str):
     dets = serve(raw)
     valid = int(dets.valid.sum())
     torch.cuda.synchronize()
-    launches = {"phase_conv": phase_conv.launches}
+    launches = {"phase_conv": phase_conv.launches, **_variants()}
     fused = phase_conv.fused_launches
     del model
     report = {"phase": "serve_relu", "card": smi, "act": exp.act,
@@ -651,11 +712,17 @@ def serving_stages(smi: str, exp, model, iters: int = 10):
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:8]
     calls = {e.key: e.count for e in prof.key_averages()}
+    # the forward kernels of the profiled call, by kernel name ("::name<":
+    # templates in an anonymous namespace); conv_nhwc_kernel is direct's
+    own_kernels = {f: sum(e.count for e in kernels if f"::{f}<" in e.key)
+                   for f in ("conv_taps_kernel", "conv_rows_kernel",
+                             "conv_nhwc_kernel")}
     return {"phase": "stages", "card": smi, "batch": SERVE_BATCH,
             "iters": iters, "h2d_letterbox_ms": float(med[0]),
             "forward_ms": float(med[1]), "postprocess_ms": float(med[2]),
             "call_wall_ms": float(med[3]),
             "profiled_call_wall_ms": wall, "profiled_device_busy_ms": busy_ms,
+            "own_kernels": own_kernels,
             "batch_norm_calls": calls.get("aten::batch_norm", 0),
             "silu_calls": (calls.get("aten::silu", 0)
                            + calls.get("aten::silu_", 0)),
@@ -806,7 +873,7 @@ def serve_bf16(smi: str, model32):
         torch.cuda.synchronize()
     finally:
         pcm._launch_forward = launch
-    launches = {"phase_conv": pcm.phase_conv.launches}
+    launches = {"phase_conv": pcm.phase_conv.launches, **_variants()}
     fused = pcm.phase_conv.fused_launches
     ref = serving_exp().get_serving_fn(model32, (640, 640), "cuda")(raw)
     report = {"phase": "serve_bf16", "card": smi, "compute_dtype": "bfloat16",
@@ -1051,6 +1118,8 @@ def check_phase_conv_backward(cases=None):
                                    bf16_bytes / PEAK_BYTES)
             row["wgrad_ms_bf16"] = cuda_ms(
                 lambda: phase_conv_wgrad(x16, dy16, k, s, p))
+            row["wgrad_cuda_cores_ms_bf16"] = cuda_ms(lambda: phase_conv_wgrad(
+                x16, dy16, k, s, p, _cuda_cores=True))
             row["wgrad_library_ms_bf16"] = cuda_ms(
                 lambda: library_bf16([False, True, False]))
             row["dgrad_ms_bf16"] = cuda_ms(
@@ -1121,13 +1190,25 @@ def training_exp():
 
 
 def _launch_counts():
+    """The launch counters, each kernel's also by variant ("kind:variant",
+    every variant of :data:`KERNEL_VARIANTS` present)."""
     from eop_tpu_torch.ops.phase_conv import packed_weights, phase_conv
 
+    by_variant = {"forward": phase_conv.variant_launches,
+                  "wgrad": phase_conv.wgrad_variant_launches,
+                  "dgrad": phase_conv.dgrad_variant_launches}
     return {"forward": phase_conv.launches, "wgrad": phase_conv.wgrad_launches,
             "dgrad": phase_conv.dgrad_launches,
             "pack": phase_conv.pack_launches,
             "weight_packs": packed_weights.packs,
-            "dy_copies": phase_conv.dy_copies}
+            "dy_copies": phase_conv.dy_copies,
+            **{f"{kind}:{v}": by_variant[kind].get(v, 0)
+               for kind, names in KERNEL_VARIANTS.items() for v in names}}
+
+
+def _variants(counts=None) -> dict:
+    """The by-variant part of :func:`_launch_counts` (now, or of ``counts``)."""
+    return {k: v for k, v in (counts or _launch_counts()).items() if ":" in k}
 
 
 def _reset_counts():
@@ -1136,6 +1217,10 @@ def _reset_counts():
     phase_conv.launches = phase_conv.wgrad_launches = 0
     phase_conv.dgrad_launches = phase_conv.dy_copies = 0
     phase_conv.pack_launches = phase_conv.fused_launches = 0
+    for counts in (phase_conv.variant_launches,
+                   phase_conv.wgrad_variant_launches,
+                   phase_conv.dgrad_variant_launches):
+        counts.clear()
     packed_weights.packs = 0
 
 
@@ -1499,7 +1584,7 @@ def eval_files(smi: str, img_dir: str, lab_dir: str):
     ap5095, ap50, summary = exp.eval(model, evaluator)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = {"phase_conv": phase_conv.launches}
+    launches = {"phase_conv": phase_conv.launches, **_variants()}
     fused = phase_conv.fused_launches
     tm = evaluator.timings
     forwards = tm["batches"] + 1  # the first batch runs twice
@@ -1714,7 +1799,8 @@ BBOX_TRAIN_IMAGES, BBOX_VAL_IMAGES, BBOX_CLASSES = 64, 16, 80
 BBOX_BATCH = 8
 # launches of one YOLOX-L training step: 12 forward convs, 12 weight
 # gradients, 11 data gradients (not the stem's), each packing its weights
-BBOX_STEP_LAUNCHES = {"forward": 12, "wgrad": 12, "dgrad": 11, "pack": 11}
+BBOX_STEP_LAUNCHES = {"forward": 12, "wgrad": 12, "dgrad": 11, "pack": 11,
+                      **variant_counts([r[2:] for r in YOLOX_L_PATH])}
 BBOX_BF16_WARMUP, BBOX_BF16_TIMED = 2, 4
 AP_LINE = r"AP50:95\s*=\s*([0-9.]+)\s+AP50\s*=\s*([0-9.]+)"
 
@@ -1952,6 +2038,25 @@ def train_bbox_bf16(smi: str):
     launches = _launch_counts()
     ms = [events[2 * i].elapsed_time(events[2 * i + 1])
           for i in range(BBOX_BF16_WARMUP, BBOX_BF16_WARMUP + BBOX_BF16_TIMED)]
+    # two more steps under the profiler: the port's kernels by name, none of
+    # the CUDA-core ones (conv_nhwc_kernel is direct's; wgrad_partial_kernel
+    # and dgrad_kernel the cuda_cores backward's).  The launch counters give
+    # the exact counts; the profiler has missed the stem's one rows launch
+    # of a step (PERF.md section 7), so the tensor-core kernels are only
+    # required to show
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(2):
+            state, _ = step(state, imgs, labels)
+        torch.cuda.synchronize()
+    profiled = {f: sum(e.count for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and f"::{f}<" in e.key)
+                for f in ("conv_taps_kernel", "conv_rows_kernel",
+                          "wgrad_tc_kernel", "dgrad_tc_kernel",
+                          "conv_nhwc_kernel", "wgrad_partial_kernel",
+                          "dgrad_kernel")}
     losses = [float(m["total_loss"]) for m in marks["metrics"]]
     report = {"phase": "train_bbox_bf16", "card": smi, "model": "yolox_l",
               "compute_dtype": "bfloat16", "batch": BBOX_BATCH,
@@ -1959,8 +2064,12 @@ def train_bbox_bf16(smi: str):
               "step_ms": float(np.median(ms)), "step_ms_all": ms,
               "images_per_s": 1e3 * BBOX_BATCH / float(np.median(ms)),
               "launches_per_step": per_step[-1],
+              "profiled_step_kernels": profiled,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    cuda_cores = ("conv_nhwc_kernel", "wgrad_partial_kernel", "dgrad_kernel")
     if (any(p != BBOX_STEP_LAUNCHES for p in per_step)
+            or any(profiled[f] for f in cuda_cores)
+            or not all(n for f, n in profiled.items() if f not in cuda_cores)
             or not all(np.isfinite(losses))):
         raise AssertionError(f"train_bbox_bf16: {report} {per_step}")
     del state, model
@@ -2094,38 +2203,55 @@ def drop_bbox_loaders(data_dir: str, drops: int = 2) -> dict:
 
 # the variants that each zoo model's phase_conv convs must take, by conv
 # (its path under the backbone): forward, weight gradient and data gradient
-# (None: no data gradient, the input is the image).  C and Co off the
-# tensor-core predicates (Tiny's 24 / 48 / 96, Nano's 16) take the
-# CUDA-core direct / cuda_cores kernels.  The shapes come from the models
-# themselves (:func:`zoo_path`).
-_CUDA_CORES = ("direct", "cuda_cores", "cuda_cores")
+# (None: no data gradient, the input is the image).  Every forward and weight
+# gradient runs on the tensor cores but the forward of Nano's 16-channel 1x1
+# convs, which measured faster on the CUDA cores (ops/phase_conv.py::
+# SMALL_1X1);
+# the data gradients take the tensor cores only for Co a multiple of 32 and
+# C in 32, 64, 128.  The shapes come from the models themselves
+# (:func:`zoo_path`).
+_STEM = ("wgmma_rows", "wgmma", None)
+_WIDE = ("wgmma_taps", "wgmma", "cuda_cores")
+_DIRECT = ("direct", "wgmma", "cuda_cores")
 _TAPS = ("wgmma_taps", "wgmma", "flipped:wgmma_taps")
 _CLASSES = ("wgmma_taps", "wgmma", "wgmma_classes")
+
+
+def _csp_darknet(n: int) -> dict:
+    """Every early conv of a CSPDarknet whose dark2 CSP layer has ``n``
+    bottlenecks and whose channels keep every data gradient on the CUDA
+    cores (YOLOX-Tiny, -M, -X)."""
+    convs = ["dark2.0", "dark2.1.conv1", "dark2.1.conv2", "dark2.1.conv3",
+             "dark3.0"] + [f"dark2.1.m.{i}.conv{j}" for i in range(n)
+                           for j in (1, 2)]
+    return {"stem.conv": _STEM, **{c: _WIDE for c in convs}}
+
+
 ZOO_VARIANTS = {
     "yolox-nano": {
-        "stem.conv": ("direct", "cuda_cores", None),
-        "dark2.0.pconv": _CUDA_CORES,
-        "dark2.1.conv1": _CUDA_CORES,
-        "dark2.1.conv2": _CUDA_CORES,
-        "dark2.1.m.0.conv1": _CUDA_CORES,
-        "dark2.1.m.0.conv2.pconv": _CUDA_CORES,
+        "stem.conv": _STEM,
+        "dark2.0.pconv": _DIRECT,
+        "dark2.1.conv1": _DIRECT,
+        "dark2.1.conv2": _DIRECT,
+        "dark2.1.m.0.conv1": _DIRECT,
+        "dark2.1.m.0.conv2.pconv": _DIRECT,
         "dark2.1.conv3": _TAPS,
         "dark3.0.pconv": _TAPS},
-    "yolox-tiny": {
-        "stem.conv": ("direct", "cuda_cores", None),
-        **{n: _CUDA_CORES for n in (
-            "dark2.0", "dark2.1.conv1", "dark2.1.conv2", "dark2.1.m.0.conv1",
-            "dark2.1.m.0.conv2", "dark2.1.conv3", "dark3.0")}},
+    "yolox-tiny": _csp_darknet(1),
     "yolov3": {
-        "stem.0": ("direct", "wgmma", None),
+        "stem.0": _STEM,
         "stem.1": _CLASSES,
         "stem.2.layer1": _TAPS,
         "stem.2.layer2": _TAPS,
         "dark2.0": _CLASSES,
         **{f"dark2.{i}.layer{j}": _TAPS for i in (1, 2) for j in (1, 2)},
-        "dark3.0": ("direct", "cuda_cores", "wgmma_classes")},
+        "dark3.0": _CLASSES},
+    # held at their kernel shapes only (zoo_cases), not trained here
+    "yolox-m": _csp_darknet(2),
+    "yolox-x": _csp_darknet(4),
 }
-ZOO_NAMES = tuple(ZOO_VARIANTS)
+# the models the smoke trains, evaluates and steps card against CPU
+ZOO_NAMES = ("yolox-nano", "yolox-tiny", "yolov3")
 # the reference's per-card batch (-b 64 over 8 cards): the zoo trains, and
 # serves, at batch 8
 ZOO_BATCH = 8
@@ -2197,11 +2323,21 @@ def step_launches(name: str) -> dict:
     """The kernel launches one training step of zoo model ``name`` makes,
     from :data:`ZOO_VARIANTS`: every phase_conv conv launches its forward
     and weight gradient; every one with a data gradient launches it, and
-    packs its weights first on a tensor-core variant."""
-    dgrads = [d for _, _, d in ZOO_VARIANTS[name].values() if d is not None]
-    n = len(ZOO_VARIANTS[name])
-    return {"forward": n, "wgrad": n, "dgrad": len(dgrads),
-            "pack": sum(d != "cuda_cores" for d in dgrads)}
+    packs its weights first on a tensor-core variant; and each kind's
+    launches by variant ("kind:variant")."""
+    rows = list(ZOO_VARIANTS[name].values())
+    dgrads = [d for _, _, d in rows if d is not None]
+    return {"forward": len(rows), "wgrad": len(rows), "dgrad": len(dgrads),
+            "pack": sum(d != "cuda_cores" for d in dgrads),
+            **variant_counts(rows)}
+
+
+def forward_variants(rows, times: int = 1) -> dict:
+    """The by-variant launches of ``times`` forwards of the convs ``rows``
+    (tuples ending in forward, weight-gradient, data-gradient variant), in
+    the "kind:variant" keys of :func:`_launch_counts`: no backward."""
+    return {k: times * v if k.startswith("forward:") else 0
+            for k, v in variant_counts([r[-3:] for r in rows]).items()}
 
 
 def match_bboxes(got: list, want: np.ndarray, tol: float = 0.05) -> bool:
@@ -2331,6 +2467,7 @@ def serve_bbox(smi: str):
         torch.cuda.synchronize()
         launches = phase_conv.launches
         fused = phase_conv.fused_launches
+        variants = _variants()
         stats = svc.stats()
     finally:
         server.shutdown()
@@ -2379,6 +2516,7 @@ def serve_bbox(smi: str):
         "jpeg_equals_raw_twin": (jpeg_answer["detections"]
                                  == twin_answer["detections"]),
         "phase_conv_launches": launches, "phase_conv_fused_launches": fused,
+        "launches_by_variant": variants,
         "request_ms_p50": float(np.percentile(lat_ms, 50)),
         "request_ms_max": float(max(lat_ms)),
         "wall_s": wall_s, "warmup_s": warmup_s,
@@ -2386,9 +2524,11 @@ def serve_bbox(smi: str):
     if (sum(n_dets) <= 0 or alone_equal != N_ALONE or min(iou) < 0.99
             or not report["has_bbox_dicts"]
             or jpeg_code != 200 or not report["jpeg_equals_raw_twin"]
-            or launches != YOLOX_L_FORWARD * forwards or fused != launches):
+            or launches != YOLOX_L_FORWARD * forwards or fused != launches
+            or variants != forward_variants(YOLOX_L_PATH, forwards)):
         raise AssertionError(f"serve_bbox: {report}")
     by_path = {"serve_bbox": launches}
+    PATH_VARIANTS["serve_bbox"] = variants
 
     report["stages_fp32"] = serving_stages(smi, exp, model)
     # the card against the CPU on one frame, the same seeded weights: the
@@ -2414,9 +2554,11 @@ def serve_bbox(smi: str):
     dets16 = serve16(batch8)
     torch.cuda.synchronize()
     by_path["serve_bbox_bf16"] = phase_conv.launches
+    PATH_VARIANTS["serve_bbox_bf16"] = _variants()
     report["bf16"] = {
         "phase_conv_launches": phase_conv.launches,
         "phase_conv_fused_launches": phase_conv.fused_launches,
+        "launches_by_variant": PATH_VARIANTS["serve_bbox_bf16"],
         "vs_fp32": {**heads_vs(model16, model, batch8, exp.test_size),
                     **detections_vs(dets16, serve(batch8), bbox_rows)},
         "stages": serving_stages(smi, exp16, model16)}
@@ -2429,7 +2571,10 @@ def serve_bbox(smi: str):
         dets3 = svc3.detect(frames[2])
         torch.cuda.synchronize()
         by_path["serve_yolov3"] = phase_conv.launches
+        PATH_VARIANTS["serve_yolov3"] = _variants()
         report["yolov3"] = {"phase_conv_launches": phase_conv.launches,
+                            "launches_by_variant":
+                                PATH_VARIANTS["serve_yolov3"],
                             "phase_conv_fused_launches":
                                 phase_conv.fused_launches,
                             "detections": len(dets3),
@@ -2442,6 +2587,11 @@ def serve_bbox(smi: str):
         and vs32["head_max_abs_err"] <= 5e-2 * max(1.0, vs32["head_scale"])
         and report["bf16"]["phase_conv_launches"] == YOLOX_L_FORWARD
         == report["bf16"]["phase_conv_fused_launches"]
+        and PATH_VARIANTS["serve_bbox_bf16"] == forward_variants(YOLOX_L_PATH)
+        and PATH_VARIANTS["serve_yolov3"] == forward_variants(
+            list(ZOO_VARIANTS["yolov3"].values()))
+        and report["stages_fp32"]["own_kernels"]["conv_nhwc_kernel"] == 0
+        and report["bf16"]["stages"]["own_kernels"]["conv_nhwc_kernel"] == 0
         and report["yolov3"]["phase_conv_launches"] == YOLOV3_FORWARD
         and report["yolov3"]["phase_conv_fused_launches"] == 0
         and report["yolov3"]["detections"] > 0
@@ -2541,13 +2691,18 @@ def eval_zoo(smi: str, data_dir: str, ckpts: dict):
                            "test_conf", "1e-5", "data_num_workers", "0"])
         torch.cuda.synchronize()
         aps = re.findall(AP_LINE, buf.getvalue())
+        variants = _variants()
         row = {"wall_s": time.perf_counter() - t0,
                "ap_line": [float(v) for v in aps[-1]] if aps else None,
                "phase_conv_launches": phase_conv.launches,
-               "phase_conv_fused_launches": phase_conv.fused_launches}
+               "phase_conv_fused_launches": phase_conv.fused_launches,
+               "launches_by_variant": variants}
         report[name] = row
         by_path[f"eval_{name}"] = phase_conv.launches
+        PATH_VARIANTS[f"eval_{name}"] = variants
         if (not aps or phase_conv.launches != per_forward * forwards
+                or variants != forward_variants(
+                    list(ZOO_VARIANTS[name].values()), forwards)
                 or phase_conv.fused_launches != (phase_conv.launches
                                                  if fused else 0)):
             raise AssertionError(f"eval_zoo {name}: {row}\n"
@@ -2833,6 +2988,24 @@ def main() -> int:
                    "train_bbox_bf16": bbox16_launches, **zoo_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
+    # launches by variant on every path: none launches the cuda_cores weight
+    # gradient, none but Nano's the CUDA-core direct forward
+    PATH_VARIANTS.update({
+        "serve": _variants(launches), "serve_relu": _variants(relu_launches),
+        "serve_bf16": _variants(serve16_launches),
+        "eval": _variants(eval_launches),
+        **{k: _variants(c) for k, c in train_paths.items()}})
+    cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()
+                       if v["wgrad:cuda_cores"]
+                       or ("nano" not in k and v["forward:direct"])}
+    if cuda_core_paths:
+        raise AssertionError(f"CUDA-core forward or weight gradient on "
+                             f"{cuda_core_paths}")
+
+    def by_variant(kind):
+        return {path: {k.split(":", 1)[1]: n for k, n in v.items()
+                       if k.startswith(f"{kind}:")}
+                for path, v in PATH_VARIANTS.items()}
 
     # the serving path launches the forward at batch 8, the training step
     # all three kernels at batch 32
@@ -2861,7 +3034,7 @@ def main() -> int:
         """The zoo's shapes at batch 8 summed by model (Nano, Tiny at 640
         and at 416, YOLOv3), one row per conv."""
         out = {}
-        for m in ("nano", "tiny", "tiny416", "yolov3"):
+        for m in ("nano", "tiny", "tiny416", "yolov3", "m", "x"):
             mine = [r for r in rows_ if r["name"].split(".")[0] == m]
             if mine:
                 out[m] = {"shapes": len(mine),
@@ -2888,6 +3061,8 @@ def main() -> int:
             "replaces": "eop_tpu/ops/pallas/conv_small_c.py:215 (its VJP)",
             "launches": train_launches[kind],
             "launches_by_path": {k: c[kind] for k, c in train_paths.items()},
+            "launches_by_variant": {k: v for k, v in by_variant(kind).items()
+                                    if k in train_paths},
             "max_abs_err": max(back_err[kind]["fp32"],
                                l_back_err[kind]["fp32"],
                                z_back_err[kind]["fp32"]),
@@ -2926,7 +3101,8 @@ def main() -> int:
                  if kind == "wgrad" or r["dgrad_on_path"]],
                 [f"{kind}_{m}" for m in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "ms_bf16",
-                    "bound_ms_bf16", "library_ms_bf16", "cuda_cores_ms")],
+                    "bound_ms_bf16", "library_ms_bf16", "cuda_cores_ms")]
+                + (["wgrad_cuda_cores_ms_bf16"] if kind == "wgrad" else []),
                 max_abs_err=l_back_err[kind]["fp32"],
                 max_abs_err_bf16=l_back_err[kind]["bf16"],
                 variants={r["name"]: r[f"{kind}_variant"]
@@ -2936,7 +3112,10 @@ def main() -> int:
                         if kind == "wgrad" or r["dgrad_on_path"]],
                        [f"{kind}_{m}" for m in (
                            "ms", "plain_ms", "bound_ms", "library_ms",
-                           "ms_bf16", "bound_ms_bf16", "library_ms_bf16")],
+                           "ms_bf16", "bound_ms_bf16", "library_ms_bf16",
+                           "cuda_cores_ms")]
+                       + (["wgrad_cuda_cores_ms_bf16"] if kind == "wgrad"
+                          else []),
                        f"{kind}_variant"),
             "note": source_note,
             "card": smi,
@@ -2951,6 +3130,9 @@ def main() -> int:
                         if k.startswith(("serve", "eval"))),
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
+        # wgmma_taps and wgmma_rows (phase_conv.cu), direct
+        # (phase_conv_direct.cu), on every path
+        "launches_by_variant": by_variant("forward"),
         "max_abs_err": max(err32, l_err32, z_err32),
         "max_abs_err_bf16": max(err16, l_err16, z_err16),
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
@@ -2958,6 +3140,8 @@ def main() -> int:
         "ms": total("ms"),
         "ms_fused": total("ms_fused"),
         "ms_bf16": total("ms_bf16"),
+        "direct_ms": total("direct_ms"),
+        "direct_ms_bf16": total("direct_ms_bf16"),
         "library_bf16_ms": total("library_bf16_ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": total("bound_ms"),
@@ -2979,13 +3163,15 @@ def main() -> int:
         "yolox_l": yolox_l(
             l_shapes, ("ms", "ms_fused", "ms_bf16", "plain_ms", "bound_ms",
                        "bound_cuda_core_ms", "bound_bf16_ms", "library_ms",
-                       "library_bf16_ms", "library_fused_ms"),
+                       "library_bf16_ms", "library_fused_ms", "direct_ms",
+                       "direct_ms_bf16"),
             max_abs_err=l_err32, max_abs_err_bf16=l_err16,
             variants={r["name"]: r["variant"] for r in l_shapes},
             variants_bf16={r["name"]: r["variant_bf16"] for r in l_shapes}),
         "zoo": zoo(z_shapes, ("ms", "ms_fused", "ms_bf16", "plain_ms",
                               "bound_ms", "bound_bf16_ms", "library_ms",
-                              "library_bf16_ms", "library_fused_ms"),
+                              "library_bf16_ms", "library_fused_ms",
+                              "direct_ms", "direct_ms_bf16"),
                    "variant"),
         "card": smi,
     }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "

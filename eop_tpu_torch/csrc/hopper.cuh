@@ -392,11 +392,15 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 // for each 8-channel group i, quad thread t holds channels 8i + 2t, 8i + 2t + 1
 // of the pixels pa (rows g) and pb (rows g + 8) of its warp's 16 rows.  `pa`
 // and `pb` point at channel `c0` of those pixels, or are null past the edge.
+// Channels from `limit` on (a multiple of 8: a zero-padded N tile's tail) are
+// neither read from scale and shift nor stored.
 template <typename T, int NV>
 __device__ __forceinline__ void store_fragment(const float (&acc)[NV], T* pa, T* pb,
-                                               int c0, int t, const Epilogue& e) {
+                                               int c0, int t, const Epilogue& e,
+                                               int limit = 1 << 30) {
 #pragma unroll
   for (int i = 0; i < NV / 4; ++i) {
+    if (c0 + i * 8 >= limit) break;
     const int c = i * 8 + 2 * t;
     float sc0 = 1.f, sc1 = 1.f, sh0 = 0.f, sh1 = 0.f;
     if (e.scale != nullptr) {

@@ -30,18 +30,26 @@
 //
 // Two variants, chosen by the wrapper from shape and type alone:
 //
-//  conv_taps  k in {1, 3}, C a multiple of 32, Co in {32, 64, 128}.  K is
-//             walked tap by tap in runs of one 128-byte (or 64-byte) swizzle
-//             row of channels.  The A tile of a tap is one box of a tensor map
-//             over [B, H, W, C] (stride 1) or over its phase view
+//  conv_taps  k in {1, 3}, C and Co multiples of 8.  K is walked tap by tap
+//             in runs of one 128-byte (or 64-byte) swizzle row of channels.
+//             The A tile of a tap is one box of a tensor map over
+//             [B, H, W, C] (stride 1) or over its phase view
 //             [B, H/2, 2, W/2, 2C] (stride 2); the weights of the run stream
-//             through the same stage.
-//  conv_rows  the 6x6/s2 stem on 3 channels.  A pixel is 12 (or 6) bytes, so
-//             no tensor map can take channels as its inner dimension: whole
-//             input rows are staged by 1-D bulk copies into a ring, and for
-//             one ky an output pixel's 6 taps x 3 channels are a contiguous
-//             run of 18 values that the consumers load straight into wgmma A
-//             fragments (the windows of neighbouring pixels overlap, so no
+//             through the same stage.  A run that reaches past C reads zeros
+//             (past the tensor) or the next phase's channels (stride 2), and
+//             the packed weights hold zero K rows there, so no padded copy of
+//             x is made.  Co is cut into N tiles of at most 128 channels (the
+//             wrapper zero-pads the last one in the weights); a block owns
+//             one (pixel tile, N tile) pair, N tiles of one pixel tile
+//             neighbouring in the walk so the second reads A from L2, and
+//             stores only the channels below Co.
+//  conv_rows  the 6x6/s2 stem (YOLOX) and the 3x3/s1 stem (Darknet-53) on 3
+//             channels, Co up to 96.  A pixel is 12 (or 6) bytes, so no tensor
+//             map can take channels as its inner dimension: whole input rows
+//             are staged by 1-D bulk copies into a ring, and for one ky an
+//             output pixel's k taps x 3 channels are a contiguous run of 3k
+//             values that the consumers load straight into wgmma A fragments
+//             (the windows of neighbouring pixels overlap, so no
 //             shared-memory descriptor could describe A).
 //
 // Shapes outside both stay on the direct CUDA-core kernel
@@ -62,19 +70,35 @@ constexpr int kTileM = kTileH * kTileW;          // 128 GEMM rows
 
 struct TapParams {
   int H, W, C, Co, k, pad, Ho, Wo;
-  int tiles_x, tiles_y, num_tiles, cruns;
+  int tiles_x, tiles_y, ntiles, num_tiles, cruns;
   Epilogue epilogue;
 };
 
-// Per output width: the wgmma N (64 where Co allows: half the instructions
-// of N = 32), ring depth and blocks per SM (two where shared memory and
-// registers allow, so four warpgroups hide each other's waits).
+// Per N tile width CO (32, 64, 96 or 128 output channels): the wgmma N (64
+// where CO allows: half the instructions of N = 32), ring depth and blocks
+// per SM (two where shared memory and registers allow, so four warpgroups
+// hide each other's waits).
 template <int CO>
 struct TapConfig {
-  static constexpr int kNI = CO >= 64 ? 64 : 32;
+  static constexpr int kNI = CO % 64 == 0 ? 64 : 32;
   static constexpr int kStages = CO == 64 ? 3 : 4;
-  static constexpr int kMinBlocks = CO == 128 ? 1 : 2;
+  static constexpr int kMinBlocks = CO >= 96 ? 1 : 2;
 };
+
+// A tile index walks N tiles fastest, then pixel tiles along x, y, image.
+struct TileCoord {
+  int nt, tx, ty, b;
+};
+__device__ __forceinline__ TileCoord tile_coord(int tile, const TapParams& p) {
+  TileCoord c;
+  c.nt = tile % p.ntiles;
+  int rest = tile / p.ntiles;
+  c.tx = rest % p.tiles_x;
+  rest /= p.tiles_x;
+  c.ty = rest % p.tiles_y;
+  c.b = rest / p.tiles_y;
+  return c;
+}
 
 template <typename T, int CO, int STRIDE, int ROWB>
 __global__ void __launch_bounds__(kThreads, TapConfig<CO>::kMinBlocks)
@@ -114,11 +138,9 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < p.num_tiles; tile += gridDim.x) {
-      const int tx = tile % p.tiles_x;
-      const int rest = tile / p.tiles_x;
-      const int ty = rest % p.tiles_y;
-      const int b = rest / p.tiles_y;
-      const int ox0 = tx * kTileW, oy0 = ty * kTileH;
+      const TileCoord tc = tile_coord(tile, p);
+      const int b = tc.b;
+      const int ox0 = tc.tx * kTileW, oy0 = tc.ty * kTileH;
       for (int ky = 0; ky < p.k; ++ky)
         for (int kx = 0; kx < p.k; ++kx)
           for (int cr = 0; cr < p.cruns; ++cr) {
@@ -136,7 +158,7 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
                           oy0 + (dy >> 1), b);
             }
             tma_load_2d(a_dst + A_BYTES, &map_w, full_bar(stage), 0,
-                        ((ky * p.k + kx) * p.cruns + cr) * NB * CO);
+                        (((ky * p.k + kx) * p.cruns + cr) * p.ntiles + tc.nt) * NB * CO);
             if (++stage == kStages) {
               stage = 0;
               phase ^= 1u;
@@ -236,21 +258,20 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
     if (lane == 0) mbar_arrive(empty_bar(pending));
     pending = -1;
 
-    // warp w of warpgroup wg holds tile row 4 * wg + w: pixels g and g + 8
-    const int tx = tile % p.tiles_x;
-    const int rest = tile / p.tiles_x;
-    const int ty = rest % p.tiles_y;
-    const int b = rest / p.tiles_y;
-    const int oy = ty * kTileH + wg * 4 + w;
-    const int oxa = tx * kTileW + g, oxb = oxa + 8;
+    // warp w of warpgroup wg holds tile row 4 * wg + w: pixels g and g + 8;
+    // channels c0 .. c0 + CO - 1 of them, those below Co stored
+    const TileCoord tc = tile_coord(tile, p);
+    const int oy = tc.ty * kTileH + wg * 4 + w;
+    const int oxa = tc.tx * kTileW + g, oxb = oxa + 8;
+    const int c0 = tc.nt * CO;
     if (oy < p.Ho) {
-      T* row = y + ((size_t)b * p.Ho + oy) * p.Wo * CO;
-      T* pa = oxa < p.Wo ? row + (size_t)oxa * CO : nullptr;
-      T* pb = oxb < p.Wo ? row + (size_t)oxb * CO : nullptr;
+      T* row = y + ((size_t)tc.b * p.Ho + oy) * p.Wo * p.Co + c0;
+      T* pa = oxa < p.Wo ? row + (size_t)oxa * p.Co : nullptr;
+      T* pb = oxb < p.Wo ? row + (size_t)oxb * p.Co : nullptr;
 #pragma unroll
       for (int n = 0; n < NCH; ++n)
         store_fragment(acc[n], pa ? pa + n * NI : pa, pb ? pb + n * NI : pb,
-                       n * NI, t, p.epilogue);
+                       c0 + n * NI, t, p.epilogue, p.Co);
     }
   }
 }
@@ -299,7 +320,7 @@ int launch_taps(const void* x, const void* wp, void* y, int B, TapParams p,
   }
   if (rc != 0) return kEncodeError + rc;
   {
-    const cuuint64_t rows = (cuuint64_t)p.k * p.k * p.cruns * NB * CO;
+    const cuuint64_t rows = (cuuint64_t)p.k * p.k * p.cruns * p.ntiles * NB * CO;
     const cuuint64_t dims[2] = {KR, rows};
     const cuuint64_t strides[1] = {ROWB};
     const cuuint32_t box[2] = {KR, NB * CO};
@@ -325,13 +346,14 @@ int launch_taps(const void* x, const void* wp, void* y, int B, TapParams p,
 
 template <typename T, int ROWB>
 int dispatch_taps(const void* x, const void* wp, void* y, int B, int stride,
-                  const TapParams& p, cudaStream_t st) {
+                  int co_tile, const TapParams& p, cudaStream_t st) {
 #define EOP_TAPS(CO)                                                      \
   return stride == 1 ? launch_taps<T, CO, 1, ROWB>(x, wp, y, B, p, st)    \
                      : launch_taps<T, CO, 2, ROWB>(x, wp, y, B, p, st)
-  switch (p.Co) {
+  switch (co_tile) {
     case 32: EOP_TAPS(32);
     case 64: EOP_TAPS(64);
+    case 96: EOP_TAPS(96);
     case 128: EOP_TAPS(128);
   }
 #undef EOP_TAPS
@@ -342,59 +364,66 @@ int dispatch_taps(const void* x, const void* wp, void* y, int B, int stride,
 
 constexpr int kRowPadLeft = 8;    // zero elements before a staged row
 constexpr int kRowPadRight = 16;  // zero elements after it
-constexpr int kRowsK = 6, kRowsC = 3, kRowsCo = 32;  // the stem's shape
-constexpr int kRowsRun = kRowsK * kRowsC;            // 18 values per ky
-// K steps of 32 bytes over the 108 values (padded with zero weights): 14 of 8
-// floats, 7 of 16 bf16.  The weights are 128-byte rows of 4 K steps, fp32 as
-// hi and lo: 4 boxes of [2 x 32 rows], bf16 one box of [2 runs x 32 rows].
-template <typename T>
-struct RowsK {
-  static constexpr int kSteps = (kRowsK * kRowsRun * (int)sizeof(T) + 31) / 32;
-  static constexpr int kBoxes = sizeof(T) == 4 ? (kSteps + 3) / 4 : 1;
-  static constexpr uint32_t kWBytes = kBoxes * 2 * kRowsCo * 128;
+constexpr int kRowsC = 3;         // the stems' input channels
+// The two stems: K = 6 (6x6, stride 2, padding 2) and K = 3 (3x3, stride 1,
+// padding 1).  For one ky an output pixel reads kRun = 3K consecutive values
+// of a staged row; K runs make the flat K index f = kRun * ky + 3 * kx + c
+// (108 or 27 values), walked in K steps of 32 bytes (8 floats, 16 bf16) and
+// padded with zero weights to whole 128-byte weight rows: fp32 kRuns runs of
+// [hi, lo][CO][32], bf16 kRuns runs of [CO][64].
+template <typename T, int K>
+struct RowsGeom {
+  static constexpr int kStride = K == 6 ? 2 : 1;
+  static constexpr int kPad = K == 6 ? 2 : 1;
+  static constexpr int kRun = K * kRowsC;
+  static constexpr int kFlat = K * kRun;
+  static constexpr int kSteps = (kFlat * (int)sizeof(T) + 31) / 32;
+  static constexpr int kRuns = (kSteps + 3) / 4;
+  static constexpr int kNB = sizeof(T) == 4 ? 2 : 1;
 };
 // Consumer warpgroups.  Four hide each other's fragment loads and epilogues:
 // 0.096 ms against 0.117 ms with two, at 8 x 640 x 640 on an H100.
 constexpr int kRowsWarpgroups = 4;
 
 struct RowParams {
-  int B, H, W, Ho, Wo;
+  int B, H, W, Ho, Wo, Co;
   int steps_per_image, total_steps, steps_per_block, chunks_x, ring;
   uint32_t slot_bytes;
   Epilogue epilogue;
 };
 
 // NWG = kRowsWarpgroups consumer warpgroups; a step is NWG output rows of one
-// image, so each warpgroup takes one row's 64-pixel chunks.  It reads input rows
-// 2*NWG*s - 2 .. 2*NWG*s + 2*NWG + 1; consecutive steps of an image share
-// four of them, so 2*NWG are loaded per step and the first step of a block or
-// an image loads all 2*NWG + 4.  Producer and consumers number the loaded
-// rows alike (n = 0, 1, ...): row n lives in slot n % ring and its barriers'
-// parity is (n / ring) & 1.  Rows above or below the image are not loaded:
-// their taps read a slot of zeros.
+// image, so each warpgroup takes one row's 64-pixel chunks.  With stride S it
+// reads input rows S*NWG*s - pad .. S*NWG*s + S*(NWG - 1) - pad + K - 1
+// (kLive of them); consecutive steps of an image share kLive - kNew, so kNew
+// = S*NWG are loaded per step and the first step of a block or an image
+// loads all kLive.  Producer and consumers number the loaded rows alike
+// (n = 0, 1, ...): row n lives in slot n % ring and its barriers' parity is
+// (n / ring) & 1.  Rows above or below the image are not loaded: their taps
+// read a slot of zeros.
 //
-// K is the flat index f = 18 * ky + 3 * kx + c (108 values, 14 K steps with 4
-// zero weights at the end).  In K step s thread t of a quad feeds f = 8s + 2t
-// and 8s + 2t + 1: one 8-byte load, which never straddles a ky since 18 is
-// even.
-//
-// bf16 rows are staged and indexed the same way in 2-byte elements; a K step
-// is 16 values, thread t feeds the pairs f = 16s + 2t and 16s + 2t + 8 (two
-// 4-byte loads), and one bf16 wgmma per step needs no split.
-template <typename T>
+// In K step s thread t of a quad feeds f = 8s + 2t and 8s + 2t + 1 (fp32) or
+// the pairs f = 16s + 2t and 16s + 2t + 8 (bf16).  For K = 6 a pair is one
+// aligned 8-byte (4-byte) load that never straddles a ky, since 18 is even;
+// for K = 3 (9 values a ky, odd pixel offsets) each value is loaded alone.
+// The N tile CO (32, 64 or 96) is NCH wgmmas of N = 32.
+template <typename T, int K, int CO>
 __global__ void __launch_bounds__(kRowsWarpgroups * 128 + 32, 1)
 conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
                  const T* __restrict__ x, T* __restrict__ y,
                  const RowParams p) {
+  using G = RowsGeom<T, K>;
   constexpr int NWG = kRowsWarpgroups;
+  constexpr int S = G::kStride, PAD = G::kPad, RUN = G::kRun;
+  constexpr int NCH = CO / 32;
   constexpr uint32_t ES = sizeof(T);
-  constexpr uint32_t kRowsWBytes = RowsK<T>::kWBytes;
-  constexpr int kRowsKSteps = RowsK<T>::kSteps;
-  constexpr int kLive = 2 * NWG + 4, kNew = 2 * NWG;
+  constexpr uint32_t kWBytes = G::kRuns * G::kNB * CO * 128;
+  constexpr int kSteps = G::kSteps;
+  constexpr int kLive = S * (NWG - 1) + K, kNew = S * NWG;
   constexpr int kBlockThreads = NWG * 128 + 32;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t slots = base + kRowsWBytes;
+  const uint32_t slots = base + kWBytes;
   const uint32_t zero_slot = slots + p.ring * p.slot_bytes;
   const uint32_t bars = zero_slot + p.slot_bytes;
   auto full_bar = [&](int s) { return bars + 8u * s; };
@@ -429,15 +458,14 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
   if (warp == NWG * 4) {
     // ---------------------------------------------------------- producer
     if (lane != 0) return;
-    mbar_expect_tx(w_bar, kRowsWBytes);
-    for (int r = 0; r < RowsK<T>::kBoxes; ++r)
-      tma_load_2d(base + r * 2 * kRowsCo * 128, &map_w, w_bar, 0,
-                  r * 2 * kRowsCo);
+    mbar_expect_tx(w_bar, kWBytes);
+    for (int r = 0; r < G::kRuns; ++r)
+      tma_load_2d(base + r * G::kNB * CO * 128, &map_w, w_bar, 0, r * G::kNB * CO);
     int n = 0;
     for (int step = s_begin; step < s_end; ++step) {
       const int b = step / p.steps_per_image, sl = step % p.steps_per_image;
       const bool fresh = step == s_begin || sl == 0;
-      const int iy_first = kNew * sl - 2 + (fresh ? 0 : 4);
+      const int iy_first = kNew * sl - PAD + (fresh ? 0 : kLive - kNew);
       const int count = fresh ? kLive : kNew;
       for (int i = 0; i < count; ++i, ++n) {
         const int iy = iy_first + i;
@@ -472,12 +500,12 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
       n_next += kNew;
     }
     const int oy = NWG * sl + wg;  // this warpgroup's output row
-    // its six input rows: slot addresses, or the slot of zeros
-    uint32_t slot[kRowsK];
+    // its K input rows: slot addresses, or the slot of zeros
+    uint32_t slot[K];
 #pragma unroll
-    for (int ky = 0; ky < kRowsK; ++ky) {
-      const int n = n_base + 2 * wg + ky;
-      const int iy = 2 * oy - 2 + ky;
+    for (int ky = 0; ky < K; ++ky) {
+      const int n = n_base + S * wg + ky;
+      const int iy = S * oy - PAD + ky;
       mbar_wait(full_bar(n % p.ring), (uint32_t)(n / p.ring) & 1u);
       slot[ky] = (iy < 0 || iy >= p.H) ? zero_slot
                                        : slots + (n % p.ring) * p.slot_bytes;
@@ -485,30 +513,32 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
 
     for (int cx = 0; cx < p.chunks_x && oy < p.Ho; ++cx) {
       const int oxa = cx * 64 + w * 16 + g, oxb = oxa + 8;
-      // an output pixel's taps of one ky start 6 * ox - 6 elements into the
-      // row: 6 * ox + 2 elements into the slot
-      const uint32_t offa = ES * (6 * min(oxa, p.Wo - 1) + 2);
-      const uint32_t offb = ES * (6 * min(oxb, p.Wo - 1) + 2);
-      // byte address in the slots of flat K index f (even), which lies in
-      // row ky0 of this K step or, past its 18 values, in the next; the
-      // zero-weight tail (f >= 108) reads on in the last row
+      // an output pixel's taps of one ky start 3 * (S * ox - PAD) elements
+      // into the row: 3 * S * ox + kRowPadLeft - 3 * PAD into the slot
+      const uint32_t offa = ES * (3 * S * min(oxa, p.Wo - 1) + kRowPadLeft - 3 * PAD);
+      const uint32_t offb = ES * (3 * S * min(oxb, p.Wo - 1) + kRowPadLeft - 3 * PAD);
+      // byte address in the slots of flat K index f, which lies in row ky0
+      // of this K step or, past its RUN values, in the next; the zero-weight
+      // tail (f >= K * RUN) reads on in the last row
       auto k_addr = [&](int first, int f) {
-        constexpr int kLastKy = kRowsK - 1;
-        const int ky0 = first / kRowsRun;
+        constexpr int kLastKy = K - 1;
+        const int ky0 = first / RUN;
         const int ky1 = ky0 < kLastKy ? ky0 + 1 : kLastKy;
-        const bool next = ky1 != ky0 && f >= kRowsRun * ky1;
-        return (next ? slot[ky1] : slot[ky0]) + ES * (f - kRowsRun * (next ? ky1 : ky0));
+        const bool next = ky1 != ky0 && f >= RUN * ky1;
+        return (next ? slot[ky1] : slot[ky0]) + ES * (f - RUN * (next ? ky1 : ky0));
       };
-      float acc[16];
+      float acc[NCH][16];
 #pragma unroll
-      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
       if constexpr (sizeof(T) == 4) {
         // Two K steps form a group; the A fragments of the next group are
         // loaded and split while the wgmmas of this one run: two register
         // sets, each reused once its wgmmas have retired.
         uint32_t ah[2][8], al[2][8];
 #pragma unroll
-        for (int grp = 0; grp < kRowsKSteps / 2; ++grp) {
+        for (int grp = 0; grp < kSteps / 2; ++grp) {
           uint32_t(&h)[8] = ah[grp & 1];
           uint32_t(&l)[8] = al[grp & 1];
           if (grp >= 2) {
@@ -522,9 +552,19 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int s = 2 * grp + j;
-            const uint32_t src = k_addr(8 * s, 8 * s + 2 * t);
-            const float2 pa = lds64(src + offa);
-            const float2 pb = lds64(src + offb);
+            float2 pa, pb;
+            if constexpr (K == 6) {
+              const uint32_t src = k_addr(8 * s, 8 * s + 2 * t);
+              pa = lds64(src + offa);
+              pb = lds64(src + offb);
+            } else {
+              const uint32_t s0 = k_addr(8 * s, 8 * s + 2 * t);
+              const uint32_t s1 = k_addr(8 * s, 8 * s + 2 * t + 1);
+              pa = make_float2(__uint_as_float(lds32(s0 + offa)),
+                               __uint_as_float(lds32(s1 + offa)));
+              pb = make_float2(__uint_as_float(lds32(s0 + offb)),
+                               __uint_as_float(lds32(s1 + offb)));
+            }
             split_tf32(pa.x, h[4 * j + 0], l[4 * j + 0]);
             split_tf32(pb.x, h[4 * j + 1], l[4 * j + 1]);
             split_tf32(pa.y, h[4 * j + 2], l[4 * j + 2]);
@@ -534,12 +574,15 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
             const int s = 2 * grp + j;
-            const uint32_t b_run = base + (s / 4) * 2 * kRowsCo * 128 + (s % 4) * 32u;
-            const uint64_t b_hi = smem_desc<128>(b_run);
-            const uint64_t b_lo = smem_desc<128>(b_run + kRowsCo * 128u);
-            wgmma_tf32_rs(acc, l[4 * j], l[4 * j + 1], l[4 * j + 2], l[4 * j + 3], b_hi);
-            wgmma_tf32_rs(acc, h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_lo);
-            wgmma_tf32_rs(acc, h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_hi);
+            const uint32_t b_run = base + (s / 4) * 2 * CO * 128 + (s % 4) * 32u;
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+              const uint64_t b_hi = smem_desc<128>(b_run + c * 32 * 128);
+              const uint64_t b_lo = smem_desc<128>(b_run + (CO + c * 32) * 128);
+              wgmma_tf32_rs(acc[c], l[4 * j], l[4 * j + 1], l[4 * j + 2], l[4 * j + 3], b_hi);
+              wgmma_tf32_rs(acc[c], h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_lo);
+              wgmma_tf32_rs(acc[c], h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_hi);
+            }
           }
           wgmma_commit();
         }
@@ -549,32 +592,50 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
           keep(ah[0][i]), keep(al[0][i]), keep(ah[1][i]), keep(al[1][i]);
         }
       } else {
-        uint32_t a[kRowsKSteps][4];
+        uint32_t a[kSteps][4];
 #pragma unroll
-        for (int s = 0; s < kRowsKSteps; ++s) {
-          const uint32_t lo = k_addr(16 * s, 16 * s + 2 * t);
-          const uint32_t hi = k_addr(16 * s, 16 * s + 2 * t + 8);
-          a[s][0] = lds32(lo + offa), a[s][1] = lds32(lo + offb);
-          a[s][2] = lds32(hi + offa), a[s][3] = lds32(hi + offb);
+        for (int s = 0; s < kSteps; ++s) {
+          if constexpr (K == 6) {
+            const uint32_t lo = k_addr(16 * s, 16 * s + 2 * t);
+            const uint32_t hi = k_addr(16 * s, 16 * s + 2 * t + 8);
+            a[s][0] = lds32(lo + offa), a[s][1] = lds32(lo + offb);
+            a[s][2] = lds32(hi + offa), a[s][3] = lds32(hi + offb);
+          } else {
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const uint32_t e0 = k_addr(16 * s, 16 * s + 2 * t + 8 * q);
+              const uint32_t e1 = k_addr(16 * s, 16 * s + 2 * t + 8 * q + 1);
+              a[s][2 * q] = lds16(e0 + offa) | (lds16(e1 + offa) << 16);
+              a[s][2 * q + 1] = lds16(e0 + offb) | (lds16(e1 + offb) << 16);
+            }
+          }
         }
         wgmma_fence();
 #pragma unroll
-        for (int s = 0; s < kRowsKSteps; ++s)
-          wgmma_bf16_rs(acc, a[s][0], a[s][1], a[s][2], a[s][3],
-                        smem_desc<128>(base + (s / 4) * kRowsCo * 128 + (s % 4) * 32u));
+        for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+            wgmma_bf16_rs(acc[c], a[s][0], a[s][1], a[s][2], a[s][3],
+                          smem_desc<128>(base + (s / 4) * CO * 128 + (s % 4) * 32u +
+                                         c * 32 * 128));
         wgmma_commit();
         wgmma_wait<0>();
 #pragma unroll
-        for (int s = 0; s < kRowsKSteps; ++s) {
+        for (int s = 0; s < kSteps; ++s) {
           keep(a[s][0]), keep(a[s][1]), keep(a[s][2]), keep(a[s][3]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 16; ++i) keep(acc[i]);
-      T* row = y + ((size_t)b * p.Ho + oy) * p.Wo * kRowsCo;
-      store_fragment(acc, oxa < p.Wo ? row + (size_t)oxa * kRowsCo : nullptr,
-                     oxb < p.Wo ? row + (size_t)oxb * kRowsCo : nullptr, 0, t,
-                     p.epilogue);
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) keep(acc[c][i]);
+      T* row = y + ((size_t)b * p.Ho + oy) * p.Wo * p.Co;
+      T* pa = oxa < p.Wo ? row + (size_t)oxa * p.Co : nullptr;
+      T* pb = oxb < p.Wo ? row + (size_t)oxb * p.Co : nullptr;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+        store_fragment(acc[c], pa ? pa + c * 32 : pa, pb ? pb + c * 32 : pb, c * 32, t,
+                       p.epilogue, p.Co);
     }
 
     // retire the rows the next step does not read
@@ -586,28 +647,29 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
   }
 }
 
-template <typename T>
+template <typename T, int K, int CO>
 int launch_rows(const void* x, const void* wp, void* y, RowParams p,
                 cudaStream_t stream) {
+  using G = RowsGeom<T, K>;
   constexpr int NWG = kRowsWarpgroups;
-  constexpr uint32_t kRowsWBytes = RowsK<T>::kWBytes;
+  constexpr uint32_t kWBytes = G::kRuns * G::kNB * CO * 128;
   constexpr int kRun = 128 / (int)sizeof(T);  // elements of a weight row
-  constexpr int kLive = 2 * NWG + 4, kNew = 2 * NWG;
+  constexpr int kLive = G::kStride * (NWG - 1) + K, kNew = G::kStride * NWG;
   constexpr int kMaxSmem = 227 * 1024;
   p.steps_per_image = (p.Ho + NWG - 1) / NWG;
   p.total_steps = p.steps_per_image * p.B;
   const int blocks = min(p.total_steps, sm_count());
   p.steps_per_block = (p.total_steps + blocks - 1) / blocks;
   // as many slots ahead of the live rows as fit, up to one step's worth
-  const int fixed = 1024 + (int)kRowsWBytes + 8 + (int)p.slot_bytes;  // + zero slot
+  const int fixed = 1024 + (int)kWBytes + 8 + (int)p.slot_bytes;  // + zero slot
   p.ring = min(kLive + kNew, (kMaxSmem - fixed) / ((int)p.slot_bytes + 16));
   if (p.ring <= kLive) return (int)cudaErrorInvalidValue;
   const int smem = fixed + p.ring * ((int)p.slot_bytes + 16);
 
   alignas(64) CUtensorMap map_w;
-  const cuuint64_t dims[2] = {kRun, (cuuint64_t)RowsK<T>::kBoxes * 2 * kRowsCo};
+  const cuuint64_t dims[2] = {kRun, (cuuint64_t)G::kRuns * G::kNB * CO};
   const cuuint64_t strides[1] = {128};
-  const cuuint32_t box[2] = {kRun, 2 * kRowsCo};
+  const cuuint32_t box[2] = {kRun, G::kNB * CO};
   const int rc = encode_tiled(&map_w,
                               sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -617,67 +679,89 @@ int launch_rows(const void* x, const void* wp, void* y, RowParams p,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        conv_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_rows_kernel<T, K, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int grid = (p.total_steps + p.steps_per_block - 1) / p.steps_per_block;
-  conv_rows_kernel<T><<<grid, NWG * 128 + 32, smem, stream>>>(
+  conv_rows_kernel<T, K, CO><<<grid, NWG * 128 + 32, smem, stream>>>(
       map_w, static_cast<const T*>(x), static_cast<T*>(y), p);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_rows(int k, int co_tile, const void* x, const void* wp, void* y,
+                  const RowParams& p, cudaStream_t st) {
+#define EOP_ROWS(CO)                                                       \
+  return k == 6 ? launch_rows<T, 6, CO>(x, wp, y, p, st)                   \
+                : launch_rows<T, 3, CO>(x, wp, y, p, st)
+  switch (co_tile) {
+    case 32: EOP_ROWS(32);
+    case 64: EOP_ROWS(64);
+    case 96: EOP_ROWS(96);
+  }
+#undef EOP_ROWS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Tensor-core variant for k in {1, 3}.  x [B, H, W, C] contiguous and 16-byte
-// aligned; wp the wrapper's packed weights (fp32: per (tap, run of 32
-// channels) [hi, lo][Co][32], K-permuted; bf16: per (tap, run) [Co][run]);
-// y [B, Ho, Wo, Co]; scale and shift fp32 [Co] or both null; act 0 or 1
-// (SiLU).  dtype 0 = float32, 1 = bfloat16.  Returns 0, a cudaError_t, or
-// 100000 + the CUresult of the tensor-map encoder.
+// aligned, C * sizeof(T) a multiple of 16; wp the wrapper's packed weights per
+// (tap, run of `run` channels, N tile of co_tile channels): fp32 [hi, lo]
+// [co_tile][32], K-permuted, bf16 [co_tile][run]; zero where the run passes
+// C or the tile passes Co.  run: 32 for fp32, 32 or 64 for bf16; co_tile 32,
+// 64, 96 or 128.  y [B, Ho, Wo, Co]; scale and shift fp32 [Co] or both null;
+// act 0 or 1 (SiLU).  dtype 0 = float32, 1 = bfloat16.  Returns 0, a
+// cudaError_t, or 100000 + the CUresult of the tensor-map encoder.
 extern "C" int phase_conv_taps(int dtype, const void* x, const void* wp, void* y,
                                const void* scale, const void* shift, int act,
                                int B, int H, int W, int C, int Co, int k,
-                               int stride, int pad, int Ho, int Wo, void* stream) {
-  const int run = dtype == 0 ? 32 : (C % 64 == 0 ? 64 : 32);
-  if ((k != 1 && k != 3) || C % run != 0 || (stride != 1 && stride != 2))
+                               int stride, int pad, int Ho, int Wo, int run,
+                               int co_tile, void* stream) {
+  const int es = dtype == 0 ? 4 : 2;
+  if ((k != 1 && k != 3) || (stride != 1 && stride != 2) || (C * es) % 16 != 0 ||
+      Co % 8 != 0 || (dtype == 0 && run != 32) || (dtype == 1 && run != 32 && run != 64) ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   TapParams p;
   p.H = H, p.W = W, p.C = C, p.Co = Co, p.k = k, p.pad = pad, p.Ho = Ho, p.Wo = Wo;
   p.tiles_x = (Wo + kTileW - 1) / kTileW;
   p.tiles_y = (Ho + kTileH - 1) / kTileH;
-  p.num_tiles = p.tiles_x * p.tiles_y * B;
-  p.cruns = C / run;
+  p.ntiles = (Co + co_tile - 1) / co_tile;
+  p.num_tiles = p.tiles_x * p.tiles_y * B * p.ntiles;
+  p.cruns = (C + run - 1) / run;
   p.epilogue = {static_cast<const float*>(scale), static_cast<const float*>(shift),
                 act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_taps<float, 128>(x, wp, y, B, stride, p, st);
-  if (dtype == 1)
-    return run == 64 ? dispatch_taps<__nv_bfloat16, 128>(x, wp, y, B, stride, p, st)
-                     : dispatch_taps<__nv_bfloat16, 64>(x, wp, y, B, stride, p, st);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_taps<float, 128>(x, wp, y, B, stride, co_tile, p, st);
+  return run == 64
+             ? dispatch_taps<__nv_bfloat16, 128>(x, wp, y, B, stride, co_tile, p, st)
+             : dispatch_taps<__nv_bfloat16, 64>(x, wp, y, B, stride, co_tile, p, st);
 }
 
-// Tensor-core variant for the 6x6/s2/p2 stem on 3 channels, 32 outputs.
-// x [B, H, W, 3] contiguous, 16-byte aligned, rows a multiple of 16 bytes; wp
-// the wrapper's packed weights over the flat K = (ky, kx, c), 108 padded to
-// 128 with zeros: fp32 as 4 runs of [hi, lo][32][32], K-permuted; bf16 as
-// 2 runs of [32][64].  dtype 0 = float32, 1 = bfloat16.
+// Tensor-core variant for the stems on 3 channels: k = 6 (stride 2, padding
+// 2) or k = 3 (stride 1, padding 1), Co up to co_tile (32, 64 or 96).  x
+// [B, H, W, 3] contiguous, 16-byte aligned, rows a multiple of 16 bytes; wp
+// the wrapper's packed weights over the flat K = (ky, kx, c), zero-padded to
+// whole runs and to co_tile outputs: fp32 runs of [hi, lo][co_tile][32],
+// K-permuted; bf16 runs of [co_tile][64].  dtype 0 = float32, 1 = bfloat16.
 extern "C" int phase_conv_rows(int dtype, const void* x, const void* wp, void* y,
                                const void* scale, const void* shift, int act,
-                               int B, int H, int W, int Ho, int Wo,
-                               void* stream) {
+                               int B, int H, int W, int Ho, int Wo, int k, int Co,
+                               int co_tile, void* stream) {
   const int es = dtype == 0 ? 4 : 2;
-  if ((W * kRowsC * es) % 16 != 0 || H % 2 != 0 || (dtype != 0 && dtype != 1))
+  if ((W * kRowsC * es) % 16 != 0 || (k != 6 && k != 3) || (k == 6 && H % 2 != 0) ||
+      Co % 8 != 0 || Co > co_tile || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   RowParams p;
-  p.B = B, p.H = H, p.W = W, p.Ho = Ho, p.Wo = Wo;
+  p.B = B, p.H = H, p.W = W, p.Ho = Ho, p.Wo = Wo, p.Co = Co;
   p.chunks_x = (Wo + 63) / 64;
   p.slot_bytes = (uint32_t)es * (kRowPadLeft + W * kRowsC + kRowPadRight);
   p.epilogue = {static_cast<const float*>(scale), static_cast<const float*>(shift),
                 act};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_rows<float>(x, wp, y, p, st)
-                    : launch_rows<__nv_bfloat16>(x, wp, y, p, st);
+  return dtype == 0 ? dispatch_rows<float>(k, co_tile, x, wp, y, p, st)
+                    : dispatch_rows<__nv_bfloat16>(k, co_tile, x, wp, y, p, st);
 }

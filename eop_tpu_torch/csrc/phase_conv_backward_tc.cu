@@ -22,15 +22,18 @@
 // K-major.  So
 //  * A = im2col(x)^T comes from registers: each block stages, per chunk of 32
 //    output pixels along one output row, the input row segments its M tile
-//    reads (TMA boxes, 128-byte swizzled runs of 32 channels; the stem's
-//    12-byte pixels as flat rows), and a thread reads its two dw rows'
-//    values at its fragment's pixels: tap and stride are address arithmetic;
+//    reads (TMA boxes, 128-byte swizzled runs of 32 channels, the last one
+//    zero-filled past C; the stems' 12-byte pixels as flat rows), and a
+//    thread reads its two dw rows' values at its fragment's pixels: tap and
+//    stride are address arithmetic;
 //  * B = dy^T is made K-major once per chunk: the block's threads read the
-//    staged [32 pixels x Co] dy box and write it as swizzled [Co][32 pixels]
+//    staged [32 pixels x CO] dy box of its N tile (CO of at most 128 output
+//    channels, zero-filled past Co) and write it as swizzled [CO][32 pixels]
 //    rows (split into hi and lo for fp32), shared by every dw row of the tile;
-//  * an M tile is the rows of whole ky values (k*C per ky; the stem's 108
-//    rows in one tile), one warpgroup per 64 rows, so the staged x is what the
-//    tile reads and nothing more;
+//  * an M tile is the rows of whole ky values (k*C per ky; the stems' rows in
+//    one tile), one warpgroup per 64 rows, so the staged x is what the tile
+//    reads and nothing more; where one ky has more than 192 rows (C above 64
+//    at k = 3) it is cut into parts of 128 rows that stage the same row;
 //  * split-K over the chunks: block (M tile, split) walks a contiguous range
 //    of chunks through a ring of 2 to 4 stages, the copies of the next
 //    chunks in flight behind this one's products, and writes its sum to
@@ -144,10 +147,12 @@ constexpr int kChunk = 32;  // output pixels of a chunk: one K row of B
 struct WgradParams {
   int H, W, C, Co, k, stride, pad, Ho, Wo;
   int nky;      // ky values of an M tile
-  int rows;     // dw rows of an M tile: nky * k * C
+  int mparts;   // M tiles over one group of nky ky values
+  int rows;     // dw rows of one group of nky ky values: nky * k * C
   int K;        // dw rows: k * k * C
   int span;     // input pixels a chunk reads along one row
   int cruns;    // boxes per staged input row: runs of 32 channels, or 1
+  int ntiles;   // N tiles of CO output channels
   int flat_box;  // FLAT: elements of a staged row segment
   int cpr;      // chunks per output row
   int chunks, chunks_per_split;
@@ -155,16 +160,17 @@ struct WgradParams {
   uint32_t box_bytes, x_bytes, dy_bytes, stage_bytes, tx_bytes;
 };
 
-// dw = sum over pixel chunks of A^T B: NWG warpgroups, 64 dw rows each; CO
-// output channels; FLAT stages whole input rows of the flat [W * C] view.
+// dw = sum over pixel chunks of A^T B: NWG warpgroups, 64 dw rows each; an N
+// tile of CO output channels; FLAT stages whole input rows of the flat
+// [W * C] view.  Block (M tile, split, N tile).
 template <typename T, int NWG, int CO, bool FLAT>
-__global__ void __launch_bounds__(NWG * 128, (CO == 128 || NWG == 3) ? 1 : 2)
+__global__ void __launch_bounds__(NWG * 128, (CO >= 96 || NWG == 3) ? 1 : 2)
 wgrad_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                 const __grid_constant__ CUtensorMap map_dy,
                 float* __restrict__ part, const WgradParams p) {
   constexpr int ES = sizeof(T);
   constexpr int ROWB = kChunk * ES;  // a B row: 32 pixels
-  constexpr int NI = CO >= 64 ? 64 : 32, NCH = CO / NI;
+  constexpr int NI = CO % 64 == 0 ? 64 : 32, NCH = CO / NI;
   constexpr int kThreadsW = NWG * 128;
 
   extern __shared__ uint8_t smem_raw[];
@@ -175,7 +181,9 @@ wgrad_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
-  const int ky0 = blockIdx.x * p.nky;
+  const int ky0 = blockIdx.x / p.mparts * p.nky;
+  const int r_first = blockIdx.x % p.mparts * (NWG * 64);  // within the ky group
+  const int nt = blockIdx.z;
   const int c_begin = blockIdx.y * p.chunks_per_split;
   const int n = min(p.chunks_per_split, p.chunks - c_begin);
 
@@ -192,7 +200,7 @@ wgrad_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   const int kc = p.k * p.C;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = wg * 64 + w * 16 + g + 8 * i;
+    const int r = r_first + wg * 64 + w * 16 + g + 8 * i;
     ok[i] = r < p.rows;
     const int rr = ok[i] ? r : 0;
     const int kyl = rr / kc, rem = rr - kyl * kc;
@@ -259,7 +267,7 @@ wgrad_tc_kernel(const __grid_constant__ CUtensorMap map_x,
                       cr * 32, ix0, iy, b);
       }
     }
-    tma_load_4d(xs + p.x_bytes, &map_dy, bar, 0, wo0, ho, b);
+    tma_load_4d(xs + p.x_bytes, &map_dy, bar, nt * CO, wo0, ho, b);
   };
 
   float total[NCH][NI / 2];
@@ -360,15 +368,15 @@ wgrad_tc_kernel(const __grid_constant__ CUtensorMap map_x,
       }
   }
 
-  float* out = part + (size_t)blockIdx.y * p.K * CO;
-  const int r0 = ky0 * kc + wg * 64 + w * 16 + g;
-  float* pa = ok[0] ? out + (size_t)r0 * CO : nullptr;
-  float* pb = ok[1] ? out + (size_t)(r0 + 8) * CO : nullptr;
+  float* out = part + (size_t)blockIdx.y * p.K * p.Co + nt * CO;
+  const int r0 = ky0 * kc + r_first + wg * 64 + w * 16 + g;
+  float* pa = ok[0] ? out + (size_t)r0 * p.Co : nullptr;
+  float* pb = ok[1] ? out + (size_t)(r0 + 8) * p.Co : nullptr;
   const Epilogue none{nullptr, nullptr, 0};
 #pragma unroll
   for (int c = 0; c < NCH; ++c)
     store_fragment(total[c], pa ? pa + c * NI : pa, pb ? pb + c * NI : pb,
-                   c * NI, t, none);
+                   nt * CO + c * NI, t, none, p.Co);
 }
 
 // dw[i] = part[0][i] + part[1][i] + ... in that order.
@@ -412,10 +420,10 @@ int launch_wgrad_tc(const void* x, const void* dy, float* part, int B,
   }
   if (rc != 0) return kEncodeError + rc;
   {
-    const cuuint64_t dims[4] = {(cuuint64_t)CO, (cuuint64_t)p.Wo, (cuuint64_t)p.Ho,
-                                (cuuint64_t)B};
-    const cuuint64_t strides[3] = {CO * es, (cuuint64_t)p.Wo * CO * es,
-                                   (cuuint64_t)p.Ho * p.Wo * CO * es};
+    const cuuint64_t co = p.Co;
+    const cuuint64_t dims[4] = {co, (cuuint64_t)p.Wo, (cuuint64_t)p.Ho, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {co * es, (cuuint64_t)p.Wo * co * es,
+                                   (cuuint64_t)p.Ho * p.Wo * co * es};
     const cuuint32_t box[4] = {CO, kChunk, 1, 1};
     rc = encode_tiled(&map_dy, map_type<T>(), 4, dy, dims, strides, box,
                       CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -431,7 +439,8 @@ int launch_wgrad_tc(const void* x, const void* dy, float* part, int B,
     if (e != cudaSuccess) return (int)e;
     configured = smem;
   }
-  kernel<<<dim3(mtiles, splits), NWG * 128, smem, stream>>>(map_x, map_dy, part, p);
+  kernel<<<dim3(mtiles, splits, p.ntiles), NWG * 128, smem, stream>>>(map_x, map_dy,
+                                                                     part, p);
   return (int)cudaGetLastError();
 }
 
@@ -449,20 +458,26 @@ int dispatch_wgrad_nwg(int nwg, const void* x, const void* dy, float* part, int 
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int dispatch_wgrad(int nwg, bool flat, const void* x, const void* dy, float* part,
-                   int B, const WgradParams& p, int mtiles, int splits,
-                   cudaStream_t st) {
-  if (flat)
-    return p.Co == 32 ? dispatch_wgrad_nwg<T, 32, true>(nwg, x, dy, part, B, p, mtiles,
-                                                        splits, st)
-                      : (int)cudaErrorInvalidValue;
-  switch (p.Co) {
-    case 32: return dispatch_wgrad_nwg<T, 32, false>(nwg, x, dy, part, B, p, mtiles, splits, st);
-    case 64: return dispatch_wgrad_nwg<T, 64, false>(nwg, x, dy, part, B, p, mtiles, splits, st);
-    case 128: return dispatch_wgrad_nwg<T, 128, false>(nwg, x, dy, part, B, p, mtiles, splits, st);
+template <typename T, bool FLAT>
+int dispatch_wgrad_co(int nwg, int co_tile, const void* x, const void* dy, float* part,
+                      int B, const WgradParams& p, int mtiles, int splits,
+                      cudaStream_t st) {
+  switch (co_tile) {
+    case 32: return dispatch_wgrad_nwg<T, 32, FLAT>(nwg, x, dy, part, B, p, mtiles, splits, st);
+    case 64: return dispatch_wgrad_nwg<T, 64, FLAT>(nwg, x, dy, part, B, p, mtiles, splits, st);
+    case 96: return dispatch_wgrad_nwg<T, 96, FLAT>(nwg, x, dy, part, B, p, mtiles, splits, st);
+    case 128: return dispatch_wgrad_nwg<T, 128, FLAT>(nwg, x, dy, part, B, p, mtiles, splits, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_wgrad(int nwg, bool flat, int co_tile, const void* x, const void* dy,
+                   float* part, int B, const WgradParams& p, int mtiles, int splits,
+                   cudaStream_t st) {
+  return flat ? dispatch_wgrad_co<T, true>(nwg, co_tile, x, dy, part, B, p, mtiles, splits, st)
+              : dispatch_wgrad_co<T, false>(nwg, co_tile, x, dy, part, B, p, mtiles, splits,
+                                            st);
 }
 
 // ============================================================== data gradient
@@ -751,27 +766,34 @@ extern "C" int phase_conv_pack_taps(int dtype, const void* w, void* out,
 
 // Weight gradient on the tensor cores.  x [B, H, W, C], dy [B, Ho, Wo, Co],
 // dw [k, k, C, Co], contiguous, 16-byte aligned, one type (dtype 0 = float32,
-// 1 = bfloat16); part fp32 scratch [splits, k*k*C*Co].  The host's plan:
-// M tiles of nky ky values and wgs warpgroups (64 dw rows each), flat = 1 to
-// stage x as flat rows (C no multiple of 32), splits blocks per M tile over
-// chunks of 32 output pixels, chunks_per_split each.  Launches the partial
-// sums and the ordered reduction; returns the first error that is not 0.
+// 1 = bfloat16), Co a multiple of 8; part fp32 scratch [splits, k*k*C*Co].
+// The host's plan: M tiles of nky ky values and wgs warpgroups (64 dw rows
+// each), mparts of them over one group of ky values; flat = 1 to stage x as
+// flat rows (C no multiple of 8), else C * sizeof(T) a multiple of 16; N
+// tiles of co_tile (32, 64, 96, 128) output channels; splits blocks per
+// (M tile, N tile) over chunks of 32 output pixels, chunks_per_split each.
+// Launches the partial sums and the ordered reduction; returns the first
+// error that is not 0.
 extern "C" int phase_conv_wgrad_tc(int dtype, const void* x, const void* dy,
                                    void* dw, void* part, int splits,
                                    int chunks_per_split, int nky, int wgs,
-                                   int flat, int B, int H, int W, int C, int Co,
-                                   int k, int stride, int pad, int Ho, int Wo,
-                                   void* stream) {
+                                   int flat, int mparts, int co_tile, int B, int H,
+                                   int W, int C, int Co, int k, int stride, int pad,
+                                   int Ho, int Wo, void* stream) {
   const int es = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || k % nky != 0 || wgs < 1 || wgs > 3)
+  if ((dtype != 0 && dtype != 1) || k % nky != 0 || wgs < 1 || wgs > 3 ||
+      mparts < 1 || Co % 8 != 0 || co_tile < 1)
     return (int)cudaErrorInvalidValue;
   WgradParams p;
   p.H = H, p.W = W, p.C = C, p.Co = Co, p.k = k, p.stride = stride, p.pad = pad;
   p.Ho = Ho, p.Wo = Wo;
   p.nky = nky;
+  p.mparts = mparts;
   p.rows = nky * k * C;
   p.K = k * k * C;
-  if (p.rows > 64 * wgs || (!flat && C % 32 != 0)) return (int)cudaErrorInvalidValue;
+  p.ntiles = (Co + co_tile - 1) / co_tile;
+  if (p.rows > 64 * wgs * mparts || (!flat && (C * es) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
   p.span = stride * (kChunk - 1) + k;
   const int span_rows = (p.span + 7) & ~7;  // swizzle atoms of 8 rows
   const int align = 16 / es;  // elements of 16 bytes
@@ -783,31 +805,33 @@ extern "C" int phase_conv_wgrad_tc(int dtype, const void* x, const void* dy,
     if (p.flat_box > 256) return (int)cudaErrorInvalidValue;
     p.box_bytes = (uint32_t)((p.flat_box * es + 127) & ~127);
   } else {
-    p.cruns = C / 32;
+    p.cruns = (C + 31) / 32;
     p.box_bytes = (uint32_t)(span_rows * 32 * es);
   }
   p.x_bytes = (uint32_t)((nky * p.cruns * p.box_bytes + 1023) & ~1023u);
-  p.dy_bytes = (uint32_t)((kChunk * Co * es + 1023) & ~1023);
-  const uint32_t b_bytes = (uint32_t)((dtype == 0 ? 2 : 1) * Co * kChunk * es);
+  p.dy_bytes = (uint32_t)((kChunk * co_tile * es + 1023) & ~1023);
+  const uint32_t b_bytes = (uint32_t)((dtype == 0 ? 2 : 1) * co_tile * kChunk * es);
   p.stage_bytes = (p.x_bytes + p.dy_bytes + b_bytes + 1023u) & ~1023u;
   // as deep a ring as the blocks an SM holds (4 / wgs of them) leave room
   // for, 2 to 4 stages: a chunk's copies are issued stages - 1 chunks ahead
   const int per_block = (220 * 1024) / (4 / wgs > 0 ? 4 / wgs : 1);
   p.stages = max(2, min(4, per_block / (int)p.stage_bytes));
+  if (1024 + p.stages * ((int)p.stage_bytes + 8) > 227 * 1024)
+    return (int)cudaErrorInvalidValue;
   const uint32_t x_box = flat ? (uint32_t)(p.flat_box * es) : (uint32_t)(p.span * 32 * es);
-  p.tx_bytes = (uint32_t)(nky * p.cruns) * x_box + (uint32_t)(kChunk * Co * es);
+  p.tx_bytes = (uint32_t)(nky * p.cruns) * x_box + (uint32_t)(kChunk * co_tile * es);
   p.cpr = (Wo + kChunk - 1) / kChunk;
   p.chunks = B * Ho * p.cpr;
   p.chunks_per_split = chunks_per_split;
   if ((long long)splits * chunks_per_split < p.chunks || splits < 1)
     return (int)cudaErrorInvalidValue;
-  const int mtiles = k / nky;
+  const int mtiles = k / nky * mparts;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pp = static_cast<float*>(part);
-  int err = dtype == 0
-                ? dispatch_wgrad<float>(wgs, flat != 0, x, dy, pp, B, p, mtiles, splits, st)
-                : dispatch_wgrad<__nv_bfloat16>(wgs, flat != 0, x, dy, pp, B, p, mtiles,
-                                                splits, st);
+  int err = dtype == 0 ? dispatch_wgrad<float>(wgs, flat != 0, co_tile, x, dy, pp, B, p,
+                                               mtiles, splits, st)
+                       : dispatch_wgrad<__nv_bfloat16>(wgs, flat != 0, co_tile, x, dy, pp,
+                                                       B, p, mtiles, splits, st);
   if (err != 0) return err;
   const int n = p.K * Co;
   if (dtype == 0)

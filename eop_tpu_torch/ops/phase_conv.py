@@ -10,10 +10,12 @@ side and the kernels apply in their epilogue:
 * a CUDA tensor goes to a hand-written kernel or raises.  The variant is
   chosen from shape and type alone (:func:`kernel_variant`):
   ``wgmma_taps`` (``csrc/phase_conv.cu``: TMA ring, tensor cores, 1x1 and 3x3
-  convs on multiples of 32 channels), ``wgmma_rows`` (same file: the 6x6/s2
-  stem on 3 channels) or ``direct`` (``csrc/phase_conv_direct.cu``: CUDA
-  cores, any shape the predicate admits).  ``phase_conv.last_variant`` names
-  the one that ran last;
+  convs with C and Co multiples of 8: channel runs zero-filled past C, Co in
+  N tiles of at most 128, :func:`taps_run`, :func:`co_tiles`), ``wgmma_rows``
+  (same file: the 6x6/s2 and 3x3/s1 stems on 3 channels, Co up to 96) or
+  ``direct`` (``csrc/phase_conv_direct.cu``: CUDA cores, any shape the
+  predicate admits).  ``phase_conv.last_variant`` names the one that ran
+  last;
 * a CPU tensor goes to :func:`phase_conv_reference`, which reproduces the
   JAX re-expression step by step — space-to-depth, the scattered phase
   kernel, then a stride-1 convolution — so the CPU tests hold the port's
@@ -143,44 +145,111 @@ K_ORDER = {
 }
 
 
+def taps_run(c: int, dtype: torch.dtype) -> int:
+    """Channels of one K run of ``wgmma_taps`` (one 128- or 64-byte swizzled
+    row): 32 in fp32; in bf16 64 where that pads C no further than runs of 32
+    do, else 32.  The last run reads zeros (or, at stride 2, the next phase's
+    channels) past C, against zero weights."""
+    if dtype == torch.float32:
+        return 32
+    return 64 if -(-c // 64) * 64 <= -(-c // 32) * 32 else 32
+
+
+def co_tiles(co: int) -> Tuple[int, int]:
+    """``(tile, tiles)``: the tensor-core kernels cut Co into ``tiles`` N tiles
+    of ``tile`` channels (32, 64, 96 or 128): as few tiles as a width of 128
+    allows, each the multiple of 32 that holds its share; the last tile's
+    channels past Co are zero weights (forward) or zero dy (weight gradient)
+    and are not stored."""
+    n = -(-co // 128)
+    return -(-co // (32 * n)) * 32, n
+
+
 def _pack_taps(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[k, k, C, Co]`` -> per (tap, run of channels) K-major tiles.
-    fp32: ``[k*k, C/32, 2 (hi, lo), Co, 32]``, K permuted by ``K_ORDER``;
-    bf16: ``[k*k, C/run, Co, run]`` with run 64 when C allows, else 32."""
+    """HWIO ``[k, k, C, Co]`` -> per (tap, run of channels, N tile) K-major
+    tiles, zero past C and past Co (:func:`taps_run`, :func:`co_tiles`).
+    fp32: ``[k*k, runs, tiles * 2 (tile, hi / lo), tile, 32]``, K permuted by
+    ``K_ORDER``; bf16: ``[k*k, runs, tiles * tile, run]``."""
     taps, c, co = w.shape[0] * w.shape[1], w.shape[2], w.shape[3]
+    run = taps_run(c, w.dtype)
+    tile, nt = co_tiles(co)
+    runs = -(-c // run)
+    wp = w.new_zeros((taps, runs * run, nt * tile))
+    wp[:, :c, :co] = w.reshape(taps, c, co)
+    wp = wp.reshape(taps, runs, run, nt, tile)
     if w.dtype == torch.float32:
-        both = torch.stack(split_tf32(w)).reshape(2, taps, c // 32, 32, co)
-        both = both[:, :, :, K_ORDER["wgmma_taps"], :]
-        return both.permute(1, 2, 0, 4, 3).contiguous()
-    run = 64 if c % 64 == 0 else 32
-    return w.reshape(taps, c // run, run, co).permute(0, 1, 3, 2).contiguous()
+        both = torch.stack(split_tf32(wp))[:, :, :, K_ORDER["wgmma_taps"]]
+        return both.permute(1, 2, 4, 0, 5, 3).reshape(
+            taps, runs, nt * 2, tile, run).contiguous()
+    return wp.permute(0, 1, 3, 4, 2).reshape(taps, runs, nt * tile,
+                                             run).contiguous()
+
+
+def _rows_runs(k: int, c: int, dtype: torch.dtype) -> int:
+    """128-byte weight runs of ``wgmma_rows`` over the flat K of k * k * c."""
+    return -(-k * k * c // (32 if dtype == torch.float32 else 64))
 
 
 def _pack_rows(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[6, 6, 3, 32]`` -> K-major runs over the flat K index
-    ``18 ky + 3 kx + c`` (within one ky, the order an NHWC row has), 108
-    values zero-padded to 128.  fp32: ``[4, 2 (hi, lo), Co, 32]``, each run K
-    permuted by ``K_ORDER``; bf16: ``[2, Co, 64]``."""
+    """HWIO ``[k, k, 3, Co]`` (the 6x6 and 3x3 stems) -> K-major runs over
+    the flat K index ``3k ky + 3 kx + c`` (within one ky, the order an NHWC
+    row has), zero-padded to whole runs and to the N tile.  fp32:
+    ``[runs, 2 (hi, lo), tile, 32]``, each run K permuted by ``K_ORDER``;
+    bf16: ``[runs, tile, 64]``."""
     k, _, c, co = w.shape
-    flat = w.new_zeros((128, co))
-    flat[: k * k * c] = w.reshape(k * k * c, co)
+    tile, _ = co_tiles(co)
+    runs = _rows_runs(k, c, w.dtype)
+    per = 32 if w.dtype == torch.float32 else 64
+    flat = w.new_zeros((runs * per, tile))
+    flat[: k * k * c, :co] = w.reshape(k * k * c, co)
     if w.dtype != torch.float32:
-        return flat.reshape(2, 64, co).permute(0, 2, 1).contiguous()
-    both = torch.stack(split_tf32(flat)).reshape(2, 4, 32, co)
+        return flat.reshape(runs, 64, tile).permute(0, 2, 1).contiguous()
+    both = torch.stack(split_tf32(flat)).reshape(2, runs, 32, tile)
     both = both[:, :, K_ORDER["wgmma_rows"], :]
     return both.permute(1, 0, 3, 2).contiguous()
 
 
+# (k, stride, padding, C) of the stems wgmma_rows takes
+ROWS_STEMS = ((6, 2, 2, 3), (3, 1, 1, 3))
+# 1x1 convs with C * Co at most this keep the CUDA-core forward: YOLOX-Nano's
+# 16-channel ones (16->32, 32->16, 16->16 at 104 x 104, batch 8) measured
+# slower on wgmma_taps (H100, chip_smoke.py's zoo phases; PERF.md); their
+# weight gradients measured faster on the tensor cores and take them
+SMALL_1X1 = 512
+_SMEM_BLOCK = 227 * 1024  # shared memory a block may use on Hopper
+
+
+def _rows_fit(wd: int, co: int, k: int, dtype: torch.dtype) -> bool:
+    """Whether ``conv_rows_kernel``'s shared memory holds the weights, a slot
+    of zeros and more than one step's input rows of width ``wd`` (its
+    ``launch_rows``, to the byte)."""
+    es = 4 if dtype == torch.float32 else 2
+    if (wd * 3 * es) % 16:
+        return False
+    s, nwg = (2 if k == 6 else 1), 4
+    live, new = s * (nwg - 1) + k, s * nwg
+    slot = es * (8 + 3 * wd + 16)
+    wbytes = (_rows_runs(k, 3, dtype) * (2 if es == 4 else 1)
+              * co_tiles(co)[0] * 128)
+    fixed = 1024 + wbytes + 8 + slot
+    return min(live + new, (_SMEM_BLOCK - fixed) // (slot + 16)) > live
+
+
 def kernel_variant(x_shape, w_shape, stride: int, padding: int,
                    dtype: torch.dtype) -> str:
-    """Which hand-written kernel a CUDA tensor of this shape and type takes."""
+    """Which hand-written kernel a CUDA tensor of this shape and type takes:
+    ``wgmma_taps`` for 1x1 and 3x3 convs with C and Co multiples of 8 (but
+    the 1x1 convs of :data:`SMALL_1X1`), ``wgmma_rows`` for the stems on 3
+    channels with Co up to 96 where a row is 16-byte aligned, else
+    ``direct``."""
     _, _, wd, c = x_shape
     k, _, _, co = w_shape
-    if k in (1, 3) and c % 32 == 0 and co in (32, 64, 128):
+    if co % 8:
+        return "direct"
+    if (k == 3 or (k == 1 and c * co > SMALL_1X1)) and c % 8 == 0:
         return "wgmma_taps"
-    row_bytes = wd * c * (4 if dtype == torch.float32 else 2)
-    if ((k, stride, padding, c, co) == (6, 2, 2, 3, 32)
-            and row_bytes % 16 == 0 and wd <= 1024):
+    if ((k, stride, padding, c) in ROWS_STEMS and co <= 96
+            and _rows_fit(wd, co, k, dtype)):
         return "wgmma_rows"
     return "direct"
 
@@ -358,10 +427,10 @@ _INTS = ctypes.POINTER(ctypes.c_int)
 _SYMBOLS = {
     "wgmma_taps": ("phase_conv", "phase_conv_taps",
                    [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
-                   + _SHAPE_ARGS + [ctypes.c_void_p]),
+                   + _SHAPE_ARGS + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "wgmma_rows": ("phase_conv", "phase_conv_rows",
                    [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
     "direct": ("phase_conv_direct", "phase_conv_direct",
                [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
                + _SHAPE_ARGS + [ctypes.c_void_p]),
@@ -374,7 +443,7 @@ _SYMBOLS = {
               [ctypes.c_int] + [ctypes.c_void_p] * 3 + _SHAPE_ARGS
               + [ctypes.c_void_p]),
     "wgrad_tc": ("phase_conv_backward_tc", "phase_conv_wgrad_tc",
-                 [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                 [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                  + _SHAPE_ARGS + [ctypes.c_void_p]),
     "dgrad_tc": ("phase_conv_backward_tc", "phase_conv_dgrad_tc",
                  [ctypes.c_int] + [ctypes.c_void_p] * 3 + [_INTS, _INTS]
@@ -415,15 +484,17 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
         raise ValueError("tensors must be 16-byte aligned for the bulk copies")
 
 
-def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None):
+def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None,
+                    direct=False):
     """Launch the forward kernel for checked CUDA arguments, on ``packed``
-    tensor-core weights where given (``w`` then only lends its shape);
-    returns (y, variant)."""
+    tensor-core weights where given (``w`` then only lends its shape), on
+    the CUDA-core ``direct`` kernel where ``direct``; returns (y, variant)."""
     b, h, wd, c = x.shape
     k, co = w.shape[0], w.shape[3]
     ho, wo = out_hw(h, wd, k, stride, padding)
     y = torch.empty((b, ho, wo, co), dtype=x.dtype, device=x.device)
-    variant = kernel_variant(x.shape, w.shape, stride, padding, x.dtype)
+    variant = ("direct" if direct else
+               kernel_variant(x.shape, w.shape, stride, padding, x.dtype))
     if y.numel() == 0:
         return y, variant
     if variant != "direct":
@@ -437,8 +508,12 @@ def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None):
             wp = packed
         else:
             wp = w if variant == "direct" else packed_weights(w, variant)
-        shape = ((b, h, wd, ho, wo) if variant == "wgmma_rows" else
-                 (b, h, wd, c, co, k, stride, padding, ho, wo))
+        if variant == "wgmma_rows":
+            shape = (b, h, wd, ho, wo, k, co, co_tiles(co)[0])
+        else:
+            shape = (b, h, wd, c, co, k, stride, padding, ho, wo)
+        if variant == "wgmma_taps":
+            shape += (taps_run(c, x.dtype), co_tiles(co)[0])
         err = _kernel(variant)(_DTYPE_CODES[x.dtype], x.data_ptr(),
                                wp.data_ptr(), y.data_ptr(), *epilogue, *shape,
                                stream)
@@ -451,26 +526,60 @@ def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None):
 WGRAD_CHUNK = 32  # output pixels of one chunk of the tensor-core weight gradient
 
 
+def _wgrad_stage_bytes(c: int, co: int, k: int, stride: int, nky: int,
+                       flat: bool, es: int) -> int:
+    """Shared memory of one ring stage of ``wgrad_tc_kernel`` (its host
+    function's arithmetic): the staged x of an M tile, the dy box of an N
+    tile and its K-major copy (hi and lo in fp32), each 1024-aligned."""
+    tile, _ = co_tiles(co)
+    span = stride * (WGRAD_CHUNK - 1) + k
+    if flat:
+        align = 16 // es
+        box = -(-span * c // align) * align + align
+        x_bytes = nky * ((box * es + 127) & ~127)
+    else:
+        x_bytes = nky * -(-c // 32) * ((span + 7) & ~7) * 32 * es
+
+    def up(v):
+        return (v + 1023) & ~1023
+
+    b_bytes = (2 if es == 4 else 1) * tile * WGRAD_CHUNK * es
+    return up(up(x_bytes) + up(WGRAD_CHUNK * tile * es) + b_bytes)
+
+
 def wgrad_tiles(x_shape, co: int, k: int, stride: int,
                 dtype: torch.dtype) -> Optional[Tuple[int, int, bool]]:
     """M tiling of the tensor-core weight gradient, ``(nky, warpgroups,
     flat)``: an M tile holds the dw rows of ``nky`` whole ky values (k * C
-    rows each, 64 per warpgroup); ``flat`` stages x as flat row segments (C
-    no multiple of 32).  None where the kernel does not take the shape."""
+    rows each, 64 per warpgroup), or, where one ky has more than 192 rows, a
+    part of 128 of them (:func:`wgrad_mparts`); ``flat`` stages x as flat
+    row segments (C no multiple of 8), else runs of 32 channels zero-filled
+    past C.  Co (a multiple of 8) goes in the N tiles of :func:`co_tiles`.
+    None where the kernel does not take the shape."""
     _, _, wd, c = x_shape
     es = 4 if dtype == torch.float32 else 2
-    if co not in (32, 64, 128):
+    if co % 8:
         return None
-    if c % 32 == 0:
-        return (1, -(-k * c // 64), False) if k * c <= 192 else None
-    # a staged row segment: the chunk's input pixels from the 16-byte
-    # boundary before the first, at most 256 elements (one bulk copy box)
-    span = stride * (WGRAD_CHUNK - 1) + k
-    box = -(-span * c // (16 // es)) * (16 // es) + 16 // es
-    if (co == 32 and k * k * c <= 128 and box <= 256
-            and wd * c * es % 16 == 0):
-        return k, -(-k * k * c // 64), True
-    return None
+    if c % 8 == 0:
+        plan = (1, -(-k * c // 64) if k * c <= 192 else 2, False)
+    else:
+        # a staged row segment: the chunk's input pixels from the 16-byte
+        # boundary before the first, at most 256 elements (one bulk copy box)
+        span = stride * (WGRAD_CHUNK - 1) + k
+        box = -(-span * c // (16 // es)) * (16 // es) + 16 // es
+        if not (k * k * c <= 128 and box <= 256 and wd * c * es % 16 == 0):
+            return None
+        plan = (k, -(-k * k * c // 64), True)
+    # a ring of two stages at the least
+    stage = _wgrad_stage_bytes(c, co, k, stride, plan[0], plan[2], es)
+    return plan if 1024 + 2 * (stage + 8) <= _SMEM_BLOCK else None
+
+
+def wgrad_mparts(c: int, k: int, tiles: Tuple[int, int, bool]) -> int:
+    """M tiles over one group of ``nky`` ky values: 1 unless a ky's k * C dw
+    rows are more than the tile's ``64 * warpgroups``."""
+    nky, wgs, _ = tiles
+    return -(-nky * k * c // (64 * wgs))
 
 
 def wgrad_variant(x_shape, co: int, k: int, stride: int,
@@ -535,17 +644,21 @@ def phase_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if variant == "wgmma":
-            nky, wgs, flat = wgrad_tiles(x.shape, co, k, stride, x.dtype)
+            tiles = wgrad_tiles(x.shape, co, k, stride, x.dtype)
+            nky, wgs, flat = tiles
+            mparts = wgrad_mparts(c, k, tiles)
+            tile, ntiles = co_tiles(co)
             _check_aligned(x, dy)
             chunks = b * ho * -(-wo // WGRAD_CHUNK)
-            splits, per = wgrad_split_plan(chunks, k // nky,
+            splits, per = wgrad_split_plan(chunks, k // nky * mparts * ntiles,
                                            _sm_count(x.device), wgs)
             part = torch.empty((splits, dw.numel()), dtype=torch.float32,
                                device=x.device)
             err = _kernel("wgrad_tc")(
                 _DTYPE_CODES[x.dtype], x.data_ptr(), dy.data_ptr(),
                 dw.data_ptr(), part.data_ptr(), splits, per, nky, wgs,
-                int(flat), b, h, wd, c, co, k, stride, padding, ho, wo, stream)
+                int(flat), mparts, tile, b, h, wd, c, co, k, stride, padding,
+                ho, wo, stream)
         else:
             splits = _kernel("wgrad_splits")(c, co, k, b * ho,
                                              _sm_count(x.device))
@@ -559,6 +672,7 @@ def phase_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, stride: int,
         raise RuntimeError(f"phase_conv_wgrad ({variant}) launch failed: "
                            f"error {err}")
     phase_conv.wgrad_launches += 1
+    _count(phase_conv.wgrad_variant_launches, variant)
     phase_conv.last_wgrad_variant = variant
     return dw
 
@@ -581,18 +695,14 @@ def dgrad_class_plan(k: int, padding: int):
 
 def dgrad_variant(dy_shape, w_shape, stride: int, padding: int,
                   dtype: torch.dtype) -> str:
-    """Which kernel the data gradient of a CUDA tensor takes: at stride 1 the
-    forward kernel on the flipped weights (``"flipped:<variant>"``) where a
-    tensor-core variant takes that shape; at stride 2 ``"wgmma_classes"``
-    (1x1 and 3x3, C in 32, 64, 128, Co a multiple of 32); else
-    ``"cuda_cores"``."""
+    """Which kernel the data gradient of a CUDA tensor takes: 1x1 and 3x3
+    convs with Co a multiple of 32 and C in 32, 64, 128 take the tensor
+    cores, at stride 1 the forward's ``wgmma_taps`` on the flipped weights
+    (``"flipped:wgmma_taps"``), at stride 2 ``"wgmma_classes"``; else
+    ``"cuda_cores"`` (the packing kernel takes Co in runs of 32 only)."""
     k, _, c, co = w_shape
-    if stride == 1:
-        fwd = kernel_variant(dy_shape, (k, k, co, c), 1, padding, dtype)
-        if fwd != "direct":
-            return f"flipped:{fwd}"
-    elif k in (1, 3) and co % 32 == 0 and c in (32, 64, 128):
-        return "wgmma_classes"
+    if k in (1, 3) and co % 32 == 0 and c in (32, 64, 128):
+        return "flipped:wgmma_taps" if stride == 1 else "wgmma_classes"
     return "cuda_cores"
 
 
@@ -657,6 +767,7 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
             raise RuntimeError(f"phase_conv_dgrad ({variant}) launch failed: "
                                f"error {err}")
     phase_conv.dgrad_launches += 1
+    _count(phase_conv.dgrad_variant_launches, variant)
     phase_conv.last_dgrad_variant = variant
     return dx
 
@@ -676,6 +787,7 @@ class PhaseConvFunction(torch.autograd.Function):
         y, variant = _launch_forward(x, w, stride, padding, None, None, None)
         if y.numel():
             phase_conv.launches += 1
+            _count(phase_conv.variant_launches, variant)
             phase_conv.last_variant = variant
         return y
 
@@ -694,10 +806,14 @@ class PhaseConvFunction(torch.autograd.Function):
         return dx, dw, None, None
 
 
+def _count(counts: Dict[str, int], variant: str) -> None:
+    counts[variant] = counts.get(variant, 0) + 1
+
+
 def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None,
-               act: Optional[str] = None) -> torch.Tensor:
+               act: Optional[str] = None, _direct: bool = False) -> torch.Tensor:
     """NHWC x HWIO conv with symmetric ``padding``; semantics of
     ``lax.conv_general_dilated`` (and of the JAX ``phase_conv``), then
     ``* scale + shift`` (fp32 ``[Co]``) and ``act`` (``"silu"``) where given.
@@ -707,11 +823,16 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     raises.  Differentiable in ``x`` and ``w`` without the epilogue
     (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
 
+    ``_direct`` sends a CUDA call without autograd to the CUDA-core
+    ``direct`` kernel whatever the shape, for comparisons.
+
     Counters: ``phase_conv.launches`` (forward; ``.fused_launches`` of them
     with the epilogue), ``.wgrad_launches``,
     ``.dgrad_launches``, ``.pack_launches`` (the data gradients' weight
     packing), ``.dy_copies`` (output gradients that arrived non-contiguous
-    and were copied to NHWC); ``.last_variant``, ``.last_wgrad_variant`` and
+    and were copied to NHWC); ``.variant_launches``,
+    ``.wgrad_variant_launches`` and ``.dgrad_variant_launches`` split the
+    first three by variant; ``.last_variant``, ``.last_wgrad_variant`` and
     ``.last_dgrad_variant`` name the kernels of the last launches.
     """
     cpu = x.device.type == "cpu" and w.device.type == "cpu"
@@ -731,10 +852,12 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                 "BatchNorm and SiLU as modules")
         return PhaseConvFunction.apply(x, w, stride, padding)
     _check_epilogue(w.shape[3], scale, shift, act, x.device)
-    y, variant = _launch_forward(x, w, stride, padding, scale, shift, act)
+    y, variant = _launch_forward(x, w, stride, padding, scale, shift, act,
+                                 direct=_direct)
     if y.numel():
         phase_conv.launches += 1
         phase_conv.fused_launches += scale is not None
+        _count(phase_conv.variant_launches, variant)
         phase_conv.last_variant = variant
     return y
 
@@ -745,6 +868,9 @@ phase_conv.wgrad_launches = 0
 phase_conv.dgrad_launches = 0
 phase_conv.dy_copies = 0
 phase_conv.pack_launches = 0
+phase_conv.variant_launches = {}
+phase_conv.wgrad_variant_launches = {}
+phase_conv.dgrad_variant_launches = {}
 phase_conv.last_variant = None
 phase_conv.last_wgrad_variant = None
 phase_conv.last_dgrad_variant = None

@@ -94,7 +94,7 @@ def test_phase_conv_variant_of_each_main_path_shape(cuda):
 @pytest.mark.parametrize("shape", [
     (3, 1, 1, 8, 8, 4, 8),       # narrow channels
     (3, 1, 1, 12, 20, 32, 33),   # odd Co
-    (3, 2, 1, 16, 12, 48, 64),   # C no multiple of 32
+    (3, 2, 1, 16, 12, 44, 64),   # C no multiple of 8
     (5, 1, 2, 9, 11, 32, 32),    # a kernel size without a tensor-core path
     (6, 2, 2, 12, 10, 3, 32),    # a stem whose rows are not 16-byte multiples
     (4, 2, 1, 16, 16, 8, 16),
@@ -117,6 +117,7 @@ def test_phase_conv_odd_shapes_take_the_direct_variant(cuda, shape):
     (3, 2, 1, 6, 6, 128, 128),
     (6, 2, 2, 6, 8, 3, 32),       # fewer rows than the stem's ring
     (6, 2, 2, 70, 132, 3, 32),    # three 64-pixel chunks, the last ragged
+    (3, 2, 1, 16, 12, 48, 64),    # C no multiple of 32: a zero-filled run
 ])
 def test_phase_conv_tensor_core_variants_on_ragged_shapes(cuda, shape):
     for batch in (1, 5):
@@ -314,7 +315,7 @@ def test_backward_failed_launch_raises(cuda, monkeypatch):
     part = torch.empty((1, wgt.numel()), device=cuda)
     dw = torch.empty_like(wgt)
     err = pc._kernel("wgrad_tc")(0, x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-                                 part.data_ptr(), 1, 10 ** 6, 1, 4, 0,
+                                 part.data_ptr(), 1, 10 ** 6, 1, 4, 0, 1, 32,
                                  *x.shape, wgt.shape[3], k, s, p,
                                  *dy.shape[1:3],
                                  torch.cuda.current_stream().cuda_stream)
@@ -715,7 +716,7 @@ def test_remat_on_card_updates_batchnorm_once(cuda):
 # forward, weight-gradient and data-gradient variant each takes at 640 px
 # (None: the stem has no data gradient)
 YOLOX_L_SHAPES = (
-    [((6, 2, 2, 128, 128, 3, 64), "direct", "cuda_cores", None),
+    [((6, 2, 2, 128, 128, 3, 64), "wgmma_rows", "wgmma", None),
      ((3, 2, 1, 64, 64, 64, 128), "wgmma_taps", "wgmma", "wgmma_classes")]
     + [((1, 1, 0, 32, 32, 128, 64), "wgmma_taps", "wgmma",
         "flipped:wgmma_taps")] * 2
@@ -723,7 +724,7 @@ YOLOX_L_SHAPES = (
         "flipped:wgmma_taps") for _ in range(3) for k in (1, 3)]
     + [((1, 1, 0, 32, 32, 128, 128), "wgmma_taps", "wgmma",
         "flipped:wgmma_taps"),
-       ((3, 2, 1, 32, 32, 128, 256), "direct", "cuda_cores",
+       ((3, 2, 1, 32, 32, 128, 256), "wgmma_taps", "wgmma",
         "wgmma_classes")])
 
 
@@ -732,8 +733,9 @@ YOLOX_L_SHAPES = (
 def test_yolox_l_shapes_take_their_variants(cuda, dtype, tol):
     """The YOLOX-L early convs: forward (with and without the fused
     epilogue), weight and data gradient against their plain versions, each
-    on the variant the 640 px path takes (the stem and dark3's down conv on
-    the CUDA-core direct forward and cuda_cores weight gradient)."""
+    on the variant the 640 px path takes (every forward and weight gradient
+    on the tensor cores: the stem on wgmma_rows, dark3's down conv in two N
+    tiles)."""
     tdt = getattr(torch, dtype)
     for i, (shape, fwd, wg, dg) in enumerate(YOLOX_L_SHAPES):
         k, s, p, h, w, c, co = shape
@@ -813,19 +815,20 @@ def test_bbox_train_step_on_card_matches_cpu(cuda):
 
 # (shape, forward, wgrad, dgrad variant): each new early-conv shape at a
 # tenth of its size (Tiny 640 / 416 px, Nano 416 px, YOLOv3 640 px); the
-# channel counts decide the variants
+# channel counts decide the variants (and Nano's stem at 42 px, a row of no
+# 16-byte multiple, the CUDA cores; its 16-channel 1x1 convs' forward too)
 ZOO_SHAPES = [
     ((6, 2, 2, 42, 42, 3, 16), "direct", "cuda_cores", "cuda_cores"),
-    ((1, 1, 0, 10, 10, 16, 32), "direct", "cuda_cores", "cuda_cores"),
-    ((1, 1, 0, 10, 10, 32, 16), "direct", "cuda_cores", "cuda_cores"),
+    ((1, 1, 0, 10, 10, 16, 32), "direct", "wgmma", "cuda_cores"),
+    ((1, 1, 0, 10, 10, 32, 16), "direct", "wgmma", "cuda_cores"),
     ((1, 1, 0, 6, 6, 32, 64), "wgmma_taps", "wgmma", "flipped:wgmma_taps"),
-    ((6, 2, 2, 64, 64, 3, 24), "direct", "cuda_cores", "cuda_cores"),
-    ((3, 2, 1, 32, 32, 24, 48), "direct", "cuda_cores", "cuda_cores"),
-    ((3, 1, 1, 16, 16, 24, 24), "direct", "cuda_cores", "cuda_cores"),
-    ((3, 2, 1, 16, 16, 48, 96), "direct", "cuda_cores", "cuda_cores"),
-    ((3, 1, 1, 64, 64, 3, 32), "direct", "wgmma", "cuda_cores"),
+    ((6, 2, 2, 64, 64, 3, 24), "wgmma_rows", "wgmma", "cuda_cores"),
+    ((3, 2, 1, 32, 32, 24, 48), "wgmma_taps", "wgmma", "cuda_cores"),
+    ((3, 1, 1, 16, 16, 24, 24), "wgmma_taps", "wgmma", "cuda_cores"),
+    ((3, 2, 1, 16, 16, 48, 96), "wgmma_taps", "wgmma", "cuda_cores"),
+    ((3, 1, 1, 64, 64, 3, 32), "wgmma_rows", "wgmma", "cuda_cores"),
     ((3, 2, 1, 64, 64, 32, 64), "wgmma_taps", "wgmma", "wgmma_classes"),
-    ((3, 2, 1, 16, 16, 128, 256), "direct", "cuda_cores", "wgmma_classes"),
+    ((3, 2, 1, 16, 16, 128, 256), "wgmma_taps", "wgmma", "wgmma_classes"),
 ]
 
 
@@ -856,6 +859,93 @@ def test_zoo_shapes_take_their_variants(cuda, dtype, tol):
             assert err <= bound, (shape, what, err, bound)
         assert pc.phase_conv.last_wgrad_variant == wg, shape
         assert pc.phase_conv.last_dgrad_variant == dg, shape
+
+
+# (shape, forward, wgrad variant): the shape families the widened tensor-core
+# predicates take, at a tenth of their size: the stems on 3 channels
+# (Nano's at 48 px, M's, X's), zero-filled channel runs (C 24, 48, 80,
+# 160), N tiles with a masked tail (Co 24, 40, 48, 80, 160, 192, 320), M
+# parts of a ky (C 80 and 160 at 3x3); every data gradient stays where it
+# was (the CUDA cores, but for C in 32, 64, 128 and Co a multiple of 32)
+WIDE_SHAPES = [
+    ((6, 2, 2, 48, 48, 3, 16), "wgmma_rows", "wgmma"),
+    ((6, 2, 2, 64, 64, 3, 48), "wgmma_rows", "wgmma"),
+    ((6, 2, 2, 64, 64, 3, 80), "wgmma_rows", "wgmma"),
+    ((1, 1, 0, 16, 16, 24, 24), "wgmma_taps", "wgmma"),
+    ((3, 2, 1, 32, 32, 48, 96), "wgmma_taps", "wgmma"),
+    ((1, 1, 0, 16, 16, 96, 48), "wgmma_taps", "wgmma"),
+    ((3, 1, 1, 16, 16, 48, 48), "wgmma_taps", "wgmma"),
+    ((3, 2, 1, 16, 16, 96, 192), "wgmma_taps", "wgmma"),
+    ((3, 2, 1, 32, 32, 80, 160), "wgmma_taps", "wgmma"),
+    ((1, 1, 0, 16, 16, 160, 80), "wgmma_taps", "wgmma"),
+    ((3, 1, 1, 16, 16, 80, 80), "wgmma_taps", "wgmma"),
+    ((1, 1, 0, 16, 16, 160, 160), "wgmma_taps", "wgmma"),
+    ((3, 2, 1, 16, 16, 160, 320), "wgmma_taps", "wgmma"),
+    ((3, 2, 1, 18, 22, 24, 40), "wgmma_taps", "wgmma"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+def test_wide_shapes_take_the_tensor_cores(cuda, dtype, tol):
+    """Every shape family the widened tensor-core predicates take: the
+    forward (with and without the fused epilogue) and the weight gradient
+    on their tensor-core variants within ``tol`` of their plain versions,
+    the weight gradient the same bits twice; the data gradient on the
+    variant it had, within ``tol``."""
+    tdt = getattr(torch, dtype)
+    for i, (shape, fwd, wg) in enumerate(WIDE_SHAPES):
+        k, s, p, h, w, c, co = shape
+        x, wgt, scale, shift = _case(i, shape, tdt, cuda)
+        _assert_kernel_matches_plain(x, wgt, s, p, tol)
+        assert pc.phase_conv.last_variant == fwd, shape
+        _assert_kernel_matches_plain(x, wgt, s, p, tol, scale=scale,
+                                     shift=shift, act="silu")
+        assert pc.phase_conv.last_variant == fwd, shape
+        ho, wo = pc.out_hw(h, w, k, s, p)
+        dy = torch.randn((2, ho, wo, co), device=cuda).to(tdt)
+        dw = pc.phase_conv_wgrad(x, dy, k, s, p)
+        assert pc.phase_conv.last_wgrad_variant == wg, shape
+        assert torch.equal(dw, pc.phase_conv_wgrad(x, dy, k, s, p)), shape
+        _assert_close_scaled(dw, pc.phase_conv_wgrad_reference(
+            x, dy, k, s, p), tol, ("wgrad", shape))
+        if c != 3:
+            dx = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p)
+            assert pc.phase_conv.last_dgrad_variant == pc.dgrad_variant(
+                dy.shape, wgt.shape, s, p, tdt)
+            _assert_close_scaled(dx, pc.phase_conv_dgrad_reference(
+                dy, wgt, x.shape, s, p), tol, ("dgrad", shape))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["yolox-m", "yolox-x"])
+def test_yolox_m_and_x_forward_on_card_matches_cpu(cuda, name):
+    """YOLOX-M and YOLOX-X by name (every early conv on the tensor cores)
+    at B=1, 128 px: the head maps on the card within 1e-3 of the CPU's
+    scale; 10 and 14 launches, the stem's on wgmma_rows, none on direct."""
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(exp_name=name)
+    x = torch.from_numpy(np.random.RandomState(5).uniform(
+        0, 255, (1, 3, 128, 128)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = exp.get_model(dev, seed=1).eval()
+        before = dict(pc.phase_conv.variant_launches)
+        with torch.no_grad():
+            heads, _ = model(x.to(dev))
+        torch.cuda.synchronize()
+        maps = torch.cat([h.float().cpu().flatten() for h in heads])
+        out[str(dev)] = (maps, {
+            v: n - before.get(v, 0)
+            for v, n in pc.phase_conv.variant_launches.items()})
+    (h_cpu, n_cpu), (h_gpu, n_gpu) = out["cpu"], out["cuda"]
+    convs = {"yolox-m": 10, "yolox-x": 14}[name]
+    assert not any(n_cpu.values())
+    assert (n_gpu.get("wgmma_rows"), n_gpu.get("wgmma_taps"),
+            n_gpu.get("direct", 0)) == (1, convs - 1, 0)
+    bound = 1e-3 * max(1.0, h_cpu.abs().max().item())
+    assert (h_gpu - h_cpu).abs().max().item() <= bound
 
 
 def _zoo_exp(kind):
