@@ -33,7 +33,7 @@
    and the data gradients' weight packing) against their plain versions at
    the main-path shapes, at the training step's batch 32 and at batch 8,
    and at ragged ones, checks that the main-path shapes run the tensor-core
-   variants and that the weight gradient is the same bits twice, and times
+   variants and that each gradient is the same bits twice, and times
    them beside the CUDA-core kernels they replaced, the plain versions and
    ``aten::convolution_backward``;
 8. trains the 24p-s detector for a few steps through ``Trainer24P`` (batch
@@ -73,8 +73,11 @@
     eop_tpu_torch.tools.train -n yolox-l -b 8`` as a subprocess for a
     mosaic + mixup epoch, the no-aug switch and an epoch with the L1 loss
     (launches 12/12/11/11 every step, L1 0 then positive, EMA evaluation
-    and its AP line each epoch); runs bf16 YOLOX-L steps in this process;
-    one YOLOX-L step (B=2, 320 px) on the card and on the CPU; ``python -m
+    and its AP line each epoch); runs bf16 YOLOX-L steps in this process,
+    then YOLOX-X steps (batch 8, 640 px) in fp32 and in bf16; the
+    last steps of each run under the profiler (one warm-up step, two
+    recorded) must show exactly the kernels the launch counters count, by
+    name; one YOLOX-L step (B=2, 320 px) on the card and on the CPU; ``python -m
     eop_tpu_torch.tools.eval -n yolox-l`` on the checkpoint (AP line) and a
     label oracle through ``COCOEvaluator`` (AP 1); drops the mosaic loader
     with batches in flight;
@@ -93,15 +96,20 @@
     ``python -m eop_tpu_torch.tools.train -n NAME -b 8`` as a subprocess for
     an epoch (launches every step as the model gives them), evaluates each
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
-    at Tiny's 416 px (AP 1); one YOLOv3 and one Nano step on the card
+    at Tiny's 416 px (AP 1); one YOLOv3, Nano, Tiny and X step on the card
     against the CPU;
 17. checks that no loader worker died in any of the file phases, that no
-    path launched the CUDA-core ``cuda_cores`` weight gradient, and no path
-    but Nano's the CUDA-core ``direct`` forward (Nano's 16-channel 1x1 convs
-    keep it: ``ops/phase_conv.py::SMALL_1X1``).
+    path launched the CUDA-core ``cuda_cores`` weight or data gradient, and
+    no path but Nano's the CUDA-core ``direct`` forward (Nano's 16-channel
+    1x1 convs keep it: ``ops/phase_conv.py::SMALL_1X1``).
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
 phase, N times in one process, one line a run.
+
+``python3 chip_smoke.py --compare-steps TREE ...`` times YOLOX-L's bf16 and
+YOLOX-X's fp32 and bf16 training steps (batch 8, 640 px) with the port of
+each checkout ``TREE`` in turn, each in a process of its own, to compare
+two commits on one card (run parent, change, change, parent).
 
 ``python3 chip_smoke.py --probe-worker-exit`` runs only a probe: the
 training loader dropped with batches in flight with and without its
@@ -250,7 +258,14 @@ WGRAD_VARIANT = "wgmma"
 DGRAD_VARIANTS = {1: "flipped:wgmma_taps", 2: "wgmma_classes"}
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    smoke started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -265,6 +280,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 10, replays: int = 3) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in a CUDA graph
+    and replayed, so the host's work between launches (the wrappers'
+    Python, the tensor maps) is not in the time, as it is in
+    :func:`cuda_ms` wherever a call's kernels are shorter than it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def conv_inputs(case, batch, dtype, seed):
@@ -986,7 +1028,7 @@ def conv_bound(flops: float, n_bytes: float):
 def check_phase_conv_backward(cases=None):
     """dgrad and wgrad against their plain versions on the main-path shapes
     (at the training step's batch 32, which is what the path gives them, and
-    at batch 8) and ragged ones, fp32 and bf16; wgrad twice, bit-equal; the
+    at batch 8) and ragged ones, fp32 and bf16; each twice, bit-equal; the
     main-path shapes on their tensor-core variants.  ``cases``: (name, case,
     batch, expected wgrad variant, expected dgrad variant or None), with
     None for both on a ragged case; by default the 24p-s main path and the
@@ -1034,11 +1076,13 @@ def check_phase_conv_backward(cases=None):
             dw2 = phase_conv_wgrad(x, dy, k, s, p)
             row[f"wgrad_variant_{key}"] = phase_conv.last_wgrad_variant
             dx = phase_conv_dgrad(dy, wgt, x.shape, s, p)
+            dx2 = phase_conv_dgrad(dy, wgt, x.shape, s, p)
             row[f"dgrad_variant_{key}"] = phase_conv.last_dgrad_variant
             torch.cuda.synchronize()
-            if not torch.equal(dw, dw2):
-                raise AssertionError(f"wgrad {name} {key}: two launches on "
-                                     f"one input differ")
+            for kind, a, b in (("wgrad", dw, dw2), ("dgrad", dx, dx2)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{kind} {name} {key}: two launches "
+                                         f"on one input differ")
             if want_w is not None and (
                     row[f"wgrad_variant_{key}"] != want_w
                     or want_d not in (None, row[f"dgrad_variant_{key}"])):
@@ -1057,7 +1101,7 @@ def check_phase_conv_backward(cases=None):
                         f"{kind} {name} {key}: max abs err {err} > {tol} x "
                         f"{max(1.0, ref)}")
                 worst[kind][key] = max(worst[kind][key], err)
-        del dw, dw2, dx, got, want
+        del dw, dw2, dx, dx2, got, want
         if batch in (SERVE_BATCH, TRAIN_BATCH):
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
             g = torch.Generator(device="cuda").manual_seed(500 + seed)
@@ -1094,6 +1138,12 @@ def check_phase_conv_backward(cases=None):
                 lambda: phase_conv_dgrad(dy, wgt, x.shape, s, p))
             row["dgrad_cuda_cores_ms"] = cuda_ms(lambda: phase_conv_dgrad(
                 dy, wgt, x.shape, s, p, _cuda_cores=True))
+            # the same without the host's time between launches
+            row["dgrad_device_ms"] = graph_ms(
+                lambda: phase_conv_dgrad(dy, wgt, x.shape, s, p))
+            row["dgrad_cuda_cores_device_ms"] = graph_ms(
+                lambda: phase_conv_dgrad(dy, wgt, x.shape, s, p,
+                                         _cuda_cores=True))
             row["dgrad_plain_ms"] = cuda_ms(
                 lambda: phase_conv_dgrad_reference(dy, wgt, x.shape, s, p),
                 iters=5, warmup=1)
@@ -1124,6 +1174,13 @@ def check_phase_conv_backward(cases=None):
                 lambda: library_bf16([False, True, False]))
             row["dgrad_ms_bf16"] = cuda_ms(
                 lambda: phase_conv_dgrad(dy16, w16, x.shape, s, p))
+            row["dgrad_cuda_cores_ms_bf16"] = cuda_ms(lambda: phase_conv_dgrad(
+                dy16, w16, x.shape, s, p, _cuda_cores=True))
+            row["dgrad_device_ms_bf16"] = graph_ms(
+                lambda: phase_conv_dgrad(dy16, w16, x.shape, s, p))
+            row["dgrad_cuda_cores_device_ms_bf16"] = graph_ms(
+                lambda: phase_conv_dgrad(dy16, w16, x.shape, s, p,
+                                         _cuda_cores=True))
             row["dgrad_library_ms_bf16"] = cuda_ms(
                 lambda: library_bf16([True, False, False]))
             for kind in ("wgrad", "dgrad"):
@@ -1801,7 +1858,7 @@ BBOX_BATCH = 8
 # gradients, 11 data gradients (not the stem's), each packing its weights
 BBOX_STEP_LAUNCHES = {"forward": 12, "wgrad": 12, "dgrad": 11, "pack": 11,
                       **variant_counts([r[2:] for r in YOLOX_L_PATH])}
-BBOX_BF16_WARMUP, BBOX_BF16_TIMED = 2, 4
+BBOX_WARMUP, BBOX_TIMED = 2, 4
 AP_LINE = r"AP50:95\s*=\s*([0-9.]+)\s+AP50\s*=\s*([0-9.]+)"
 
 
@@ -1995,17 +2052,42 @@ def bbox_synthetic_batch(batch: int, size: int, gts: int = 8, seed: int = 0,
             torch.from_numpy(labels).to(device))
 
 
-def train_bbox_bf16(smi: str):
-    """YOLOX-L bf16 steps in this process (``compute_dtype bfloat16``) at
-    batch 8, 640 px, on one seeded batch on the card: step ms (CUDA events,
-    median of the timed steps), peak memory, launches of every step."""
+# the kernels of the port's backward and forward as the profiler names them,
+# and the launch counters that count each: a kernel's launches in a step are
+# the sum of those counters (the CUDA-core ones last: conv_nhwc_kernel is
+# direct's, wgrad_partial_kernel and dgrad_kernel the cuda_cores backward's)
+PROFILED_KERNELS = {
+    "conv_taps_kernel": ("forward:wgmma_taps", "dgrad:flipped:wgmma_taps"),
+    "conv_rows_kernel": ("forward:wgmma_rows",),
+    "wgrad_tc_kernel": ("wgrad:wgmma",),
+    "dgrad_tc_kernel": ("dgrad:wgmma_classes",),
+    "pack_taps_kernel": ("pack",),
+    "conv_nhwc_kernel": ("forward:direct",),
+    "wgrad_partial_kernel": ("wgrad:cuda_cores",),
+    "dgrad_kernel": ("dgrad:cuda_cores",),
+}
+
+
+def train_bbox_steps(smi: str, name: str = "yolox-l",
+                     compute_dtype: str = "bfloat16"):
+    """Training steps of the bbox exp ``name`` in this process at batch 8,
+    640 px, on one seeded batch on the card, in ``compute_dtype``: step ms
+    (CUDA events, median of the timed steps), images/s, peak memory, the
+    launches of every step by variant (YOLOX-L: ``BBOX_STEP_LAUNCHES``,
+    the zoo: :func:`step_launches`).  Then three more steps under the
+    profiler, scheduled as one warm-up step and two active ones: the
+    kernels of the active steps by name must be exactly what the launch
+    counters give (:data:`PROFILED_KERNELS`), none of them a CUDA-core
+    kernel.  (``--compare-steps`` times such steps against another
+    checkout's.)"""
     from eop_tpu_torch.exp import get_exp
     from eop_tpu_torch.losses import YoloxLossConfig
     from eop_tpu_torch.train.steps import create_train_state, \
         make_train_step_bbox
 
-    exp = get_exp(exp_name="yolox-l")
-    exp.compute_dtype = "bfloat16"
+    want = BBOX_STEP_LAUNCHES if name == "yolox-l" else step_launches(name)
+    exp = get_exp(exp_name=name)
+    exp.compute_dtype = compute_dtype
     imgs, labels = bbox_synthetic_batch(BBOX_BATCH, 640)
     torch.cuda.empty_cache()
     _reset_counts()
@@ -2015,63 +2097,78 @@ def train_bbox_bf16(smi: str):
                                                         8))
     events, per_step, marks = [], [], {}
 
-    def hook(name, metrics=None):
-        if name == "start":
+    def hook(name_, metrics=None):
+        if name_ == "start":
             marks["counts"] = _launch_counts()
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events.append(ev)
-        elif name == "step":
+        elif name_ == "step":
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             events.append(ev)
             c = _launch_counts()
-            per_step.append({k: c[k] - marks["counts"][k]
-                             for k in BBOX_STEP_LAUNCHES})
+            per_step.append({k: c[k] - marks["counts"][k] for k in want})
             marks["metrics"] = marks.get("metrics", []) + [metrics]
 
     step = make_train_step_bbox(YoloxLossConfig(num_classes=BBOX_CLASSES),
                                 ema_decay=exp.ema_decay, hook=hook)
-    for _ in range(BBOX_BF16_WARMUP + BBOX_BF16_TIMED):
+    for _ in range(BBOX_WARMUP + BBOX_TIMED):
         state, _ = step(state, imgs, labels)
     torch.cuda.synchronize()
     launches = _launch_counts()
     ms = [events[2 * i].elapsed_time(events[2 * i + 1])
-          for i in range(BBOX_BF16_WARMUP, BBOX_BF16_WARMUP + BBOX_BF16_TIMED)]
-    # two more steps under the profiler: the port's kernels by name, none of
-    # the CUDA-core ones (conv_nhwc_kernel is direct's; wgrad_partial_kernel
-    # and dgrad_kernel the cuda_cores backward's).  The launch counters give
-    # the exact counts; the profiler has missed the stem's one rows launch
-    # of a step (PERF.md section 7), so the tensor-core kernels are only
-    # required to show
+          for i in range(BBOX_WARMUP, BBOX_WARMUP + BBOX_TIMED)]
+    # the profiler misses kernels of its first moments (the stem's rows
+    # launch opens a step: 0 of 1 and 1 of 2 seen without a warm-up step,
+    # PERF.md section 7), so a warm-up step runs under it before the two
+    # it records
+    counted, traced, busy = {}, [], []
+
+    def ready(prof):
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced.append({f: sum(e.count for e in kernels if f"::{f}<" in e.key)
+                       for f in PROFILED_KERNELS})
+        busy.append({f: sum(e.self_device_time_total for e in kernels
+                            if f"::{f}<" in e.key) / 2e3
+                     for f in PROFILED_KERNELS})
+
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2):
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=ready,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=2,
+                                             repeat=1)) as prof:
+        for i in range(3):
+            if i == 1:
+                counted["before"] = _launch_counts()
             state, _ = step(state, imgs, labels)
-        torch.cuda.synchronize()
-    profiled = {f: sum(e.count for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and f"::{f}<" in e.key)
-                for f in ("conv_taps_kernel", "conv_rows_kernel",
-                          "wgrad_tc_kernel", "dgrad_tc_kernel",
-                          "conv_nhwc_kernel", "wgrad_partial_kernel",
-                          "dgrad_kernel")}
+            torch.cuda.synchronize()
+            prof.step()
+    after = _launch_counts()
+    expected = {f: sum(after[k] - counted["before"][k] for k in keys)
+                for f, keys in PROFILED_KERNELS.items()}
     losses = [float(m["total_loss"]) for m in marks["metrics"]]
-    report = {"phase": "train_bbox_bf16", "card": smi, "model": "yolox_l",
-              "compute_dtype": "bfloat16", "batch": BBOX_BATCH,
+    tag = name.replace("-", "_")
+    report = {"phase": f"train_{tag}_steps", "card": smi, "model": tag,
+              "compute_dtype": compute_dtype, "batch": BBOX_BATCH,
               "input_size": [640, 640], "losses": losses,
               "step_ms": float(np.median(ms)), "step_ms_all": ms,
               "images_per_s": 1e3 * BBOX_BATCH / float(np.median(ms)),
               "launches_per_step": per_step[-1],
-              "profiled_step_kernels": profiled,
+              "profiled_step_kernels": traced[0] if traced else None,
+              "counted_step_kernels": expected,
+              "profiled_steps": 2,
+              # device ms of each of the port's kernels a recorded step
+              "profiled_kernel_ms": busy[0] if busy else None,
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     cuda_cores = ("conv_nhwc_kernel", "wgrad_partial_kernel", "dgrad_kernel")
-    if (any(p != BBOX_STEP_LAUNCHES for p in per_step)
-            or any(profiled[f] for f in cuda_cores)
-            or not all(n for f, n in profiled.items() if f not in cuda_cores)
+    if (any(p != want for p in per_step) or traced != [expected]
+            or any(expected[f] for f in cuda_cores)
             or not all(np.isfinite(losses))):
-        raise AssertionError(f"train_bbox_bf16: {report} {per_step}")
+        raise AssertionError(f"train_bbox_steps {name} {compute_dtype}: "
+                             f"{report} {per_step}")
     del state, model
     return report, launches
 
@@ -2206,25 +2303,24 @@ def drop_bbox_loaders(data_dir: str, drops: int = 2) -> dict:
 # (None: no data gradient, the input is the image).  Every forward and weight
 # gradient runs on the tensor cores but the forward of Nano's 16-channel 1x1
 # convs, which measured faster on the CUDA cores (ops/phase_conv.py::
-# SMALL_1X1);
-# the data gradients take the tensor cores only for Co a multiple of 32 and
-# C in 32, 64, 128.  The shapes come from the models themselves
-# (:func:`zoo_path`).
+# SMALL_1X1); every data gradient runs on the tensor cores, at stride 1 the
+# forward kernel on the flipped weights, at stride 2 the parity classes.  The
+# shapes come from the models themselves (:func:`zoo_path`).
 _STEM = ("wgmma_rows", "wgmma", None)
-_WIDE = ("wgmma_taps", "wgmma", "cuda_cores")
-_DIRECT = ("direct", "wgmma", "cuda_cores")
+_DIRECT = ("direct", "wgmma", "flipped:wgmma_taps")
 _TAPS = ("wgmma_taps", "wgmma", "flipped:wgmma_taps")
 _CLASSES = ("wgmma_taps", "wgmma", "wgmma_classes")
 
 
 def _csp_darknet(n: int) -> dict:
     """Every early conv of a CSPDarknet whose dark2 CSP layer has ``n``
-    bottlenecks and whose channels keep every data gradient on the CUDA
-    cores (YOLOX-Tiny, -M, -X)."""
-    convs = ["dark2.0", "dark2.1.conv1", "dark2.1.conv2", "dark2.1.conv3",
-             "dark3.0"] + [f"dark2.1.m.{i}.conv{j}" for i in range(n)
-                           for j in (1, 2)]
-    return {"stem.conv": _STEM, **{c: _WIDE for c in convs}}
+    bottlenecks (YOLOX-Tiny, -M, -X): the two 3x3/s2 down convs' data
+    gradients by parity class, the stride-1 convs' on the flipped
+    weights."""
+    convs = ["dark2.1.conv1", "dark2.1.conv2", "dark2.1.conv3"] + [
+        f"dark2.1.m.{i}.conv{j}" for i in range(n) for j in (1, 2)]
+    return {"stem.conv": _STEM, "dark2.0": _CLASSES, "dark3.0": _CLASSES,
+            **{c: _TAPS for c in convs}}
 
 
 ZOO_VARIANTS = {
@@ -2246,7 +2342,8 @@ ZOO_VARIANTS = {
         "dark2.0": _CLASSES,
         **{f"dark2.{i}.layer{j}": _TAPS for i in (1, 2) for j in (1, 2)},
         "dark3.0": _CLASSES},
-    # held at their kernel shapes only (zoo_cases), not trained here
+    # held at their kernel shapes (zoo_cases); X also takes training steps
+    # in this process (train_bbox_steps)
     "yolox-m": _csp_darknet(2),
     "yolox-x": _csp_darknet(4),
 }
@@ -2812,6 +2909,101 @@ def repeat_serve_bbox(runs: int) -> int:
     return 0
 
 
+# the in-process training steps that --compare-steps times in each checkout
+COMPARED_STEPS = (("yolox-l", "bfloat16"), ("yolox-x", "float32"),
+                  ("yolox-x", "bfloat16"))
+COMPARED_WARMUP, COMPARED_TIMED = 3, 8
+
+
+def steps_child(tree: str, out_path: str) -> int:
+    """The steps of :data:`COMPARED_STEPS` (batch 8, 640 px, one seeded
+    batch on the card) with the ``eop_tpu_torch`` of the checkout ``tree``:
+    each step's ms by CUDA events, and the data gradients' launches by
+    variant of the last step; written as JSON to ``out_path``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.ops import phase_conv as pcm
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    imgs, labels = bbox_synthetic_batch(BBOX_BATCH, 640)
+    out = {"package": os.path.dirname(pcm.__file__)}
+    for name, dtype in COMPARED_STEPS:
+        exp = get_exp(exp_name=name)
+        exp.compute_dtype = dtype
+        torch.cuda.empty_cache()
+        model = exp.get_model("cuda", seed=0).train()
+        state = create_train_state(model, exp.get_optimizer(model, BBOX_BATCH,
+                                                            8))
+        events = []
+
+        def hook(name_, metrics=None):
+            if name_ in ("start", "step"):
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+                if name_ == "start":
+                    events.append(dict(pcm.phase_conv.dgrad_variant_launches))
+
+        step = make_train_step_bbox(YoloxLossConfig(num_classes=BBOX_CLASSES),
+                                    ema_decay=exp.ema_decay, hook=hook)
+        for _ in range(COMPARED_WARMUP + COMPARED_TIMED):
+            state, _ = step(state, imgs, labels)
+        torch.cuda.synchronize()
+        ms = [events[3 * i].elapsed_time(events[3 * i + 2])
+              for i in range(COMPARED_WARMUP, COMPARED_WARMUP + COMPARED_TIMED)]
+        last = events[-2]
+        out[f"{name}:{dtype}"] = {
+            "step_ms": float(np.median(ms)), "step_ms_all": ms,
+            "dgrad_launches_by_variant": {
+                v: n - last.get(v, 0) for v, n in
+                pcm.phase_conv.dgrad_variant_launches.items()
+                if n != last.get(v, 0)}}
+        del state, model
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def compare_steps(trees) -> int:
+    """``python3 chip_smoke.py --compare-steps TREE ...``: the training steps
+    of :data:`COMPARED_STEPS` with the port of each checkout ``TREE`` in
+    the order given (e.g. parent, change, change, parent), each in a
+    process of its own on this card; one JSON line a run, then the medians
+    by checkout."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    by_tree: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_steps_") as tmp:
+        for i, tree in enumerate(trees):
+            record = os.path.join(tmp, f"{i}.json")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--steps-child",
+                 os.path.abspath(tree), record], cwd=tree,
+                capture_output=True, text=True, timeout=900)
+            if r.returncode != 0:
+                print(r.stdout[-3000:], r.stderr[-6000:], file=sys.stderr)
+                return 1
+            with open(record) as f:
+                rec = json.load(f)
+            emit({"phase": "compare_steps", "card": smi, "run": i,
+                  "tree": tree, "wall_s": time.perf_counter() - t0, **rec})
+            for key, row in rec.items():
+                if key != "package":
+                    by_tree.setdefault(tree, {}).setdefault(key, []).extend(
+                        row["step_ms_all"])
+    emit({"phase": "compare_steps_summary", "card": smi,
+          "median_step_ms": {t: {k: float(np.median(v)) for k, v in rows.items()}
+                             for t, rows in by_tree.items()}})
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2921,10 +3113,19 @@ def main() -> int:
         emit({**write_bbox_dataset(bbox_dir), "card": smi})
         bbox_out = os.path.join(data_root, "bbox_out")
         bbox_report, bbox_launches, _ = train_bbox(smi, bbox_dir, bbox_out)
-        bf16_report, bbox16_launches = train_bbox_bf16(smi)
+        bf16_report, bbox16_launches = train_bbox_steps(smi)
         bbox_report["bf16_step"] = bf16_report
         emit(bbox_report)
         emit(bbox_card_vs_cpu())
+        # YOLOX-X's steps, whose 13 data gradients all left the CUDA cores
+        x_reports, x_launches = {}, {}
+        for dtype, path in (("float32", "train_x"),
+                            ("bfloat16", "train_x_bf16")):
+            t0 = time.perf_counter()
+            x_reports[dtype], x_launches[path] = train_bbox_steps(
+                smi, "yolox-x", dtype)
+            x_reports[dtype]["phase_s"] = time.perf_counter() - t0
+            emit(x_reports[dtype])
         emit(eval_bbox(smi, bbox_dir, os.path.join(bbox_out, "yolox_l",
                                                    "latest_ckpt.pth")))
         # YOLOX-Nano, YOLOX-Tiny and YOLOv3 trained, evaluated, and one
@@ -2939,7 +3140,7 @@ def main() -> int:
                                                       zoo_ckpts)
         zoo_eval_report["phase_s"] = time.perf_counter() - t0
         emit(zoo_eval_report)
-        for name in ("yolov3", "yolox-nano"):
+        for name in ("yolov3", "yolox-nano", "yolox-tiny", "yolox-x"):
             emit(bbox_card_vs_cpu(name))
         drops.update(drop_bbox_loaders(bbox_dir))
         gc.collect()
@@ -2977,6 +3178,7 @@ def main() -> int:
                # in-process bf16 steps
                "train_bbox": bbox_launches["forward"],
                "train_bbox_bf16": bbox16_launches["forward"],
+               **{k: c["forward"] for k, c in x_launches.items()},
                # the bbox server (YOLOX-L fp32 over HTTP, its bf16 call,
                # one YOLOv3 request), the zoo's evaluations and training
                **bbox_serve_launches, **zoo_eval_launches,
@@ -2985,21 +3187,22 @@ def main() -> int:
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
                    "train_bbox": bbox_launches,
-                   "train_bbox_bf16": bbox16_launches, **zoo_launches}
+                   "train_bbox_bf16": bbox16_launches, **x_launches,
+                   **zoo_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
     # launches by variant on every path: none launches the cuda_cores weight
-    # gradient, none but Nano's the CUDA-core direct forward
+    # or data gradient, none but Nano's the CUDA-core direct forward
     PATH_VARIANTS.update({
         "serve": _variants(launches), "serve_relu": _variants(relu_launches),
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
         **{k: _variants(c) for k, c in train_paths.items()}})
     cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()
-                       if v["wgrad:cuda_cores"]
+                       if v["wgrad:cuda_cores"] or v["dgrad:cuda_cores"]
                        or ("nano" not in k and v["forward:direct"])}
     if cuda_core_paths:
-        raise AssertionError(f"CUDA-core forward or weight gradient on "
+        raise AssertionError(f"CUDA-core forward, weight or data gradient on "
                              f"{cuda_core_paths}")
 
     def by_variant(kind):
@@ -3101,8 +3304,8 @@ def main() -> int:
                  if kind == "wgrad" or r["dgrad_on_path"]],
                 [f"{kind}_{m}" for m in (
                     "ms", "plain_ms", "bound_ms", "library_ms", "ms_bf16",
-                    "bound_ms_bf16", "library_ms_bf16", "cuda_cores_ms")]
-                + (["wgrad_cuda_cores_ms_bf16"] if kind == "wgrad" else []),
+                    "bound_ms_bf16", "library_ms_bf16", "cuda_cores_ms",
+                    "cuda_cores_ms_bf16")],
                 max_abs_err=l_back_err[kind]["fp32"],
                 max_abs_err_bf16=l_back_err[kind]["bf16"],
                 variants={r["name"]: r[f"{kind}_variant"]
@@ -3113,9 +3316,11 @@ def main() -> int:
                        [f"{kind}_{m}" for m in (
                            "ms", "plain_ms", "bound_ms", "library_ms",
                            "ms_bf16", "bound_ms_bf16", "library_ms_bf16",
-                           "cuda_cores_ms")]
-                       + (["wgrad_cuda_cores_ms_bf16"] if kind == "wgrad"
-                          else []),
+                           "cuda_cores_ms", "cuda_cores_ms_bf16")]
+                       + ([f"dgrad_{m}" for m in (
+                           "device_ms", "cuda_cores_device_ms",
+                           "device_ms_bf16", "cuda_cores_device_ms_bf16")]
+                          if kind == "dgrad" else []),
                        f"{kind}_variant"),
             "note": source_note,
             "card": smi,
@@ -3213,5 +3418,9 @@ if __name__ == "__main__":
         sys.exit(train_bbox_child(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--repeat-serve-bbox"]:
         sys.exit(repeat_serve_bbox(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--steps-child"]:
+        sys.exit(steps_child(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--compare-steps"]:
+        sys.exit(compare_steps(sys.argv[2:]))
     sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
              else main())

@@ -2,8 +2,8 @@
 // weight gradient (two kernels) and the data gradient (one kernel), for the
 // shapes the tensor-core kernels of phase_conv_backward_tc.cu do not take
 // (weight gradient: Co no multiple of 8, or C no multiple of 8 where no
-// flat row fits; data gradient: C outside 32, 64, 128 or Co no multiple of
-// 32), and for comparisons on the card.
+// flat row fits; data gradient: k other than 1 and 3, or C or Co no
+// multiple of 8), and for comparisons on the card.
 //
 // Replaces: the VJP of eop_tpu/ops/pallas/conv_small_c.py::phase_conv.  The
 // Pallas kernel has no backward of its own: the JAX trainer differentiates

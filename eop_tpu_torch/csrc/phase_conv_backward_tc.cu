@@ -50,13 +50,20 @@
 // turned: tiles of class pixels, A = dy boxes (TMA, split in registers),
 // B = the class's taps packed K-major, results stored at stride 2.  All
 // classes in one launch; a class's taps and their dy offsets come from the
-// host (no product with a structural zero).
+// host (no product with a structural zero).  As in conv_taps, any C and Co
+// that are multiples of 8: K runs over Co in runs of 32 (bf16: 64 where
+// that pads no further), the box past Co reading the zeros the bulk copy
+// fills outside dy against zero K rows of the packed weights, and C in N
+// tiles of 32, 64, 96 or 128, a block owning a (class tile, N tile) pair,
+// N tiles fastest so that the second reads its dy boxes from L2, the
+// store masked past C.  Bound by bytes (dy read, dx written once) in bf16
+// and near the ridge in fp32.
 //
 // Packing, pack_taps_kernel.  One launch writes the K-major tiles both data
 // gradients read: at stride 1 those of the forward on the flipped weights
 // (the bytes of ops/phase_conv.py::_pack_taps(flipped_weights(w))), at
-// stride 2 those of each class's taps.  The host gives the taps and the
-// fragment's K order.
+// stride 2 those of each class's taps; zero past C and past Co.  The host
+// gives the taps, the run, the N tile and the fragment's K order.
 
 #include "hopper.cuh"
 
@@ -105,38 +112,42 @@ __device__ __forceinline__ uint32_t swz(int q, int e) {
 constexpr int kMaxTaps = 64;
 
 struct PackParams {
-  int ntaps, C, Co, run;
+  int ntaps, C, Co, run, runs, tile, ntiles;
   int src[kMaxTaps];  // HWIO tap ky * k + kx of packed tap j
   int perm[32];       // fp32: logical K index (within a run) of position q
 };
 
-// fp32: out [ntaps, Co/32, 2 (hi, lo), C, 32]; bf16: out [ntaps, Co/run, C,
-// run]; element (j, r, [h,] n, q) = w[src[j]][n][run * r + perm[q]].
+// out [ntaps, runs, ntiles, NB, tile, run], NB = 2 (hi, lo) for fp32, 1 for
+// bf16: element (j, r, nt, h, n, q) = w[src[j]][nt * tile + n][run * r +
+// perm[q]] (bf16: q), zero where the channel reaches C or the K index Co.
 template <typename T>
 __global__ void pack_taps_kernel(const T* __restrict__ w, T* __restrict__ out,
                                  const PackParams p) {
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
-  const long long n = (long long)p.ntaps * p.Co * p.C * NB;
+  const long long n = (long long)p.ntaps * p.runs * p.ntiles * NB * p.tile * p.run;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   long long rest = i;
   const int q = (int)(rest % p.run);
   rest /= p.run;
-  const int nn = (int)(rest % p.C);
-  rest /= p.C;
+  const int nn = (int)(rest % p.tile);
+  rest /= p.tile;
   const int h = (int)(rest % NB);
   rest /= NB;
-  const int runs = p.Co / p.run;
-  const int r = (int)(rest % runs);
-  const int j = (int)(rest / runs);
+  const int nt = (int)(rest % p.ntiles);
+  rest /= p.ntiles;
+  const int r = (int)(rest % p.runs);
+  const int j = (int)(rest / p.runs);
+  const int c = nt * p.tile + nn;
   const int kidx = p.run * r + (NB == 2 ? p.perm[q] : q);
-  const T v = w[((long long)p.src[j] * p.C + nn) * p.Co + kidx];
+  const bool in = c < p.C && kidx < p.Co;
+  const long long src = ((long long)p.src[j] * p.C + c) * p.Co + kidx;
   if constexpr (NB == 2) {
     uint32_t hi, lo;
-    split_tf32(v, hi, lo);
+    split_tf32(in ? w[src] : 0.f, hi, lo);
     out[i] = __uint_as_float(h == 0 ? hi : lo);
   } else {
-    out[i] = v;
+    out[i] = in ? w[src] : __float2bfloat16(0.f);
   }
 }
 
@@ -495,30 +506,48 @@ struct ClassTaps {
 };
 
 struct DgradParams {
-  int H, W, Hc, Wc;
-  int tiles_x, tiles_y, tiles_per_class, num_tiles, cruns;
+  int H, W, C, Hc, Wc;
+  int tiles_x, tiles_y, tiles_per_class, ntiles, num_tiles, cruns;
   ClassTaps ct;
 };
 
-// the forward's TapConfig, for N = C output channels of the data gradient
-template <int N>
+// the forward's TapConfig, for an N tile of CO of the C channels of dx
+template <int CO>
 struct DgradConfig {
-  static constexpr int kNI = N >= 64 ? 64 : 32;
-  static constexpr int kStages = N == 64 ? 3 : 4;
-  static constexpr int kMinBlocks = N == 128 ? 1 : 2;
+  static constexpr int kNI = CO % 64 == 0 ? 64 : 32;
+  static constexpr int kStages = CO == 64 ? 3 : 4;
+  static constexpr int kMinBlocks = CO >= 96 ? 1 : 2;
 };
 
-template <typename T, int N, int ROWB>
-__global__ void __launch_bounds__(kThreads, DgradConfig<N>::kMinBlocks)
+// A tile index walks N tiles fastest, then class pixel tiles along x, y,
+// image, then the classes (most taps first).
+struct ClassTile {
+  int nt, cls, tx, ty, b;
+};
+__device__ __forceinline__ ClassTile class_tile(int tile, const DgradParams& p) {
+  ClassTile c;
+  c.nt = tile % p.ntiles;
+  int rest = tile / p.ntiles;
+  c.cls = rest / p.tiles_per_class;
+  rest -= c.cls * p.tiles_per_class;
+  c.tx = rest % p.tiles_x;
+  rest /= p.tiles_x;
+  c.ty = rest % p.tiles_y;
+  c.b = rest / p.tiles_y;
+  return c;
+}
+
+template <typename T, int CO, int ROWB>
+__global__ void __launch_bounds__(kThreads, DgradConfig<CO>::kMinBlocks)
 dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
                 const __grid_constant__ CUtensorMap map_w, T* __restrict__ dx,
                 const DgradParams p) {
-  constexpr int kStages = DgradConfig<N>::kStages;
-  constexpr int NI = DgradConfig<N>::kNI, NCH = N / NI;
+  constexpr int kStages = DgradConfig<CO>::kStages;
+  constexpr int NI = DgradConfig<CO>::kNI, NCH = CO / NI;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
   constexpr int KR = ROWB / (int)sizeof(T);
   constexpr uint32_t A_BYTES = kTileM * ROWB;
-  constexpr uint32_t B_BYTES = NB * N * ROWB;
+  constexpr uint32_t B_BYTES = NB * CO * ROWB;
   constexpr uint32_t STAGE_BYTES = A_BYTES + B_BYTES;
   static_assert(sizeof(T) == 2 || ROWB == 128, "fp32 runs are 128 bytes");
 
@@ -544,22 +573,19 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
     int stage = 0;
     uint32_t phase = 0;
     for (int tile = blockIdx.x; tile < p.num_tiles; tile += gridDim.x) {
-      const int cls = tile / p.tiles_per_class;
-      const int rest = tile - cls * p.tiles_per_class;
-      const int tx = rest % p.tiles_x;
-      const int r2 = rest / p.tiles_x;
-      const int ty = r2 % p.tiles_y;
-      const int b = r2 / p.tiles_y;
-      for (int j = 0; j < p.ct.ntaps[cls]; ++j) {
-        const int tap = p.ct.first[cls] + j;
+      const ClassTile tc = class_tile(tile, p);
+      for (int j = 0; j < p.ct.ntaps[tc.cls]; ++j) {
+        const int tap = p.ct.first[tc.cls] + j;
         for (int cr = 0; cr < p.cruns; ++cr) {
           mbar_wait(empty_bar(stage), phase ^ 1u);
           mbar_expect_tx(full_bar(stage), STAGE_BYTES);
           const uint32_t a_dst = base + stage * STAGE_BYTES;
+          // K past Co: the box reads the zeros filled outside dy
           tma_load_4d(a_dst, &map_dy, full_bar(stage), cr * KR,
-                      tx * kTileW + p.ct.ox[tap], ty * kTileH + p.ct.oy[tap], b);
+                      tc.tx * kTileW + p.ct.ox[tap], tc.ty * kTileH + p.ct.oy[tap],
+                      tc.b);
           tma_load_2d(a_dst + A_BYTES, &map_w, full_bar(stage), 0,
-                      (tap * p.cruns + cr) * NB * N);
+                      ((tap * p.cruns + cr) * p.ntiles + tc.nt) * NB * CO);
           if (++stage == kStages) {
             stage = 0;
             phase ^= 1u;
@@ -577,8 +603,8 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
   int pending = -1;  // stage whose wgmmas are in flight
   uint32_t ah[16] = {}, al[16] = {};
   for (int tile = blockIdx.x; tile < p.num_tiles; tile += gridDim.x) {
-    const int cls = tile / p.tiles_per_class;
-    const int steps = p.ct.ntaps[cls] * p.cruns;
+    const ClassTile tc = class_tile(tile, p);
+    const int steps = p.ct.ntaps[tc.cls] * p.cruns;
     float acc[NCH][NI / 2];
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
@@ -621,7 +647,7 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
           for (int c = 0; c < NCH; ++c) {
             const uint32_t off = c * NI * 128u + j * 32u;
             const uint64_t b_hi = smem_desc<128>(b_base + off);
-            const uint64_t b_lo = smem_desc<128>(b_base + N * 128u + off);
+            const uint64_t b_lo = smem_desc<128>(b_base + CO * 128u + off);
             wgmma_tf32_rs(acc[c], al[4 * j], al[4 * j + 1], al[4 * j + 2], al[4 * j + 3], b_hi);
             wgmma_tf32_rs(acc[c], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2], ah[4 * j + 3], b_lo);
             wgmma_tf32_rs(acc[c], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2], ah[4 * j + 3], b_hi);
@@ -653,35 +679,32 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
     if (pending >= 0 && lane == 0) mbar_arrive(empty_bar(pending));
     pending = -1;
 
-    // warp w of warpgroup wg holds tile row 4 * wg + w: class pixels g, g + 8
-    const int rest = tile - cls * p.tiles_per_class;
-    const int tx = rest % p.tiles_x;
-    const int r2 = rest / p.tiles_x;
-    const int ty = r2 % p.tiles_y;
-    const int b = r2 / p.tiles_y;
-    const int h2 = ty * kTileH + wg * 4 + w;
-    const int w2a = tx * kTileW + g, w2b = w2a + 8;
+    // warp w of warpgroup wg holds tile row 4 * wg + w: class pixels g,
+    // g + 8; channels c0 .. c0 + CO - 1 of them, those below C stored
+    const int h2 = tc.ty * kTileH + wg * 4 + w;
+    const int w2a = tc.tx * kTileW + g, w2b = w2a + 8;
+    const int c0 = tc.nt * CO;
     if (h2 < p.Hc) {
-      T* row = dx + ((size_t)b * p.H + 2 * h2 + p.ct.ph[cls]) * p.W * N;
-      T* pa = w2a < p.Wc ? row + (size_t)(2 * w2a + p.ct.pw[cls]) * N : nullptr;
-      T* pb = w2b < p.Wc ? row + (size_t)(2 * w2b + p.ct.pw[cls]) * N : nullptr;
+      T* row = dx + ((size_t)tc.b * p.H + 2 * h2 + p.ct.ph[tc.cls]) * p.W * p.C + c0;
+      T* pa = w2a < p.Wc ? row + (size_t)(2 * w2a + p.ct.pw[tc.cls]) * p.C : nullptr;
+      T* pb = w2b < p.Wc ? row + (size_t)(2 * w2b + p.ct.pw[tc.cls]) * p.C : nullptr;
       const Epilogue none{nullptr, nullptr, 0};
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
         store_fragment(acc[c], pa ? pa + c * NI : pa, pb ? pb + c * NI : pb,
-                       c * NI, t, none);
+                       c0 + c * NI, t, none, p.C);
     }
   }
 }
 
-template <typename T, int N, int ROWB>
+template <typename T, int CO, int ROWB>
 int launch_dgrad_tc(const void* dy, const void* wp, void* dx, int B, int Co,
                     int Ho, int Wo, int total_taps, const DgradParams& p,
                     cudaStream_t stream) {
-  constexpr int kStages = DgradConfig<N>::kStages;
+  constexpr int kStages = DgradConfig<CO>::kStages;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
   constexpr int KR = ROWB / (int)sizeof(T);
-  constexpr uint32_t STAGE_BYTES = kTileM * ROWB + NB * N * ROWB;
+  constexpr uint32_t STAGE_BYTES = kTileM * ROWB + NB * CO * ROWB;
   constexpr int smem = 1024 + kStages * STAGE_BYTES + 2 * kStages * 8;
   const cuuint64_t es = sizeof(T);
   alignas(64) CUtensorMap map_dy, map_w;
@@ -697,16 +720,16 @@ int launch_dgrad_tc(const void* dy, const void* wp, void* dx, int B, int Co,
   }
   if (rc != 0) return kEncodeError + rc;
   {
-    const cuuint64_t rows = (cuuint64_t)total_taps * p.cruns * NB * N;
+    const cuuint64_t rows = (cuuint64_t)total_taps * p.cruns * p.ntiles * NB * CO;
     const cuuint64_t dims[2] = {KR, rows};
     const cuuint64_t strides[1] = {ROWB};
-    const cuuint32_t box[2] = {KR, NB * N};
+    const cuuint32_t box[2] = {KR, NB * CO};
     rc = encode_tiled(&map_w, map_type<T>(), 2, wp, dims, strides, box,
                       swizzle_of(ROWB));
   }
   if (rc != 0) return kEncodeError + rc;
 
-  auto kernel = dgrad_tc_kernel<T, N, ROWB>;
+  auto kernel = dgrad_tc_kernel<T, CO, ROWB>;
   static int blocks_per_sm = 0;
   if (blocks_per_sm == 0) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -723,14 +746,18 @@ int launch_dgrad_tc(const void* dy, const void* wp, void* dx, int B, int Co,
 }
 
 template <typename T, int ROWB>
-int dispatch_dgrad(int C, const void* dy, const void* wp, void* dx, int B, int Co,
+int dispatch_dgrad(int co_tile, const void* dy, const void* wp, void* dx, int B, int Co,
                    int Ho, int Wo, int total_taps, const DgradParams& p,
                    cudaStream_t st) {
-  switch (C) {
-    case 32: return launch_dgrad_tc<T, 32, ROWB>(dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
-    case 64: return launch_dgrad_tc<T, 64, ROWB>(dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
-    case 128: return launch_dgrad_tc<T, 128, ROWB>(dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
+#define EOP_DGRAD(CO) \
+  return launch_dgrad_tc<T, CO, ROWB>(dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st)
+  switch (co_tile) {
+    case 32: EOP_DGRAD(32);
+    case 64: EOP_DGRAD(64);
+    case 96: EOP_DGRAD(96);
+    case 128: EOP_DGRAD(128);
   }
+#undef EOP_DGRAD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -738,19 +765,27 @@ int dispatch_dgrad(int C, const void* dy, const void* wp, void* dx, int B, int C
 
 // Packs HWIO w [k, k, C, Co] for the data gradients: packed tap j is HWIO tap
 // src[j] (ntaps of them, at most 64); perm is the fp32 K order of a run of 32
-// (ops/phase_conv.py::K_ORDER["wgmma_taps"]); run is 32 for fp32, 32 or 64
-// for bf16.  out: fp32 [ntaps, Co/32, 2, C, 32], bf16 [ntaps, Co/run, C, run].
+// (ops/phase_conv.py::K_ORDER["wgmma_taps"]); K = Co in runs of run (32 for
+// fp32, 32 or 64 for bf16), N = C in tiles of tile (32, 64, 96 or 128).
+// out: fp32 [ntaps, runs, ntiles, 2, tile, 32], bf16 [ntaps, runs, ntiles *
+// tile, run], runs = ceil(Co / run), ntiles = ceil(C / tile); zero past C
+// and past Co.
 extern "C" int phase_conv_pack_taps(int dtype, const void* w, void* out,
                                     const int* src, int ntaps, int C, int Co,
-                                    int run, const int* perm, void* stream) {
-  if (ntaps < 1 || ntaps > kMaxTaps || run < 1 || Co % run != 0 ||
-      (dtype == 0 && run != 32))
+                                    int run, int tile, const int* perm,
+                                    void* stream) {
+  if (ntaps < 1 || ntaps > kMaxTaps || C < 1 || Co < 1 ||
+      (dtype == 0 && run != 32) || (dtype == 1 && run != 32 && run != 64) ||
+      (tile != 32 && tile != 64 && tile != 96 && tile != 128))
     return (int)cudaErrorInvalidValue;
   PackParams p;
-  p.ntaps = ntaps, p.C = C, p.Co = Co, p.run = run;
+  p.ntaps = ntaps, p.C = C, p.Co = Co, p.run = run, p.tile = tile;
+  p.runs = (Co + run - 1) / run;
+  p.ntiles = (C + tile - 1) / tile;
   for (int j = 0; j < ntaps; ++j) p.src[j] = src[j];
   for (int q = 0; q < 32; ++q) p.perm[q] = perm[q];
-  const long long n = (long long)ntaps * C * Co * (dtype == 0 ? 2 : 1);
+  const long long n = (long long)ntaps * p.runs * p.ntiles * tile * run *
+                      (dtype == 0 ? 2 : 1);
   const unsigned blocks = (unsigned)((n + 255) / 256);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
@@ -844,10 +879,11 @@ extern "C" int phase_conv_wgrad_tc(int dtype, const void* x, const void* dy,
 }
 
 // Stride-2 data gradient on the tensor cores, one launch for the four parity
-// classes.  dy [B, Ho, Wo, Co] contiguous and 16-byte aligned, C in
-// {32, 64, 128}, Co a multiple of 32; wp the classes' taps packed by
-// phase_conv_pack_taps (total_taps of them, run 32 for fp32, 64 for bf16
-// where Co allows); dx [B, H, W, C] with H and W even, every element written.
+// classes.  dy [B, Ho, Wo, Co] contiguous and 16-byte aligned, Co a multiple
+// of 8 (a dy pixel a multiple of 16 bytes, as the bulk copies need); C a
+// multiple of 8; wp the classes' taps packed by phase_conv_pack_taps with
+// the same run (32 for fp32, 32 or 64 for bf16) and N tile co_tile (32, 64,
+// 96 or 128); dx [B, H, W, C] with H and W even, every element written.
 // classes: 4 x (ntaps, first packed tap, h % 2, w % 2) in tile order;
 // offsets: total_taps x (oy, ox), the dy pixel of class pixel (h2, w2) for
 // that tap being (h2 + oy, w2 + ox).
@@ -855,18 +891,20 @@ extern "C" int phase_conv_dgrad_tc(int dtype, const void* dy, const void* wp,
                                    void* dx, const int* classes,
                                    const int* offsets, int total_taps, int B,
                                    int H, int W, int C, int Co, int Ho, int Wo,
-                                   void* stream) {
-  const int run = dtype == 0 ? 32 : (Co % 64 == 0 ? 64 : 32);
-  if ((dtype != 0 && dtype != 1) || Co % run != 0 || H % 2 || W % 2 ||
-      total_taps > kMaxClassTaps)
+                                   int run, int co_tile, void* stream) {
+  if ((dtype != 0 && dtype != 1) || (dtype == 0 && run != 32) ||
+      (dtype == 1 && run != 32 && run != 64) || C < 1 || C % 8 != 0 ||
+      Co < 1 || Co % 8 != 0 || H % 2 || W % 2 || total_taps > kMaxClassTaps ||
+      (co_tile != 32 && co_tile != 64 && co_tile != 96 && co_tile != 128))
     return (int)cudaErrorInvalidValue;
   DgradParams p;
-  p.H = H, p.W = W, p.Hc = H / 2, p.Wc = W / 2;
+  p.H = H, p.W = W, p.C = C, p.Hc = H / 2, p.Wc = W / 2;
   p.tiles_x = (p.Wc + kTileW - 1) / kTileW;
   p.tiles_y = (p.Hc + kTileH - 1) / kTileH;
   p.tiles_per_class = p.tiles_x * p.tiles_y * B;
-  p.num_tiles = 4 * p.tiles_per_class;
-  p.cruns = Co / run;
+  p.ntiles = (C + co_tile - 1) / co_tile;
+  p.num_tiles = 4 * p.tiles_per_class * p.ntiles;
+  p.cruns = (Co + run - 1) / run;
   for (int c = 0; c < 4; ++c) {
     p.ct.ntaps[c] = classes[4 * c], p.ct.first[c] = classes[4 * c + 1];
     p.ct.ph[c] = classes[4 * c + 2], p.ct.pw[c] = classes[4 * c + 3];
@@ -875,8 +913,10 @@ extern "C" int phase_conv_dgrad_tc(int dtype, const void* dy, const void* wp,
   for (int j = 0; j < total_taps; ++j) p.ct.oy[j] = offsets[2 * j], p.ct.ox[j] = offsets[2 * j + 1];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch_dgrad<float, 128>(C, dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
+    return dispatch_dgrad<float, 128>(co_tile, dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
   return run == 64
-             ? dispatch_dgrad<__nv_bfloat16, 128>(C, dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st)
-             : dispatch_dgrad<__nv_bfloat16, 64>(C, dy, wp, dx, B, Co, Ho, Wo, total_taps, p, st);
+             ? dispatch_dgrad<__nv_bfloat16, 128>(co_tile, dy, wp, dx, B, Co, Ho, Wo,
+                                                  total_taps, p, st)
+             : dispatch_dgrad<__nv_bfloat16, 64>(co_tile, dy, wp, dx, B, Co, Ho, Wo,
+                                                 total_taps, p, st);
 }

@@ -390,29 +390,40 @@ def pack_taps_reference(w: torch.Tensor, src_taps) -> torch.Tensor:
     return _pack_taps(taps.transpose(1, 2).reshape(len(src_taps), 1, co, c))
 
 
+def pack_taps_shape(n: int, c: int, co: int, dtype: torch.dtype):
+    """Shape of :func:`pack_taps`' output for ``n`` taps of HWIO ``[k, k, C,
+    Co]`` weights: the ``_pack_taps`` layout of a conv from Co to C channels,
+    K in runs of ``taps_run(Co)`` and N in the tiles of ``co_tiles(C)``."""
+    run = taps_run(co, dtype)
+    tile, nt = co_tiles(c)
+    runs = -(-co // run)
+    if dtype == torch.float32:
+        return (n, runs, nt * 2, tile, run)
+    return (n, runs, nt * tile, run)
+
+
 def pack_taps(w: torch.Tensor, src_taps) -> torch.Tensor:
     """:func:`pack_taps_reference` in one kernel launch for a CUDA ``w``
     (``phase_conv.pack_launches`` counts them), the plain version for a CPU
-    one."""
+    one.  C and Co are multiples of 8: the K runs past Co and the N tile
+    past C are written as zeros."""
     if w.device.type == "cpu":
         return pack_taps_reference(w, src_taps)
     k, _, c, co = w.shape
     n = len(src_taps)
-    if w.dtype == torch.float32:
-        run, shape = 32, (n, co // 32, 2, c, 32)
-    else:
-        run = 64 if co % 64 == 0 else 32
-        shape = (n, co // run, c, run)
-    if co % 32 or not 0 < n <= 64 or not w.is_contiguous():
-        raise ValueError(f"pack_taps: contiguous w with Co a multiple of 32 "
-                         f"and 1..64 taps, got {tuple(w.shape)}, {n} taps")
-    out = torch.empty(shape, dtype=w.dtype, device=w.device)
+    if c % 8 or co % 8 or not 0 < n <= 64 or not w.is_contiguous():
+        raise ValueError(f"pack_taps: contiguous w with C and Co multiples "
+                         f"of 8 and 1..64 taps, got {tuple(w.shape)}, {n} "
+                         f"taps")
+    out = torch.empty(pack_taps_shape(n, c, co, w.dtype), dtype=w.dtype,
+                      device=w.device)
     src = (ctypes.c_int * n)(*src_taps)
     perm = (ctypes.c_int * 32)(*K_ORDER["wgmma_taps"])
     with torch.cuda.device(w.device):
         err = _kernel("pack_taps")(
             _DTYPE_CODES[w.dtype], w.data_ptr(), out.data_ptr(), src, n, c, co,
-            run, perm, torch.cuda.current_stream().cuda_stream)
+            taps_run(co, w.dtype), co_tiles(c)[0], perm,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"phase_conv_pack_taps launch failed: error {err}")
     phase_conv.pack_launches += 1
@@ -447,10 +458,10 @@ _SYMBOLS = {
                  + _SHAPE_ARGS + [ctypes.c_void_p]),
     "dgrad_tc": ("phase_conv_backward_tc", "phase_conv_dgrad_tc",
                  [ctypes.c_int] + [ctypes.c_void_p] * 3 + [_INTS, _INTS]
-                 + [ctypes.c_int] * 8 + [ctypes.c_void_p]),
+                 + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
     "pack_taps": ("phase_conv_backward_tc", "phase_conv_pack_taps",
                   [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, _INTS]
-                  + [ctypes.c_int] * 4 + [_INTS, ctypes.c_void_p]),
+                  + [ctypes.c_int] * 5 + [_INTS, ctypes.c_void_p]),
 }
 _fns: Dict[str, object] = {}
 
@@ -485,16 +496,19 @@ def _check_aligned(*tensors: torch.Tensor) -> None:
 
 
 def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None,
-                    direct=False):
-    """Launch the forward kernel for checked CUDA arguments, on ``packed``
-    tensor-core weights where given (``w`` then only lends its shape), on
-    the CUDA-core ``direct`` kernel where ``direct``; returns (y, variant)."""
+                    variant=None):
+    """Launch the forward kernel for checked CUDA arguments: ``variant``, or
+    :func:`kernel_variant`'s where None; on ``packed`` ``wgmma_taps``
+    weights where given (``w`` then only lends its shape, and the variant
+    must be ``wgmma_taps``); returns (y, variant)."""
     b, h, wd, c = x.shape
     k, co = w.shape[0], w.shape[3]
     ho, wo = out_hw(h, wd, k, stride, padding)
     y = torch.empty((b, ho, wo, co), dtype=x.dtype, device=x.device)
-    variant = ("direct" if direct else
-               kernel_variant(x.shape, w.shape, stride, padding, x.dtype))
+    if variant is None:
+        variant = kernel_variant(x.shape, w.shape, stride, padding, x.dtype)
+    if packed is not None and variant != "wgmma_taps":
+        raise ValueError(f"packed wgmma_taps weights cannot run on {variant}")
     if y.numel() == 0:
         return y, variant
     if variant != "direct":
@@ -696,12 +710,13 @@ def dgrad_class_plan(k: int, padding: int):
 def dgrad_variant(dy_shape, w_shape, stride: int, padding: int,
                   dtype: torch.dtype) -> str:
     """Which kernel the data gradient of a CUDA tensor takes: 1x1 and 3x3
-    convs with Co a multiple of 32 and C in 32, 64, 128 take the tensor
-    cores, at stride 1 the forward's ``wgmma_taps`` on the flipped weights
-    (``"flipped:wgmma_taps"``), at stride 2 ``"wgmma_classes"``; else
-    ``"cuda_cores"`` (the packing kernel takes Co in runs of 32 only)."""
+    convs with C and Co multiples of 8 take the tensor cores, at stride 1
+    the forward's ``wgmma_taps`` on the flipped weights
+    (``"flipped:wgmma_taps"``), at stride 2 ``"wgmma_classes"``; both read
+    Co in zero-filled K runs of :func:`taps_run` and write C in the N tiles
+    of :func:`co_tiles`.  Else ``"cuda_cores"``."""
     k, _, c, co = w_shape
-    if k in (1, 3) and co % 32 == 0 and c in (32, 64, 128):
+    if k in (1, 3) and c % 8 == 0 and co % 8 == 0:
         return "flipped:wgmma_taps" if stride == 1 else "wgmma_classes"
     return "cuda_cores"
 
@@ -733,7 +748,8 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
     if variant.startswith("flipped:"):
         wp = pack_taps(w, flip_taps(k))
         dx, _ = _launch_forward(dy, w.new_empty((k, k, co, c), device="meta"),
-                                1, padding, None, None, None, packed=wp)
+                                1, padding, None, None, None, packed=wp,
+                                variant="wgmma_taps")
     else:
         dx = torch.empty(x_shape, dtype=dy.dtype, device=dy.device)
         if dx.numel() == 0:
@@ -756,7 +772,8 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
                     _DTYPE_CODES[dy.dtype], dy.data_ptr(), wp.data_ptr(),
                     dx.data_ptr(), (ctypes.c_int * 16)(*table),
                     (ctypes.c_int * len(offsets))(*offsets), len(taps), b, h,
-                    wd, c, co, ho, wo, stream)
+                    wd, c, co, ho, wo, taps_run(co, dy.dtype),
+                    co_tiles(c)[0], stream)
             else:
                 wt = w.permute(0, 1, 3, 2).contiguous()  # [k, k, Co, C]
                 err = _kernel("dgrad")(
@@ -853,7 +870,7 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
         return PhaseConvFunction.apply(x, w, stride, padding)
     _check_epilogue(w.shape[3], scale, shift, act, x.device)
     y, variant = _launch_forward(x, w, stride, padding, scale, shift, act,
-                                 direct=_direct)
+                                 variant="direct" if _direct else None)
     if y.numel():
         phase_conv.launches += 1
         phase_conv.fused_launches += scale is not None

@@ -816,16 +816,17 @@ def test_bbox_train_step_on_card_matches_cpu(cuda):
 # (shape, forward, wgrad, dgrad variant): each new early-conv shape at a
 # tenth of its size (Tiny 640 / 416 px, Nano 416 px, YOLOv3 640 px); the
 # channel counts decide the variants (and Nano's stem at 42 px, a row of no
-# 16-byte multiple, the CUDA cores; its 16-channel 1x1 convs' forward too)
+# 16-byte multiple, the CUDA cores; its 16-channel 1x1 convs' forward too;
+# the stems' 3 input channels keep their data gradient on the CUDA cores)
 ZOO_SHAPES = [
     ((6, 2, 2, 42, 42, 3, 16), "direct", "cuda_cores", "cuda_cores"),
-    ((1, 1, 0, 10, 10, 16, 32), "direct", "wgmma", "cuda_cores"),
-    ((1, 1, 0, 10, 10, 32, 16), "direct", "wgmma", "cuda_cores"),
+    ((1, 1, 0, 10, 10, 16, 32), "direct", "wgmma", "flipped:wgmma_taps"),
+    ((1, 1, 0, 10, 10, 32, 16), "direct", "wgmma", "flipped:wgmma_taps"),
     ((1, 1, 0, 6, 6, 32, 64), "wgmma_taps", "wgmma", "flipped:wgmma_taps"),
     ((6, 2, 2, 64, 64, 3, 24), "wgmma_rows", "wgmma", "cuda_cores"),
-    ((3, 2, 1, 32, 32, 24, 48), "wgmma_taps", "wgmma", "cuda_cores"),
-    ((3, 1, 1, 16, 16, 24, 24), "wgmma_taps", "wgmma", "cuda_cores"),
-    ((3, 2, 1, 16, 16, 48, 96), "wgmma_taps", "wgmma", "cuda_cores"),
+    ((3, 2, 1, 32, 32, 24, 48), "wgmma_taps", "wgmma", "wgmma_classes"),
+    ((3, 1, 1, 16, 16, 24, 24), "wgmma_taps", "wgmma", "flipped:wgmma_taps"),
+    ((3, 2, 1, 16, 16, 48, 96), "wgmma_taps", "wgmma", "wgmma_classes"),
     ((3, 1, 1, 64, 64, 3, 32), "wgmma_rows", "wgmma", "cuda_cores"),
     ((3, 2, 1, 64, 64, 32, 64), "wgmma_taps", "wgmma", "wgmma_classes"),
     ((3, 2, 1, 16, 16, 128, 256), "wgmma_taps", "wgmma", "wgmma_classes"),
@@ -865,8 +866,8 @@ def test_zoo_shapes_take_their_variants(cuda, dtype, tol):
 # predicates take, at a tenth of their size: the stems on 3 channels
 # (Nano's at 48 px, M's, X's), zero-filled channel runs (C 24, 48, 80,
 # 160), N tiles with a masked tail (Co 24, 40, 48, 80, 160, 192, 320), M
-# parts of a ky (C 80 and 160 at 3x3); every data gradient stays where it
-# was (the CUDA cores, but for C in 32, 64, 128 and Co a multiple of 32)
+# parts of a ky (C 80 and 160 at 3x3); the data gradients of all but the
+# stems on the tensor cores (DGRAD_WIDE_SHAPES holds them apart)
 WIDE_SHAPES = [
     ((6, 2, 2, 48, 48, 3, 16), "wgmma_rows", "wgmma"),
     ((6, 2, 2, 64, 64, 3, 48), "wgmma_rows", "wgmma"),
@@ -892,7 +893,7 @@ def test_wide_shapes_take_the_tensor_cores(cuda, dtype, tol):
     forward (with and without the fused epilogue) and the weight gradient
     on their tensor-core variants within ``tol`` of their plain versions,
     the weight gradient the same bits twice; the data gradient on the
-    variant it had, within ``tol``."""
+    variant of its predicate, within ``tol``."""
     tdt = getattr(torch, dtype)
     for i, (shape, fwd, wg) in enumerate(WIDE_SHAPES):
         k, s, p, h, w, c, co = shape
@@ -915,6 +916,74 @@ def test_wide_shapes_take_the_tensor_cores(cuda, dtype, tol):
                 dy.shape, wgt.shape, s, p, tdt)
             _assert_close_scaled(dx, pc.phase_conv_dgrad_reference(
                 dy, wgt, x.shape, s, p), tol, ("dgrad", shape))
+
+
+# the data gradients that left the CUDA cores, at a tenth of their size or
+# less: Nano's 1x1 16/32-channel ones (whose flipped conv the forward's own
+# predicate would send to direct), Tiny's, M's and X's (one N tile of 32
+# over C = 24, of 96 over C = 80, two of 96 over C = 160; K runs of 32 over
+# Co = 24, 80, 160 and, in bf16, of 64 over Co = 48), a 1x1/s2 with classes
+# no tap reaches and ragged class tiles
+DGRAD_WIDE_SHAPES = [
+    (1, 1, 0, 20, 20, 16, 32),
+    (1, 1, 0, 20, 20, 32, 16),
+    (1, 1, 0, 20, 20, 16, 16),
+    (3, 2, 1, 32, 32, 24, 48),
+    (1, 1, 0, 16, 16, 48, 24),
+    (3, 1, 1, 16, 16, 24, 24),
+    (3, 2, 1, 16, 16, 48, 96),
+    (1, 1, 0, 16, 16, 96, 48),
+    (3, 1, 1, 16, 16, 48, 48),
+    (3, 2, 1, 16, 16, 96, 192),
+    (3, 2, 1, 32, 32, 80, 160),
+    (1, 1, 0, 16, 16, 160, 80),
+    (3, 1, 1, 16, 16, 80, 80),
+    (3, 2, 1, 16, 16, 160, 320),
+    (1, 2, 0, 8, 6, 16, 24),
+    (3, 2, 1, 18, 22, 24, 40),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", DGRAD_WIDE_SHAPES)
+def test_wide_data_gradients_take_the_tensor_cores(cuda, shape, dtype, tol):
+    """Each widened data gradient on ``flipped:wgmma_taps`` (stride 1) or
+    ``wgmma_classes`` (stride 2): within ``tol`` of its plain version and
+    of the CUDA-core kernel forced on the same inputs, the same bits twice,
+    one packing and one data-gradient launch a call by variant and no
+    forward launch counted; the packing kernel's bytes those of
+    ``pack_taps_reference``."""
+    tdt = getattr(torch, dtype)
+    k, s, p = shape[:3]
+    x, wgt, dy = _grad_case(3, shape, tdt, cuda)
+    want = "flipped:wgmma_taps" if s == 1 else "wgmma_classes"
+    assert pc.dgrad_variant(dy.shape, wgt.shape, s, p, tdt) == want
+    before = (dict(pc.phase_conv.dgrad_variant_launches),
+              pc.phase_conv.pack_launches, pc.phase_conv.launches)
+    dx = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p)
+    dx2 = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p)
+    torch.cuda.synchronize()
+    after = (pc.phase_conv.dgrad_variant_launches,
+             pc.phase_conv.pack_launches, pc.phase_conv.launches)
+    assert pc.phase_conv.last_dgrad_variant == want
+    assert {v: n - before[0].get(v, 0) for v, n in after[0].items()
+            if n != before[0].get(v, 0)} == {want: 2}
+    assert (after[1] - before[1], after[2] - before[2]) == (2, 0)
+    assert torch.equal(dx, dx2), shape
+    _assert_close_scaled(dx, pc.phase_conv_dgrad_reference(
+        dy, wgt, x.shape, s, p), tol, ("dgrad", shape))
+    old = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p, _cuda_cores=True)
+    assert pc.phase_conv.last_dgrad_variant == "cuda_cores"
+    _assert_close_scaled(dx, old, tol, ("dgrad vs cuda_cores", shape))
+    taps = (pc.flip_taps(k) if s == 1 else
+            [ky * k + kx for _, _, ts in pc.dgrad_class_plan(k, p)
+             for ky, kx, _, _ in ts])
+    got = pc.pack_taps(wgt, taps)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == pc.pack_taps_shape(len(taps), shape[5],
+                                                  shape[6], tdt)
+    assert torch.equal(got.cpu(), pc.pack_taps_reference(wgt.cpu(), taps))
 
 
 @pytest.mark.gpu

@@ -137,14 +137,16 @@ def test_dgrad_variant_follows_the_forward_predicate():
         k, s, p, h, w, c, co = SHAPES[name]
         assert pc.dgrad_variant((8, h, w, co), (k, k, c, co), s, p,
                                 f32) == "flipped:wgmma_taps"
-    # stride 2 on the main path -> the tensor-core parity-class kernel
-    for name in ("dark2_conv", "dark3_conv"):
+    # stride 2 on the main path, and wherever C and Co are multiples of 8
+    # (C = 48; a 1x1 with classes no tap reaches) -> the tensor-core
+    # parity-class kernel
+    for name in ("dark2_conv", "dark3_conv", "ragged_c48", "ragged_k1_s2"):
         k, s, p, h, w, c, co = SHAPES[name]
         ho, wo = pc.out_hw(h, w, k, s, p)
         assert pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,
                                 f32) == "wgmma_classes"
     # shapes off the predicates -> the CUDA-core gather kernel
-    for name in ("stem", "ragged_odd_co", "ragged_k5", "ragged_c48"):
+    for name in ("stem", "ragged_odd_co", "ragged_k5", "ragged_k4"):
         k, s, p, h, w, c, co = SHAPES[name]
         ho, wo = pc.out_hw(h, w, k, s, p)
         assert pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,

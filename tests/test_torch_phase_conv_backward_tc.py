@@ -165,16 +165,20 @@ def test_class_plan_takes_every_tap_once_at_its_pixel(k, padding):
 
 
 # the ragged shapes whose weight gradient the tensor cores take: C and Co
-# multiples of 8 (C = 4: flat rows); the others, and every ragged data
-# gradient, stay on the CUDA cores
+# multiples of 8 (C = 4: flat rows); the others stay on the CUDA cores
 RAGGED_WGRAD = {"c48": "wgmma", "narrow": "wgmma", "k4": "wgmma"}
+# the ragged shape whose data gradient the tensor cores take: k 1 or 3, C
+# and Co multiples of 8; the other four (odd Co, C = 4, k = 4, C = 70) and
+# the stem stay on the CUDA cores
+RAGGED_DGRAD = {"c48": "wgmma_classes"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_variants_of_the_main_path_and_ragged_shapes(dtype):
     """All 8 weight gradients and 7 data gradients of the main path take a
     tensor-core variant; the ragged shapes the CUDA-core kernels, but for
-    the weight gradients of ``RAGGED_WGRAD``."""
+    the weight gradients of ``RAGGED_WGRAD`` and the data gradients of
+    ``RAGGED_DGRAD``."""
     for name, (k, s, p, h, w, c, co) in MAIN_PATH.items():
         ho, wo = pc.out_hw(h, w, k, s, p)
         assert pc.wgrad_variant((8, h, w, c), co, k, s, dtype) == "wgmma", name
@@ -187,7 +191,8 @@ def test_variants_of_the_main_path_and_ragged_shapes(dtype):
         assert pc.wgrad_variant((3, h, w, c), co, k, s, dtype) == \
             RAGGED_WGRAD.get(name, "cuda_cores"), name
         assert pc.dgrad_variant((3, ho, wo, co), (k, k, c, co), s, p,
-                                dtype) == "cuda_cores", name
+                                dtype) == RAGGED_DGRAD.get(name,
+                                                           "cuda_cores"), name
 
 
 def test_wgrad_tiles_of_the_main_path():

@@ -286,13 +286,9 @@ def test_plain_matches_jax_pallas_kernel_at_new_channels(k, s, p, h, w, c,
                                rtol=tol)
 
 
-# the data gradients the tensor cores take, by model: every one (S, L,
-# YOLOv3, 24p-s), none (Tiny, M, X: channels 24 / 48 / 80 ...), or these
-DGRAD_TENSOR_CORES = {
-    "yolox-s": True, "yolox-l": True, "yolov3": True, "yolox_24p_s": True,
-    "yolox-tiny": False, "yolox-m": False, "yolox-x": False,
-    "yolox-nano": {"dark2.1.conv3", "dark3.0.pconv"},
-}
+# every model of exps/default and 24p-s
+MODELS = ["yolov3", "yolox-l", "yolox-m", "yolox-nano", "yolox-s",
+          "yolox-tiny", "yolox-x", "yolox_24p_s"]
 # Nano's 16-channel 1x1 convs keep the CUDA-core forward (pc.SMALL_1X1)
 DIRECT_CONVS = {"dark2.0.pconv", "dark2.1.conv1", "dark2.1.conv2",
                    "dark2.1.m.0.conv1", "dark2.1.m.0.conv2.pconv"}
@@ -323,17 +319,15 @@ def _early_convs(name):
     return exp, seen
 
 
-@pytest.mark.parametrize("name", sorted(DGRAD_TENSOR_CORES))
+@pytest.mark.parametrize("name", MODELS)
 def test_every_early_conv_takes_the_tensor_cores(name):
     """Every model of exps/default and 24p-s at its training and serving
     sizes, fp32 and bf16: the stems on ``wgmma_rows``, the other early convs
     on ``wgmma_taps`` (but Nano's 16-channel 1x1 convs on ``direct``), every
-    weight gradient on ``wgmma``; the data gradients where they
-    were before (tensor cores only for Co a multiple of 32 and C in 32, 64,
-    128)."""
+    weight gradient on ``wgmma``, every data gradient on
+    ``flipped:wgmma_taps`` (stride 1) or ``wgmma_classes`` (stride 2)."""
     exp, convs = _early_convs(name)
     assert convs
-    tc = DGRAD_TENSOR_CORES[name]
     sizes = {tuple(exp.input_size), tuple(exp.test_size)}
     for size in sizes:
         f = size[0] / 64
@@ -351,8 +345,6 @@ def test_every_early_conv_takes_the_tensor_cores(name):
                 assert wg == "wgmma", (name, conv, size, dtype)
                 dg = pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,
                                       dtype)
-                on = tc is True or (tc is not False and conv in tc)
-                want = ("cuda_cores" if not on else
-                        "flipped:wgmma_taps" if s == 1 else "wgmma_classes")
+                want = "flipped:wgmma_taps" if s == 1 else "wgmma_classes"
                 if c != 3:   # the stems' input is the image: no dgrad
                     assert dg == want, (name, conv, size, dtype)
