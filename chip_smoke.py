@@ -83,10 +83,14 @@
     with batches in flight;
 16. YOLOX-Nano, YOLOX-Tiny, YOLOv3, YOLOX-M and YOLOX-X: holds the kernels
     at every early-conv shape (batch 8: Nano's 416 px, Tiny's 640 px
-    trained and 416 px served, YOLOv3's, M's and X's 640 px; forward with
-    and without the epilogue, weight and data gradient, fp32 and bf16)
-    against their plain versions beside cuDNN and the CUDA-core kernels
-    (with 3 and 7; M and X are held only here); serves YOLOX-L with
+    trained and 416 px served, YOLOv3's, M's and X's 640 px, and X's stem at
+    800 px, the top of its multiscale range, on ``wgmma_rows`` in N tiles;
+    forward with and without the epilogue, weight and data gradient, fp32
+    and bf16) against their plain versions beside cuDNN and the CUDA-core
+    kernels (with 3 and 7; M and X are held only here); Nano's five small
+    1x1 convs on ``small_1x1`` (``csrc/phase_conv_1x1.cu``) both ways,
+    timed per call and on the device (CUDA graph replay) beside the routes
+    it replaced, forced (``direct``, ``flipped:wgmma_taps``); serves YOLOX-L with
     ``tools.serve -n
     yolox-l --batch 8`` behind the HTTP front end (32 raw frames from 16
     clients, four alone and a JPEG body; ``bbox`` answers against direct
@@ -98,10 +102,9 @@
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
     at Tiny's 416 px (AP 1); one YOLOv3, Nano, Tiny and X step on the card
     against the CPU;
-17. checks that no loader worker died in any of the file phases, that no
-    path launched the CUDA-core ``cuda_cores`` weight or data gradient, and
-    no path but Nano's the CUDA-core ``direct`` forward (Nano's 16-channel
-    1x1 convs keep it: ``ops/phase_conv.py::SMALL_1X1``).
+17. checks that no loader worker died in any of the file phases, and that
+    no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
+    weight or data gradient.
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
 phase, N times in one process, one line a run.
@@ -192,10 +195,11 @@ YOLOX_L_PATH = (
         "wgmma_classes")])
 # the variants of each kernel, by kind; a path's launches are counted by
 # variant as "kind:variant" (chip_smoke's _launch_counts)
-KERNEL_VARIANTS = {"forward": ("wgmma_taps", "wgmma_rows", "direct"),
+KERNEL_VARIANTS = {"forward": ("wgmma_taps", "wgmma_rows", "small_1x1",
+                               "direct"),
                    "wgrad": ("wgmma", "cuda_cores"),
                    "dgrad": ("flipped:wgmma_taps", "wgmma_classes",
-                             "cuda_cores")}
+                             "small_1x1", "cuda_cores")}
 
 
 # each path's launches by variant, filled as the paths run (main adds those
@@ -354,8 +358,8 @@ def epilogue_inputs(co, seed):
 @contextlib.contextmanager
 def small_1x1_on_tensor_cores():
     """Lift ``ops/phase_conv.py::SMALL_1X1`` for the block: the 1x1 convs it
-    keeps on the CUDA-core forward take ``wgmma_taps``, to time what the rule
-    keeps them from (comparisons only)."""
+    sends to ``small_1x1`` take ``wgmma_taps``, to time what the rule keeps
+    them from (comparisons only)."""
     from eop_tpu_torch.ops import phase_conv as pcm
 
     keep, pcm.SMALL_1X1 = pcm.SMALL_1X1, 0
@@ -366,10 +370,10 @@ def small_1x1_on_tensor_cores():
 
 
 def _small_1x1(case) -> bool:
-    from eop_tpu_torch.ops.phase_conv import SMALL_1X1
+    from eop_tpu_torch.ops.phase_conv import small_1x1_fits
 
-    k, _, _, _, _, c, co = case
-    return k == 1 and c % 8 == co % 8 == 0 and c * co <= SMALL_1X1
+    k, s, _, _, _, c, co = case
+    return small_1x1_fits(k, s, c, co)
 
 
 def check_phase_conv(cases=None):
@@ -447,6 +451,14 @@ def check_phase_conv(cases=None):
                 lambda: phase_conv(x, wgt, s, p, _direct=True))
             row["direct_ms_bf16"] = cuda_ms(
                 lambda: phase_conv(x16, wgt16, s, p, _direct=True))
+            if _small_1x1(case) or (c == 3 and batch == SERVE_BATCH):
+                # the device time alone, without the host's between
+                # launches: small_1x1 and the stems, beside direct's
+                for key, xx, ww in (("", x, wgt), ("_bf16", x16, wgt16)):
+                    row[f"device_ms{key}"] = graph_ms(
+                        lambda: phase_conv(xx, ww, s, p))
+                    row[f"direct_device_ms{key}"] = graph_ms(
+                        lambda: phase_conv(xx, ww, s, p, _direct=True))
             if _small_1x1(case):
                 # what the rule keeps this shape from: wgmma_taps
                 with small_1x1_on_tensor_cores():
@@ -758,7 +770,7 @@ def serving_stages(smi: str, exp, model, iters: int = 10):
     # templates in an anonymous namespace); conv_nhwc_kernel is direct's
     own_kernels = {f: sum(e.count for e in kernels if f"::{f}<" in e.key)
                    for f in ("conv_taps_kernel", "conv_rows_kernel",
-                             "conv_nhwc_kernel")}
+                             "conv1x1_small_kernel", "conv_nhwc_kernel")}
     return {"phase": "stages", "card": smi, "batch": SERVE_BATCH,
             "iters": iters, "h2d_letterbox_ms": float(med[0]),
             "forward_ms": float(med[1]), "postprocess_ms": float(med[2]),
@@ -1183,15 +1195,25 @@ def check_phase_conv_backward(cases=None):
                                          _cuda_cores=True))
             row["dgrad_library_ms_bf16"] = cuda_ms(
                 lambda: library_bf16([True, False, False]))
+            if row["dgrad_variant"] == "small_1x1":
+                # the stride-1 tensor-core route small_1x1 replaced, forced
+                for key, dd, ww in (("", dy, wgt), ("_bf16", dy16, w16)):
+                    row[f"dgrad_flipped_ms{key}"] = cuda_ms(
+                        lambda: phase_conv_dgrad(dd, ww, x.shape, s, p,
+                                                 _flipped=True))
+                    row[f"dgrad_flipped_device_ms{key}"] = graph_ms(
+                        lambda: phase_conv_dgrad(dd, ww, x.shape, s, p,
+                                                 _flipped=True))
             for kind in ("wgrad", "dgrad"):
                 row[f"{kind}_bytes_bf16"] = bf16_bytes
                 row[f"{kind}_bound_ms_bf16"] = bf16_bound
                 row[f"{kind}_bound_by_bf16"] = (
                     "operations" if flops / PEAK_BF16_FLOPS
                     >= bf16_bytes / PEAK_BYTES else "bytes")
-            if row["dgrad_on_path"] and row["dgrad_variant"] != "cuda_cores":
+            if row["dgrad_on_path"] and row["dgrad_variant"] not in (
+                    "cuda_cores", "small_1x1"):
                 # the weight packing of this data gradient, alone (the
-                # CUDA-core data gradient reads unpacked weights)
+                # CUDA-core and small_1x1 data gradients read HWIO weights)
                 taps = (flip_taps(k) if s == 1 else
                         [ky * k + kx for _, _, ts in dgrad_class_plan(k, p)
                          for ky, kx, _, _ in ts])
@@ -1201,6 +1223,7 @@ def check_phase_conv_backward(cases=None):
                 if not torch.equal(got, want):
                     raise AssertionError(f"pack_taps {name}: not bit-equal")
                 row["pack_ms"] = cuda_ms(lambda: pack_taps(wgt, taps))
+                row["pack_device_ms"] = graph_ms(lambda: pack_taps(wgt, taps))
                 row["pack_plain_ms"] = cuda_ms(
                     lambda: pack_taps_reference(wgt, taps))
                 # read w once, write hi and lo of every packed tap
@@ -2054,11 +2077,13 @@ def bbox_synthetic_batch(batch: int, size: int, gts: int = 8, seed: int = 0,
 
 # the kernels of the port's backward and forward as the profiler names them,
 # and the launch counters that count each: a kernel's launches in a step are
-# the sum of those counters (the CUDA-core ones last: conv_nhwc_kernel is
-# direct's, wgrad_partial_kernel and dgrad_kernel the cuda_cores backward's)
+# the sum of those counters (the CUDA-core ones last: conv1x1_small_kernel
+# is small_1x1's, both ways; conv_nhwc_kernel is direct's,
+# wgrad_partial_kernel and dgrad_kernel the cuda_cores backward's)
 PROFILED_KERNELS = {
     "conv_taps_kernel": ("forward:wgmma_taps", "dgrad:flipped:wgmma_taps"),
     "conv_rows_kernel": ("forward:wgmma_rows",),
+    "conv1x1_small_kernel": ("forward:small_1x1", "dgrad:small_1x1"),
     "wgrad_tc_kernel": ("wgrad:wgmma",),
     "dgrad_tc_kernel": ("dgrad:wgmma_classes",),
     "pack_taps_kernel": ("pack",),
@@ -2301,13 +2326,14 @@ def drop_bbox_loaders(data_dir: str, drops: int = 2) -> dict:
 # the variants that each zoo model's phase_conv convs must take, by conv
 # (its path under the backbone): forward, weight gradient and data gradient
 # (None: no data gradient, the input is the image).  Every forward and weight
-# gradient runs on the tensor cores but the forward of Nano's 16-channel 1x1
-# convs, which measured faster on the CUDA cores (ops/phase_conv.py::
-# SMALL_1X1); every data gradient runs on the tensor cores, at stride 1 the
-# forward kernel on the flipped weights, at stride 2 the parity classes.  The
-# shapes come from the models themselves (:func:`zoo_path`).
+# gradient runs on the tensor cores but Nano's 16- and 32-channel 1x1 convs,
+# whose forward and data gradient take the CUDA-core small_1x1
+# (ops/phase_conv.py::SMALL_1X1); every other data gradient runs on the
+# tensor cores, at stride 1 the forward kernel on the flipped weights, at
+# stride 2 the parity classes.  The shapes come from the models themselves
+# (:func:`zoo_path`).
 _STEM = ("wgmma_rows", "wgmma", None)
-_DIRECT = ("direct", "wgmma", "flipped:wgmma_taps")
+_SMALL = ("small_1x1", "wgmma", "small_1x1")
 _TAPS = ("wgmma_taps", "wgmma", "flipped:wgmma_taps")
 _CLASSES = ("wgmma_taps", "wgmma", "wgmma_classes")
 
@@ -2326,11 +2352,11 @@ def _csp_darknet(n: int) -> dict:
 ZOO_VARIANTS = {
     "yolox-nano": {
         "stem.conv": _STEM,
-        "dark2.0.pconv": _DIRECT,
-        "dark2.1.conv1": _DIRECT,
-        "dark2.1.conv2": _DIRECT,
-        "dark2.1.m.0.conv1": _DIRECT,
-        "dark2.1.m.0.conv2.pconv": _DIRECT,
+        "dark2.0.pconv": _SMALL,
+        "dark2.1.conv1": _SMALL,
+        "dark2.1.conv2": _SMALL,
+        "dark2.1.m.0.conv1": _SMALL,
+        "dark2.1.m.0.conv2.pconv": _SMALL,
         "dark2.1.conv3": _TAPS,
         "dark3.0.pconv": _TAPS},
     "yolox-tiny": _csp_darknet(1),
@@ -2405,12 +2431,19 @@ def zoo_path() -> list:
     return rows
 
 
+# YOLOX-X's stem at the top of its multiscale range (15..25 x 32 px): fp32
+# takes wgmma_rows in two N tiles of 64 there (ops/phase_conv.py::rows_tile)
+X800_STEM = ("x800.stem.conv", (6, 2, 2, 800, 800, 3, 80), "wgmma_rows")
+
+
 def zoo_cases():
     """check_phase_conv's and check_phase_conv_backward's cases of the
-    zoo: every shape forward (served and trained), those at each model's
-    input size backward (Tiny's 416-px shapes are served only)."""
+    zoo: every shape forward (served and trained) and X's stem at 800 px,
+    those at each model's input size backward (Tiny's 416-px shapes are
+    served only)."""
     path = zoo_path()
     fwd = [(f"{m}.{n}", c, ZOO_BATCH, v) for m, n, c, v, _, _, _ in path]
+    fwd.append((X800_STEM[0], X800_STEM[1], ZOO_BATCH, X800_STEM[2]))
     back = [(f"{m}.{n}", c, ZOO_BATCH, w, d)
             for m, n, c, _, w, d, trained in path if trained]
     return fwd, back
@@ -2420,12 +2453,14 @@ def step_launches(name: str) -> dict:
     """The kernel launches one training step of zoo model ``name`` makes,
     from :data:`ZOO_VARIANTS`: every phase_conv conv launches its forward
     and weight gradient; every one with a data gradient launches it, and
-    packs its weights first on a tensor-core variant; and each kind's
-    launches by variant ("kind:variant")."""
+    packs its weights first on a tensor-core variant (``small_1x1`` and
+    ``cuda_cores`` read HWIO weights); and each kind's launches by variant
+    ("kind:variant")."""
     rows = list(ZOO_VARIANTS[name].values())
     dgrads = [d for _, _, d in rows if d is not None]
     return {"forward": len(rows), "wgrad": len(rows), "dgrad": len(dgrads),
-            "pack": sum(d != "cuda_cores" for d in dgrads),
+            "pack": sum(d not in ("cuda_cores", "small_1x1")
+                        for d in dgrads),
             **variant_counts(rows)}
 
 
@@ -3191,16 +3226,16 @@ def main() -> int:
                    **zoo_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
-    # launches by variant on every path: none launches the cuda_cores weight
-    # or data gradient, none but Nano's the CUDA-core direct forward
+    # launches by variant on every path: none launches the CUDA-core direct
+    # forward or the cuda_cores weight or data gradient
     PATH_VARIANTS.update({
         "serve": _variants(launches), "serve_relu": _variants(relu_launches),
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
         **{k: _variants(c) for k, c in train_paths.items()}})
     cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()
-                       if v["wgrad:cuda_cores"] or v["dgrad:cuda_cores"]
-                       or ("nano" not in k and v["forward:direct"])}
+                       if v["forward:direct"] or v["wgrad:cuda_cores"]
+                       or v["dgrad:cuda_cores"]}
     if cuda_core_paths:
         raise AssertionError(f"CUDA-core forward, weight or data gradient on "
                              f"{cuda_core_paths}")
@@ -3237,7 +3272,7 @@ def main() -> int:
         """The zoo's shapes at batch 8 summed by model (Nano, Tiny at 640
         and at 416, YOLOv3), one row per conv."""
         out = {}
-        for m in ("nano", "tiny", "tiny416", "yolov3", "m", "x"):
+        for m in ("nano", "tiny", "tiny416", "yolov3", "m", "x", "x800"):
             mine = [r for r in rows_ if r["name"].split(".")[0] == m]
             if mine:
                 out[m] = {"shapes": len(mine),
@@ -3326,6 +3361,59 @@ def main() -> int:
             "card": smi,
         }
 
+    # small_1x1 (csrc/phase_conv_1x1.cu): Nano's five 1x1 convs at B=8, 416
+    # px, summed, both ways, beside the routes it replaced (forced)
+    small_fwd = [r for r in z_shapes if r["variant"] == "small_1x1"]
+    small_back = [r for r in z_back_rows if r["dgrad_variant"] == "small_1x1"]
+    small_launches = {path: {"forward": v["forward:small_1x1"],
+                             "dgrad": v["dgrad:small_1x1"]}
+                      for path, v in PATH_VARIANTS.items()
+                      if v["forward:small_1x1"] or v["dgrad:small_1x1"]}
+    if not (len(small_fwd) == len(small_back) == 5 and small_launches):
+        raise AssertionError(f"small_1x1: {len(small_fwd)} forward and "
+                             f"{len(small_back)} data-gradient shapes, "
+                             f"launches {small_launches}")
+    small_bound = {"operations": 0.0, "bytes": 0.0}
+    for r in small_fwd:
+        small_bound[r["bound_by"]] += r["bound_ms"]
+    small_entry = {
+        "name": "phase_conv_small_1x1",
+        "route": "cuda",
+        "source": "eop_tpu_torch/csrc/phase_conv_1x1.cu",
+        "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
+        "launches": sum(n for v in small_launches.values()
+                        for n in v.values()),
+        "launches_by_path": small_launches,
+        "max_abs_err": max(r[k] for r in small_fwd for k in (
+            "max_abs_err_fp32", "max_abs_err_fp32_fused")),
+        "max_abs_err_bf16": max(r[k] for r in small_fwd for k in (
+            "max_abs_err_bf16", "max_abs_err_bf16_fused")),
+        "dgrad_max_abs_err": max(r["dgrad_max_abs_err_fp32"]
+                                 for r in small_back),
+        "dgrad_max_abs_err_bf16": max(r["dgrad_max_abs_err_bf16"]
+                                      for r in small_back),
+        "batch": ZOO_BATCH,
+        "shapes": {r["name"]: r["case"] for r in small_fwd},
+        # the forward, fp32 (per call, CUDA events; device: graph replay)
+        **{k: sum(r[k] for r in small_fwd) for k in (
+            "ms", "device_ms", "ms_fused", "plain_ms", "bound_ms",
+            "library_ms", "library_fused_ms", "direct_ms",
+            "direct_device_ms", "taps_ms", "ms_bf16", "device_ms_bf16",
+            "bound_bf16_ms", "library_bf16_ms", "direct_ms_bf16",
+            "direct_device_ms_bf16", "taps_ms_bf16")},
+        "bound_by": max(small_bound, key=small_bound.get),
+        # the data gradient: small_1x1 with the weights read transposed,
+        # beside the flipped tensor-core route (two launches) it replaced
+        "dgrad": {k: sum(r[f"dgrad_{k}"] for r in small_back) for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+            "flipped_ms", "flipped_device_ms", "cuda_cores_ms",
+            "ms_bf16", "device_ms_bf16", "bound_ms_bf16",
+            "library_ms_bf16", "flipped_ms_bf16",
+            "flipped_device_ms_bf16")},
+        "card": smi,
+    }
+    x800 = next(r for r in z_shapes if r["name"] == X800_STEM[0])
+
     emit({"kernels": [{
         "name": "phase_conv",
         "route": "cuda",
@@ -3378,8 +3466,16 @@ def main() -> int:
                               "library_bf16_ms", "library_fused_ms",
                               "direct_ms", "direct_ms_bf16"),
                    "variant"),
+        # YOLOX-X's stem at 800 px: wgmma_rows in N tiles (fp32), beside
+        # direct forced
+        "x800_stem": {k: x800[k] for k in (
+            "variant", "variant_bf16", "ms", "device_ms", "ms_bf16",
+            "device_ms_bf16", "direct_ms", "direct_device_ms",
+            "direct_ms_bf16", "plain_ms", "bound_ms", "bound_bf16_ms",
+            "library_ms", "library_bf16_ms", "max_abs_err_fp32",
+            "max_abs_err_bf16")},
         "card": smi,
-    }, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
+    }, small_entry, backward_row("dgrad", "stride 2: parity classes on the tensor cores; "
                     "stride 1: phase_conv.cu's wgmma_taps on flipped "
                     "weights; both after one packing launch"),
         backward_row("wgrad", "tensor cores, split-K partial sums + "
@@ -3397,15 +3493,17 @@ def main() -> int:
             # per training step: the 7 data gradients' packings at B=32
             "batch": TRAIN_BATCH,
             "ms": sum(r["pack_ms"] for r in pack_rows),
+            "device_ms": sum(r["pack_device_ms"] for r in pack_rows),
             "plain_ms": sum(r["pack_plain_ms"] for r in pack_rows),
             "bound_ms": sum(r["pack_bound_ms"] for r in pack_rows),
             "bound_by": "bytes",
             "library_ms": None,
             "shapes": len(pack_rows),
-            "yolox_l": yolox_l(l_pack_rows, ("pack_ms", "pack_plain_ms",
+            "yolox_l": yolox_l(l_pack_rows, ("pack_ms", "pack_device_ms",
+                                             "pack_plain_ms",
                                              "pack_bound_ms")),
-            "zoo": zoo(z_pack_rows, ("pack_ms", "pack_plain_ms",
-                                     "pack_bound_ms")),
+            "zoo": zoo(z_pack_rows, ("pack_ms", "pack_device_ms",
+                                     "pack_plain_ms", "pack_bound_ms")),
             "card": smi,
         },
     ]})

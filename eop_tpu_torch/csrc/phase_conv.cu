@@ -44,7 +44,9 @@
 //             neighbouring in the walk so the second reads A from L2, and
 //             stores only the channels below Co.
 //  conv_rows  the 6x6/s2 stem (YOLOX) and the 3x3/s1 stem (Darknet-53) on 3
-//             channels, Co up to 96.  A pixel is 12 (or 6) bytes, so no tensor
+//             channels, Co in N tiles of 32, 64 or 96 (a grid dimension; the
+//             wrapper picks the widest tile whose weights leave shared memory
+//             room for the row ring).  A pixel is 12 (or 6) bytes, so no tensor
 //             map can take channels as its inner dimension: whole input rows
 //             are staged by 1-D bulk copies into a ring, and for one ky an
 //             output pixel's k taps x 3 channels are a contiguous run of 3k
@@ -52,8 +54,9 @@
 //             (the windows of neighbouring pixels overlap, so no
 //             shared-memory descriptor could describe A).
 //
-// Shapes outside both stay on the direct CUDA-core kernel
-// (phase_conv_direct.cu).
+// Shapes outside both run on no path of the port's models: they stay on the
+// direct CUDA-core kernel (phase_conv_direct.cu).  YOLOX-Nano's small 1x1
+// convs have a CUDA-core kernel of their own (phase_conv_1x1.cu).
 
 #include "hopper.cuh"
 
@@ -406,7 +409,8 @@ struct RowParams {
 // the pairs f = 16s + 2t and 16s + 2t + 8 (bf16).  For K = 6 a pair is one
 // aligned 8-byte (4-byte) load that never straddles a ky, since 18 is even;
 // for K = 3 (9 values a ky, odd pixel offsets) each value is loaded alone.
-// The N tile CO (32, 64 or 96) is NCH wgmmas of N = 32.
+// The N tile CO (32, 64 or 96) is NCH wgmmas of N = 32; blockIdx.y is the
+// tile: its weights are staged, its channels stored, those from Co on not.
 template <typename T, int K, int CO>
 __global__ void __launch_bounds__(kRowsWarpgroups * 128 + 32, 1)
 conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
@@ -460,7 +464,8 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
     if (lane != 0) return;
     mbar_expect_tx(w_bar, kWBytes);
     for (int r = 0; r < G::kRuns; ++r)
-      tma_load_2d(base + r * G::kNB * CO * 128, &map_w, w_bar, 0, r * G::kNB * CO);
+      tma_load_2d(base + r * G::kNB * CO * 128, &map_w, w_bar, 0,
+                  ((int)blockIdx.y * G::kRuns + r) * G::kNB * CO);
     int n = 0;
     for (int step = s_begin; step < s_end; ++step) {
       const int b = step / p.steps_per_image, sl = step % p.steps_per_image;
@@ -629,13 +634,14 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
       for (int c = 0; c < NCH; ++c)
 #pragma unroll
         for (int i = 0; i < 16; ++i) keep(acc[c][i]);
-      T* row = y + ((size_t)b * p.Ho + oy) * p.Wo * p.Co;
+      const int c0 = (int)blockIdx.y * CO;
+      T* row = y + ((size_t)b * p.Ho + oy) * p.Wo * p.Co + c0;
       T* pa = oxa < p.Wo ? row + (size_t)oxa * p.Co : nullptr;
       T* pb = oxb < p.Wo ? row + (size_t)oxb * p.Co : nullptr;
 #pragma unroll
       for (int c = 0; c < NCH; ++c)
-        store_fragment(acc[c], pa ? pa + c * 32 : pa, pb ? pb + c * 32 : pb, c * 32, t,
-                       p.epilogue, p.Co);
+        store_fragment(acc[c], pa ? pa + c * 32 : pa, pb ? pb + c * 32 : pb, c0 + c * 32,
+                       t, p.epilogue, p.Co);
     }
 
     // retire the rows the next step does not read
@@ -656,9 +662,11 @@ int launch_rows(const void* x, const void* wp, void* y, RowParams p,
   constexpr int kRun = 128 / (int)sizeof(T);  // elements of a weight row
   constexpr int kLive = G::kStride * (NWG - 1) + K, kNew = G::kStride * NWG;
   constexpr int kMaxSmem = 227 * 1024;
+  const int ntiles = (p.Co + CO - 1) / CO;
   p.steps_per_image = (p.Ho + NWG - 1) / NWG;
   p.total_steps = p.steps_per_image * p.B;
-  const int blocks = min(p.total_steps, sm_count());
+  // one block an SM in all: the N tiles share the SMs
+  const int blocks = min(p.total_steps, max(1, sm_count() / ntiles));
   p.steps_per_block = (p.total_steps + blocks - 1) / blocks;
   // as many slots ahead of the live rows as fit, up to one step's worth
   const int fixed = 1024 + (int)kWBytes + 8 + (int)p.slot_bytes;  // + zero slot
@@ -667,7 +675,7 @@ int launch_rows(const void* x, const void* wp, void* y, RowParams p,
   const int smem = fixed + p.ring * ((int)p.slot_bytes + 16);
 
   alignas(64) CUtensorMap map_w;
-  const cuuint64_t dims[2] = {kRun, (cuuint64_t)G::kRuns * G::kNB * CO};
+  const cuuint64_t dims[2] = {kRun, (cuuint64_t)ntiles * G::kRuns * G::kNB * CO};
   const cuuint64_t strides[1] = {128};
   const cuuint32_t box[2] = {kRun, G::kNB * CO};
   const int rc = encode_tiled(&map_w,
@@ -684,7 +692,7 @@ int launch_rows(const void* x, const void* wp, void* y, RowParams p,
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const int grid = (p.total_steps + p.steps_per_block - 1) / p.steps_per_block;
+  const dim3 grid((p.total_steps + p.steps_per_block - 1) / p.steps_per_block, ntiles);
   conv_rows_kernel<T, K, CO><<<grid, NWG * 128 + 32, smem, stream>>>(
       map_w, static_cast<const T*>(x), static_cast<T*>(y), p);
   return (int)cudaGetLastError();
@@ -742,18 +750,19 @@ extern "C" int phase_conv_taps(int dtype, const void* x, const void* wp, void* y
 }
 
 // Tensor-core variant for the stems on 3 channels: k = 6 (stride 2, padding
-// 2) or k = 3 (stride 1, padding 1), Co up to co_tile (32, 64 or 96).  x
-// [B, H, W, 3] contiguous, 16-byte aligned, rows a multiple of 16 bytes; wp
-// the wrapper's packed weights over the flat K = (ky, kx, c), zero-padded to
-// whole runs and to co_tile outputs: fp32 runs of [hi, lo][co_tile][32],
-// K-permuted; bf16 runs of [co_tile][64].  dtype 0 = float32, 1 = bfloat16.
+// 2) or k = 3 (stride 1, padding 1), Co in ceil(Co / co_tile) N tiles of
+// co_tile (32, 64 or 96) channels.  x [B, H, W, 3] contiguous, 16-byte
+// aligned, rows a multiple of 16 bytes; wp the wrapper's packed weights, per
+// N tile, over the flat K = (ky, kx, c), zero-padded to whole runs and past
+// Co: fp32 runs of [hi, lo][co_tile][32], K-permuted; bf16 runs of
+// [co_tile][64].  dtype 0 = float32, 1 = bfloat16.
 extern "C" int phase_conv_rows(int dtype, const void* x, const void* wp, void* y,
                                const void* scale, const void* shift, int act,
                                int B, int H, int W, int Ho, int Wo, int k, int Co,
                                int co_tile, void* stream) {
   const int es = dtype == 0 ? 4 : 2;
   if ((W * kRowsC * es) % 16 != 0 || (k != 6 && k != 3) || (k == 6 && H % 2 != 0) ||
-      Co % 8 != 0 || Co > co_tile || (dtype != 0 && dtype != 1))
+      Co % 8 != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   RowParams p;
   p.B = B, p.H = H, p.W = W, p.Ho = Ho, p.Wo = Wo, p.Co = Co;

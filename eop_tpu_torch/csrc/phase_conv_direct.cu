@@ -1,9 +1,10 @@
 // Direct implicit-GEMM convolution over contiguous NHWC on the CUDA cores
-// (sm_90a): the variant of phase_conv for the shapes the tensor-core kernels
-// of phase_conv.cu do not take (channel counts that are no multiple of 8,
-// kernels other than 1x1, 3x3 and the 6x6 and 3x3 stems, stem rows that are
-// no multiple of 16 bytes, 1x1 convs of at most 512 C x Co products, where
-// this kernel measured faster), and a comparison on the card.
+// (sm_90a): the variant of phase_conv for the shapes no other kernel takes
+// (channel counts that are no multiple of 8, kernels other than 1x1, 3x3 and
+// the 6x6 and 3x3 stems, stem rows that are no multiple of 16 bytes or wider
+// than wgmma_rows' narrowest N tile leaves room for, small 1x1 convs at
+// stride 2), none of which a conv of the port's models has, and the
+// comparison the card's smoke run times the other kernels against.
 //
 // Replaces: eop_tpu/ops/pallas/conv_small_c.py::phase_conv (the Pallas TPU
 // kernel `_conv_kernel`, launched by `_phase_conv_s1`).  Same function: an

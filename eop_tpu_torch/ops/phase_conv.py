@@ -12,10 +12,12 @@ side and the kernels apply in their epilogue:
   ``wgmma_taps`` (``csrc/phase_conv.cu``: TMA ring, tensor cores, 1x1 and 3x3
   convs with C and Co multiples of 8: channel runs zero-filled past C, Co in
   N tiles of at most 128, :func:`taps_run`, :func:`co_tiles`), ``wgmma_rows``
-  (same file: the 6x6/s2 and 3x3/s1 stems on 3 channels, Co up to 96) or
+  (same file: the 6x6/s2 and 3x3/s1 stems on 3 channels, Co in N tiles of
+  :func:`rows_tile`), ``small_1x1`` (``csrc/phase_conv_1x1.cu``: CUDA cores,
+  the 1x1 stride-1 convs of :data:`SMALL_1X1` size, a bulk-copy ring) or
   ``direct`` (``csrc/phase_conv_direct.cu``: CUDA cores, any shape the
-  predicate admits).  ``phase_conv.last_variant`` names the one that ran
-  last;
+  predicate admits; no conv of the port's models takes it).
+  ``phase_conv.last_variant`` names the one that ran last;
 * a CPU tensor goes to :func:`phase_conv_reference`, which reproduces the
   JAX re-expression step by step — space-to-depth, the scattered phase
   kernel, then a stride-1 convolution — so the CPU tests hold the port's
@@ -31,7 +33,8 @@ whose backward launches hand-written kernels too (JAX differentiates
 (``csrc/phase_conv_backward_tc.cu``: the weight gradient split over pixel
 chunks, then an ordered reduction, so the result is the same bits on every
 run; the stride-2 data gradient by parity class; at stride 1 the forward
-kernel on the flipped weights, packed by one kernel launch) where
+kernel on the flipped weights, packed by one kernel launch; the small 1x1
+convs' on ``small_1x1`` with the weights read transposed) where
 :func:`wgrad_variant` / :func:`dgrad_variant` take the shape, else on the
 CUDA cores (``csrc/phase_conv_backward.cu``, variant ``cuda_cores``).  The
 layouts (K order, per-class taps, M tiles, split plan) are decided here, on
@@ -190,87 +193,116 @@ def _rows_runs(k: int, c: int, dtype: torch.dtype) -> int:
     return -(-k * k * c // (32 if dtype == torch.float32 else 64))
 
 
-def _pack_rows(w: torch.Tensor) -> torch.Tensor:
-    """HWIO ``[k, k, 3, Co]`` (the 6x6 and 3x3 stems) -> K-major runs over
-    the flat K index ``3k ky + 3 kx + c`` (within one ky, the order an NHWC
-    row has), zero-padded to whole runs and to the N tile.  fp32:
-    ``[runs, 2 (hi, lo), tile, 32]``, each run K permuted by ``K_ORDER``;
-    bf16: ``[runs, tile, 64]``."""
+def _pack_rows(w: torch.Tensor, tile: Optional[int] = None) -> torch.Tensor:
+    """HWIO ``[k, k, 3, Co]`` (the 6x6 and 3x3 stems) -> per N tile of
+    ``tile`` channels (one tile of ``co_tiles(Co)`` by default), K-major
+    runs over the flat K index ``3k ky + 3 kx + c`` (within one ky, the order
+    an NHWC row has), zero-padded to whole runs and past Co.  fp32:
+    ``[tiles * runs, 2 (hi, lo), tile, 32]``, each run K permuted by
+    ``K_ORDER``; bf16: ``[tiles * runs, tile, 64]``; tile ``t``'s runs
+    first from ``t * runs``."""
     k, _, c, co = w.shape
-    tile, _ = co_tiles(co)
+    tile = tile or co_tiles(co)[0]
+    nt = -(-co // tile)
     runs = _rows_runs(k, c, w.dtype)
     per = 32 if w.dtype == torch.float32 else 64
-    flat = w.new_zeros((runs * per, tile))
+    flat = w.new_zeros((runs * per, nt * tile))
     flat[: k * k * c, :co] = w.reshape(k * k * c, co)
+    flat = flat.reshape(runs * per, nt, tile).permute(1, 0, 2)
     if w.dtype != torch.float32:
-        return flat.reshape(runs, 64, tile).permute(0, 2, 1).contiguous()
-    both = torch.stack(split_tf32(flat)).reshape(2, runs, 32, tile)
-    both = both[:, :, K_ORDER["wgmma_rows"], :]
-    return both.permute(1, 0, 3, 2).contiguous()
+        return flat.reshape(nt, runs, 64, tile).permute(0, 1, 3, 2).reshape(
+            nt * runs, tile, 64).contiguous()
+    both = torch.stack(split_tf32(flat)).reshape(2, nt, runs, 32, tile)
+    both = both[:, :, :, K_ORDER["wgmma_rows"], :]
+    return both.permute(1, 2, 0, 4, 3).reshape(nt * runs, 2, tile,
+                                                32).contiguous()
 
 
 # (k, stride, padding, C) of the stems wgmma_rows takes
 ROWS_STEMS = ((6, 2, 2, 3), (3, 1, 1, 3))
-# 1x1 convs with C * Co at most this keep the CUDA-core forward: YOLOX-Nano's
-# 16-channel ones (16->32, 32->16, 16->16 at 104 x 104, batch 8) measured
-# slower on wgmma_taps (H100, chip_smoke.py's zoo phases; PERF.md); their
-# weight gradients measured faster on the tensor cores and take them
+# 1x1 stride-1 convs with C * Co at most this (YOLOX-Nano's 16- and
+# 32-channel ones, at 104 x 104 for 416 px) take the CUDA-core small_1x1
+# kernel, forward and data gradient: bound by bytes, with a quarter of the
+# byte time in FMAs, they gain nothing from the tensor cores' packed and
+# split products; their weight gradients take the tensor cores
 SMALL_1X1 = 512
 _SMEM_BLOCK = 227 * 1024  # shared memory a block may use on Hopper
 
 
-def _rows_fit(wd: int, co: int, k: int, dtype: torch.dtype) -> bool:
-    """Whether ``conv_rows_kernel``'s shared memory holds the weights, a slot
-    of zeros and more than one step's input rows of width ``wd`` (its
-    ``launch_rows``, to the byte)."""
+def small_1x1_fits(k: int, stride: int, c: int, co: int) -> bool:
+    """Whether ``small_1x1`` takes a conv from C to Co channels (or its data
+    gradient, from Co to C): 1x1 at stride 1, C and Co multiples of 8,
+    C * Co at most :data:`SMALL_1X1`."""
+    return (k == 1 and stride == 1 and c % 8 == 0 and co % 8 == 0
+            and c * co <= SMALL_1X1)
+
+
+def rows_tile(wd: int, co: int, k: int,
+              dtype: torch.dtype) -> Optional[Tuple[int, int]]:
+    """``(tile, tiles)``: the N tiles of ``conv_rows_kernel`` for stem rows
+    of width ``wd``.  The widest tile of 96, 64 or 32 channels (as few tiles
+    as that width allows, each the multiple of 32 that holds its share)
+    whose weights leave the block's shared memory, beside a slot of zeros,
+    a ring of more than one step's live input rows (its ``launch_rows``, to
+    the byte).  None where even 32 leaves no such ring or a row is no
+    multiple of 16 bytes."""
     es = 4 if dtype == torch.float32 else 2
     if (wd * 3 * es) % 16:
-        return False
+        return None
     s, nwg = (2 if k == 6 else 1), 4
     live, new = s * (nwg - 1) + k, s * nwg
     slot = es * (8 + 3 * wd + 16)
-    wbytes = (_rows_runs(k, 3, dtype) * (2 if es == 4 else 1)
-              * co_tiles(co)[0] * 128)
-    fixed = 1024 + wbytes + 8 + slot
-    return min(live + new, (_SMEM_BLOCK - fixed) // (slot + 16)) > live
+    for width in (96, 64, 32):
+        n = -(-co // width)
+        tile = -(-co // (32 * n)) * 32
+        wbytes = _rows_runs(k, 3, dtype) * (2 if es == 4 else 1) * tile * 128
+        fixed = 1024 + wbytes + 8 + slot
+        if min(live + new, (_SMEM_BLOCK - fixed) // (slot + 16)) > live:
+            return tile, n
+    return None
 
 
 def kernel_variant(x_shape, w_shape, stride: int, padding: int,
                    dtype: torch.dtype) -> str:
     """Which hand-written kernel a CUDA tensor of this shape and type takes:
-    ``wgmma_taps`` for 1x1 and 3x3 convs with C and Co multiples of 8 (but
-    the 1x1 convs of :data:`SMALL_1X1`), ``wgmma_rows`` for the stems on 3
-    channels with Co up to 96 where a row is 16-byte aligned, else
-    ``direct``."""
+    ``small_1x1`` for the 1x1 stride-1 convs of :func:`small_1x1_fits`,
+    ``wgmma_taps`` for the other 1x1 and 3x3 convs with C and Co multiples
+    of 8, ``wgmma_rows`` for the stems on 3 channels where
+    :func:`rows_tile` takes the row width, else ``direct``."""
     _, _, wd, c = x_shape
     k, _, _, co = w_shape
     if co % 8:
         return "direct"
+    if small_1x1_fits(k, stride, c, co):
+        return "small_1x1"
     if (k == 3 or (k == 1 and c * co > SMALL_1X1)) and c % 8 == 0:
         return "wgmma_taps"
-    if ((k, stride, padding, c) in ROWS_STEMS and co <= 96
-            and _rows_fit(wd, co, k, dtype)):
+    if ((k, stride, padding, c) in ROWS_STEMS
+            and rows_tile(wd, co, k, dtype) is not None):
         return "wgmma_rows"
     return "direct"
 
 
-_PACKERS = {"wgmma_taps": _pack_taps, "wgmma_rows": _pack_rows}
-# id(w) -> (weak reference to w, its version, packed weights)
+# id(w) -> (weak reference to w, its version, (variant, tile), packed weights)
 _packed: Dict[int, tuple] = {}
 
 
-def packed_weights(w: torch.Tensor, variant: str) -> torch.Tensor:
-    """The tensor-core layout of HWIO ``w``, made once per weight tensor and
-    kept while that tensor lives and is not written to in place."""
+def packed_weights(w: torch.Tensor, variant: str,
+                   tile: Optional[int] = None) -> torch.Tensor:
+    """The tensor-core layout of HWIO ``w`` for ``variant`` (``wgmma_rows``:
+    in N tiles of ``tile`` channels), made once per weight tensor and layout
+    and kept while that tensor lives and is not written to in place."""
     version = 0 if w.is_inference() else w._version
+    layout = (variant, tile)
     hit = _packed.get(id(w))
-    if hit is not None and hit[0]() is w and hit[1] == version:
-        return hit[2]
-    out = _PACKERS[variant](w)
+    if (hit is not None and hit[0]() is w and hit[1] == version
+            and hit[2] == layout):
+        return hit[3]
+    out = _pack_rows(w, tile) if variant == "wgmma_rows" else _pack_taps(w)
     packed_weights.packs += 1
     key = id(w)
     _packed[key] = (weakref.ref(w, lambda _: _packed.pop(key, None)),
-                    version, out)
+                    version, layout, out)
     return out
 
 
@@ -445,6 +477,10 @@ _SYMBOLS = {
     "direct": ("phase_conv_direct", "phase_conv_direct",
                [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
                + _SHAPE_ARGS + [ctypes.c_void_p]),
+    "small_1x1": ("phase_conv_1x1", "phase_conv_small_1x1",
+                  [ctypes.c_int] + [ctypes.c_void_p] * 3 + _EPILOGUE_ARGS
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 3
+                  + [ctypes.c_void_p]),
     "wgrad": ("phase_conv_backward", "phase_conv_wgrad",
               [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int]
               + _SHAPE_ARGS + [ctypes.c_void_p]),
@@ -518,12 +554,21 @@ def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None,
                 1 if act == "silu" else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        if variant == "small_1x1":
+            err = _small_1x1(x, w, y, False, epilogue, stream)
+            if err != 0:
+                raise RuntimeError(f"phase_conv kernel (small_1x1) launch "
+                                   f"failed: error {err}")
+            return y, variant
+        tile = (rows_tile(wd, co, k, x.dtype)[0] if variant == "wgmma_rows"
+                else None)
         if packed is not None:
             wp = packed
         else:
-            wp = w if variant == "direct" else packed_weights(w, variant)
+            wp = w if variant == "direct" else packed_weights(w, variant,
+                                                              tile)
         if variant == "wgmma_rows":
-            shape = (b, h, wd, ho, wo, k, co, co_tiles(co)[0])
+            shape = (b, h, wd, ho, wo, k, co, tile)
         else:
             shape = (b, h, wd, c, co, k, stride, padding, ho, wo)
         if variant == "wgmma_taps":
@@ -535,6 +580,19 @@ def _launch_forward(x, w, stride, padding, scale, shift, act, packed=None,
         raise RuntimeError(f"phase_conv kernel ({variant}) launch failed: "
                            f"error {err}")
     return y, variant
+
+
+def _small_1x1(x, w, y, transpose_w: bool, epilogue, stream) -> int:
+    """Launch ``small_1x1`` on checked CUDA arguments (``y`` fresh, so
+    16-byte aligned like ``x``): ``y[M, N] = x[M, K] . W`` over the last
+    axes, with the HWIO weights ``[1, 1, C, Co]`` read as ``W = [C, Co]``
+    (the forward) or, with ``transpose_w`` (the data gradient: ``x`` is dy,
+    ``y`` dx), as the transpose of ``[C, Co]``; then the ``epilogue``
+    (scale and shift pointers, act).  Returns the C function's code."""
+    k_in, n_out = x.shape[-1], y.shape[-1]
+    return _kernel("small_1x1")(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        *epilogue, x.numel() // k_in, k_in, n_out, int(transpose_w), stream)
 
 
 WGRAD_CHUNK = 32  # output pixels of one chunk of the tensor-core weight gradient
@@ -707,26 +765,38 @@ def dgrad_class_plan(k: int, padding: int):
     return sorted(classes, key=lambda cl: -len(cl[2]))
 
 
+def _taps_dgrad(k: int, c: int, co: int) -> bool:
+    """Whether the tensor-core data gradients take a conv's channels."""
+    return k in (1, 3) and c % 8 == 0 and co % 8 == 0
+
+
 def dgrad_variant(dy_shape, w_shape, stride: int, padding: int,
                   dtype: torch.dtype) -> str:
-    """Which kernel the data gradient of a CUDA tensor takes: 1x1 and 3x3
-    convs with C and Co multiples of 8 take the tensor cores, at stride 1
-    the forward's ``wgmma_taps`` on the flipped weights
-    (``"flipped:wgmma_taps"``), at stride 2 ``"wgmma_classes"``; both read
-    Co in zero-filled K runs of :func:`taps_run` and write C in the N tiles
-    of :func:`co_tiles`.  Else ``"cuda_cores"``."""
+    """Which kernel the data gradient of a CUDA tensor takes: the 1x1
+    stride-1 convs of :func:`small_1x1_fits` ``"small_1x1"`` (one launch,
+    the weights read transposed); other 1x1 and 3x3 convs with C and Co
+    multiples of 8 the tensor cores, at stride 1 the forward's
+    ``wgmma_taps`` on the flipped weights (``"flipped:wgmma_taps"``), at
+    stride 2 ``"wgmma_classes"``; both read Co in zero-filled K runs of
+    :func:`taps_run` and write C in the N tiles of :func:`co_tiles`.  Else
+    ``"cuda_cores"``."""
     k, _, c, co = w_shape
-    if k in (1, 3) and c % 8 == 0 and co % 8 == 0:
+    if small_1x1_fits(k, stride, c, co):
+        return "small_1x1"
+    if _taps_dgrad(k, c, co):
         return "flipped:wgmma_taps" if stride == 1 else "wgmma_classes"
     return "cuda_cores"
 
 
 def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
-                     padding: int, _cuda_cores: bool = False) -> torch.Tensor:
+                     padding: int, _cuda_cores: bool = False,
+                     _flipped: bool = False) -> torch.Tensor:
     """Data gradient ``x_shape`` of ``phase_conv`` for HWIO ``w`` and output
     gradient ``dy`` ``[B, Ho, Wo, Co]``.  A CPU pair takes the plain version;
     a CUDA pair launches the kernels of :func:`dgrad_variant` or raises
-    (``_cuda_cores`` forces the CUDA-core kernel, for comparisons).  The tensor-core variants first pack the weights in one
+    (for comparisons, ``_cuda_cores`` forces the CUDA-core kernel and
+    ``_flipped`` the stride-1 tensor-core route, where its predicate takes
+    the shape).  The tensor-core variants first pack the weights in one
     launch (:func:`pack_taps`).  ``phase_conv.dgrad_launches`` counts the
     calls, ``phase_conv.last_dgrad_variant`` names the kernel."""
     if dy.device.type == "cpu" and w.device.type == "cpu":
@@ -743,8 +813,15 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
     if tuple(dy.shape) != (b, ho, wo, co):
         raise ValueError(f"dy {tuple(dy.shape)} is not the output of "
                          f"{x_shape}: expected {(b, ho, wo, co)}")
-    variant = ("cuda_cores" if _cuda_cores else
-               dgrad_variant(dy.shape, w.shape, stride, padding, dy.dtype))
+    if _cuda_cores:
+        variant = "cuda_cores"
+    elif _flipped:
+        if stride != 1 or not _taps_dgrad(k, c, co):
+            raise ValueError(f"_flipped: the stride-1 tensor-core route does "
+                             f"not take k={k} stride={stride} C={c} Co={co}")
+        variant = "flipped:wgmma_taps"
+    else:
+        variant = dgrad_variant(dy.shape, w.shape, stride, padding, dy.dtype)
     if variant.startswith("flipped:"):
         wp = pack_taps(w, flip_taps(k))
         dx, _ = _launch_forward(dy, w.new_empty((k, k, co, c), device="meta"),
@@ -758,7 +835,10 @@ def phase_conv_dgrad(dy: torch.Tensor, w: torch.Tensor, x_shape, stride: int,
             return dx.zero_()
         with torch.cuda.device(dy.device):
             stream = torch.cuda.current_stream().cuda_stream
-            if variant == "wgmma_classes":
+            if variant == "small_1x1":
+                _check_aligned(dy)
+                err = _small_1x1(dy, w, dx, True, (None, None, 0), stream)
+            elif variant == "wgmma_classes":
                 _check_aligned(dy)
                 plan = dgrad_class_plan(k, padding)
                 taps = [t for _, _, ts in plan for t in ts]

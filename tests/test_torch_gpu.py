@@ -816,12 +816,13 @@ def test_bbox_train_step_on_card_matches_cpu(cuda):
 # (shape, forward, wgrad, dgrad variant): each new early-conv shape at a
 # tenth of its size (Tiny 640 / 416 px, Nano 416 px, YOLOv3 640 px); the
 # channel counts decide the variants (and Nano's stem at 42 px, a row of no
-# 16-byte multiple, the CUDA cores; its 16-channel 1x1 convs' forward too;
-# the stems' 3 input channels keep their data gradient on the CUDA cores)
+# 16-byte multiple, the CUDA cores; its 16- and 32-channel 1x1 convs both
+# ways small_1x1; the stems' 3 input channels keep their data gradient on
+# the CUDA cores)
 ZOO_SHAPES = [
     ((6, 2, 2, 42, 42, 3, 16), "direct", "cuda_cores", "cuda_cores"),
-    ((1, 1, 0, 10, 10, 16, 32), "direct", "wgmma", "flipped:wgmma_taps"),
-    ((1, 1, 0, 10, 10, 32, 16), "direct", "wgmma", "flipped:wgmma_taps"),
+    ((1, 1, 0, 10, 10, 16, 32), "small_1x1", "wgmma", "small_1x1"),
+    ((1, 1, 0, 10, 10, 32, 16), "small_1x1", "wgmma", "small_1x1"),
     ((1, 1, 0, 6, 6, 32, 64), "wgmma_taps", "wgmma", "flipped:wgmma_taps"),
     ((6, 2, 2, 64, 64, 3, 24), "wgmma_rows", "wgmma", "cuda_cores"),
     ((3, 2, 1, 32, 32, 24, 48), "wgmma_taps", "wgmma", "wgmma_classes"),
@@ -919,8 +920,8 @@ def test_wide_shapes_take_the_tensor_cores(cuda, dtype, tol):
 
 
 # the data gradients that left the CUDA cores, at a tenth of their size or
-# less: Nano's 1x1 16/32-channel ones (whose flipped conv the forward's own
-# predicate would send to direct), Tiny's, M's and X's (one N tile of 32
+# less: Nano's 1x1 16/32-channel ones (small_1x1 since it exists; their
+# flipped route, forced, still compared), Tiny's, M's and X's (one N tile of 32
 # over C = 24, of 96 over C = 80, two of 96 over C = 160; K runs of 32 over
 # Co = 24, 80, 160 and, in bf16, of 64 over Co = 48), a 1x1/s2 with classes
 # no tap reaches and ragged class tiles
@@ -949,15 +950,18 @@ DGRAD_WIDE_SHAPES = [
 @pytest.mark.parametrize("shape", DGRAD_WIDE_SHAPES)
 def test_wide_data_gradients_take_the_tensor_cores(cuda, shape, dtype, tol):
     """Each widened data gradient on ``flipped:wgmma_taps`` (stride 1) or
-    ``wgmma_classes`` (stride 2): within ``tol`` of its plain version and
-    of the CUDA-core kernel forced on the same inputs, the same bits twice,
-    one packing and one data-gradient launch a call by variant and no
+    ``wgmma_classes`` (stride 2), Nano's small 1x1s on ``small_1x1``:
+    within ``tol`` of its plain version and of the CUDA-core kernel forced
+    on the same inputs, the same bits twice, one packing (none on
+    ``small_1x1``) and one data-gradient launch a call by variant and no
     forward launch counted; the packing kernel's bytes those of
     ``pack_taps_reference``."""
     tdt = getattr(torch, dtype)
     k, s, p = shape[:3]
     x, wgt, dy = _grad_case(3, shape, tdt, cuda)
-    want = "flipped:wgmma_taps" if s == 1 else "wgmma_classes"
+    small = pc.small_1x1_fits(k, s, shape[5], shape[6])
+    want = ("small_1x1" if small else "flipped:wgmma_taps" if s == 1
+            else "wgmma_classes")
     assert pc.dgrad_variant(dy.shape, wgt.shape, s, p, tdt) == want
     before = (dict(pc.phase_conv.dgrad_variant_launches),
               pc.phase_conv.pack_launches, pc.phase_conv.launches)
@@ -969,13 +973,18 @@ def test_wide_data_gradients_take_the_tensor_cores(cuda, shape, dtype, tol):
     assert pc.phase_conv.last_dgrad_variant == want
     assert {v: n - before[0].get(v, 0) for v, n in after[0].items()
             if n != before[0].get(v, 0)} == {want: 2}
-    assert (after[1] - before[1], after[2] - before[2]) == (2, 0)
+    assert (after[1] - before[1], after[2] - before[2]) == (
+        0 if small else 2, 0)
     assert torch.equal(dx, dx2), shape
     _assert_close_scaled(dx, pc.phase_conv_dgrad_reference(
         dy, wgt, x.shape, s, p), tol, ("dgrad", shape))
     old = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p, _cuda_cores=True)
     assert pc.phase_conv.last_dgrad_variant == "cuda_cores"
     _assert_close_scaled(dx, old, tol, ("dgrad vs cuda_cores", shape))
+    if small:   # the route small_1x1 replaced, forced
+        flipped = pc.phase_conv_dgrad(dy, wgt, x.shape, s, p, _flipped=True)
+        assert pc.phase_conv.last_dgrad_variant == "flipped:wgmma_taps"
+        _assert_close_scaled(dx, flipped, tol, ("dgrad vs flipped", shape))
     taps = (pc.flip_taps(k) if s == 1 else
             [ky * k + kx for _, _, ts in pc.dgrad_class_plan(k, p)
              for ky, kx, _, _ in ts])
@@ -1111,6 +1120,104 @@ def test_zoo_train_step_on_card_matches_cpu(cuda, kind, name):
     assert n_cpu == (0, 0, 0, 0)
     assert n_gpu == tuple(want[k] for k in ("forward", "wgrad", "dgrad",
                                             "pack"))
+    if kind == "nano":   # the five small 1x1s both ways on small_1x1
+        assert n_gpu == (8, 8, 7, 2)
+        assert (want["forward:small_1x1"], want["dgrad:small_1x1"]) == (5, 5)
     assert m_gpu["num_fg"].item() == m_cpu["num_fg"].item() > 0
     assert abs(m_gpu["total_loss"].item() - m_cpu["total_loss"].item()) <= \
         1e-4 * abs(m_cpu["total_loss"].item())
+
+
+# ---- small_1x1 (YOLOX-Nano's 16- and 32-channel 1x1 convs) and the stems'
+# N tiles (YOLOX-X at 800 px) ----
+
+# (H, W, C, Co) at batch 3: M = 3 * H * W pixels, ragged against the
+# kernel's 256-pixel tiles; every N of the kernel and both ends of K
+SMALL_1X1_SHAPES = [
+    (13, 13, 16, 32), (13, 13, 32, 16), (7, 9, 16, 16), (1, 5, 8, 64),
+    (11, 3, 64, 8), (20, 20, 24, 16), (9, 9, 8, 40), (5, 17, 8, 56),
+    (104, 104, 16, 32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+@pytest.mark.parametrize("shape", SMALL_1X1_SHAPES)
+def test_small_1x1_matches_plain(cuda, shape, dtype, tol):
+    """``small_1x1`` forward (with and without the fused epilogue) and data
+    gradient (the weights read transposed) within ``tol`` of their plain
+    versions relative to the output scale at ragged M, the same bits on two
+    launches; one launch a call on each counter by variant, no packing."""
+    h, w, c, co = shape
+    tdt = getattr(torch, dtype)
+    case = (1, 1, 0, h, w, c, co)
+    x, wgt, scale, shift = _case(11, case, tdt, cuda, batch=3)
+    _, _, dy = _grad_case(12, case, tdt, cuda, batch=3)
+    before = (dict(pc.phase_conv.variant_launches),
+              dict(pc.phase_conv.dgrad_variant_launches),
+              pc.phase_conv.pack_launches)
+    for kw in ({}, {"scale": scale, "shift": shift, "act": "silu"},
+               {"act": "silu"}):
+        got = pc.phase_conv(x, wgt, 1, 0, **kw)
+        assert pc.phase_conv.last_variant == "small_1x1"
+        assert torch.equal(got, pc.phase_conv(x, wgt, 1, 0, **kw))
+        _assert_close_scaled(got, pc.phase_conv_reference(x, wgt, 1, 0, **kw),
+                             tol, ("forward", shape, tuple(kw)))
+    dx = pc.phase_conv_dgrad(dy, wgt, x.shape, 1, 0)
+    assert pc.phase_conv.last_dgrad_variant == "small_1x1"
+    assert torch.equal(dx, pc.phase_conv_dgrad(dy, wgt, x.shape, 1, 0))
+    _assert_close_scaled(dx, pc.phase_conv_dgrad_reference(
+        dy, wgt, x.shape, 1, 0), tol, ("dgrad", shape))
+    assert (pc.phase_conv.variant_launches["small_1x1"]
+            - before[0].get("small_1x1", 0)) == 6
+    assert (pc.phase_conv.dgrad_variant_launches["small_1x1"]
+            - before[1].get("small_1x1", 0)) == 2
+    assert pc.phase_conv.pack_launches == before[2]
+    # the CUDA-core direct kernel it replaced, forced, agrees
+    _assert_close_scaled(got, pc.phase_conv(x, wgt, 1, 0, _direct=True,
+                                            act="silu"), tol, ("direct",))
+
+
+@pytest.mark.gpu
+def test_small_1x1_failed_launch_raises(cuda, monkeypatch):
+    """A C function that reports an error makes both wrappers raise; the C
+    side refuses what it does not take; nothing falls back."""
+    x, wgt, _, _ = _case(0, (1, 1, 0, 8, 8, 16, 32), torch.float32, cuda)
+    y = torch.empty((2, 8, 8, 32), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    for k_in, n_out in ((16, 64), (12, 16), (72, 8)):   # K * N > 512, K % 8
+        assert pc._kernel("small_1x1")(0, x.data_ptr(), wgt.data_ptr(),
+                                       y.data_ptr(), None, None, 0, 128, k_in,
+                                       n_out, 0, stream) != 0
+    with monkeypatch.context() as m:
+        m.setitem(pc._fns, "small_1x1", lambda *a: 1)
+        with pytest.raises(RuntimeError):
+            pc.phase_conv(x, wgt, 1, 0)
+        with pytest.raises(RuntimeError):
+            pc.phase_conv_dgrad(y, wgt, x.shape, 1, 0)
+    with pytest.raises(ValueError):   # 16-byte alignment of the bulk copy
+        xs = torch.zeros(x.numel() + 1, device=cuda)[1:].view(x.shape)
+        pc.phase_conv(xs, wgt, 1, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,tile", [(800, (64, 2)), (1152, (32, 3))])
+def test_wide_stem_takes_wgmma_rows_in_n_tiles(cuda, size, tile):
+    """YOLOX-X's fp32 stem (6x6/s2, 3 -> 80) at 800 px (the top of its
+    multiscale range: two N tiles of 64) and at 1152 px (three of 32) on
+    ``wgmma_rows`` within 1e-4 of its plain version, with and without the
+    epilogue, and of the ``direct`` kernel forced; bf16 at 800 px within
+    1e-2 on one tile of 96."""
+    shape = (6, 2, 2, size, size, 3, 80)
+    x, wgt, scale, shift = _case(5, shape, torch.float32, cuda, batch=1)
+    assert pc.rows_tile(size, 80, 6, torch.float32) == tile
+    for kw in ({}, {"scale": scale, "shift": shift, "act": "silu"}):
+        _assert_kernel_matches_plain(x, wgt, 2, 2, 1e-4, **kw)
+        assert pc.phase_conv.last_variant == "wgmma_rows"
+    _assert_close_scaled(pc.phase_conv(x, wgt, 2, 2), pc.phase_conv(
+        x, wgt, 2, 2, _direct=True), 1e-4, ("direct", size))
+    assert pc.phase_conv.last_variant == "direct"
+    if size == 800:
+        _assert_kernel_matches_plain(x.bfloat16(), wgt.bfloat16(), 2, 2, 1e-2)
+        assert pc.phase_conv.last_variant == "wgmma_rows"
+        assert pc.rows_tile(size, 80, 6, torch.bfloat16) == (96, 1)

@@ -263,6 +263,10 @@ def test_packed_weights_are_cached_per_tensor_and_version():
     ((8, 160, 160, 64, 1, 1, 0, 32), "wgmma_taps"),
     ((8, 160, 160, 32, 3, 1, 1, 32), "wgmma_taps"),
     ((8, 160, 160, 64, 3, 2, 1, 128), "wgmma_taps"),
+    ((8, 104, 104, 16, 1, 1, 0, 32), "small_1x1"),   # YOLOX-Nano, 416 px
+    ((8, 104, 104, 32, 1, 1, 0, 16), "small_1x1"),
+    ((8, 800, 800, 3, 6, 2, 2, 80), "wgmma_rows"),   # YOLOX-X, 800 px
+    ((1, 8, 8, 16, 1, 2, 0, 24), "direct"),          # a small 1x1 at stride 2
     ((1, 8, 8, 4, 3, 1, 1, 8), "direct"),
     ((1, 8, 8, 32, 3, 1, 1, 33), "direct"),
     ((1, 8, 8, 32, 5, 1, 2, 32), "direct"),

@@ -208,16 +208,18 @@ def test_class_kernel_in_both_types_and_at_k1(k, h, w, c, co, dtype):
 @pytest.mark.parametrize("c,co", [(16, 32), (32, 16), (16, 16)])
 def test_flipped_small_1x1_resolves_to_wgmma_taps(c, co, dtype,
                                                    monkeypatch):
-    """Nano's 1x1 data gradients at 104 px: the flipped conv (Co -> C) is of
-    ``SMALL_1X1`` size, so the forward's own predicate would send it to
-    ``direct``, which reads HWIO weights.  ``phase_conv_dgrad`` hands the
-    packed weights to ``wgmma_taps`` by name; the launcher refuses packed
-    weights on any other variant."""
+    """Nano's 1x1 data gradients at 104 px take ``small_1x1`` (one launch,
+    the weights read transposed); the stride-1 tensor-core route they took
+    before stays for comparisons (``_flipped``).  Its flipped conv (Co -> C)
+    is of ``SMALL_1X1`` size, so the forward's own predicate would send it
+    to ``small_1x1``, which reads HWIO weights.  ``phase_conv_dgrad`` hands
+    the packed weights to ``wgmma_taps`` by name; the launcher refuses
+    packed weights on any other variant."""
     dy_shape, w_shape = (8, 104, 104, co), (1, 1, c, co)
-    assert pc.dgrad_variant(dy_shape, w_shape, 1, 0, dtype) == \
-        "flipped:wgmma_taps"
+    assert pc.dgrad_variant(dy_shape, w_shape, 1, 0, dtype) == "small_1x1"
     flipped_shape = (1, 1, co, c)
-    assert pc.kernel_variant(dy_shape, flipped_shape, 1, 0, dtype) == "direct"
+    assert pc.kernel_variant(dy_shape, flipped_shape, 1, 0, dtype) == \
+        "small_1x1"
     calls = []
 
     def launch(x, w, stride, padding, scale, shift, act, packed=None,
@@ -232,11 +234,14 @@ def test_flipped_small_1x1_resolves_to_wgmma_taps(c, co, dtype,
     monkeypatch.setattr(pc, "_launch_forward", launch)
     dy = torch.empty((2, 6, 6, co), dtype=dtype, device="meta")
     w = torch.empty(w_shape, dtype=dtype, device="meta")
-    dx = pc.phase_conv_dgrad(dy, w, (2, 6, 6, c), 1, 0)
+    dx = pc.phase_conv_dgrad(dy, w, (2, 6, 6, c), 1, 0, _flipped=True)
     assert tuple(dx.shape) == (2, 6, 6, c)
     assert calls == [(flipped_shape, "wgmma_taps",
                       pc.pack_taps_shape(1, c, co, dtype))]
     assert pc.phase_conv.last_dgrad_variant == "flipped:wgmma_taps"
+    with pytest.raises(ValueError, match="_flipped"):   # stride 2: classes
+        pc.phase_conv_dgrad(torch.empty((2, 3, 3, co), device="meta"),
+                            w, (2, 6, 6, c), 2, 0, _flipped=True)
     monkeypatch.undo()
     with pytest.raises(ValueError, match="packed"):
         pc._launch_forward(torch.zeros((1, 4, 4, co), dtype=dtype),

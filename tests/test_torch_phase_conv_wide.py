@@ -289,9 +289,19 @@ def test_plain_matches_jax_pallas_kernel_at_new_channels(k, s, p, h, w, c,
 # every model of exps/default and 24p-s
 MODELS = ["yolov3", "yolox-l", "yolox-m", "yolox-nano", "yolox-s",
           "yolox-tiny", "yolox-x", "yolox_24p_s"]
-# Nano's 16-channel 1x1 convs keep the CUDA-core forward (pc.SMALL_1X1)
-DIRECT_CONVS = {"dark2.0.pconv", "dark2.1.conv1", "dark2.1.conv2",
+# Nano's 16- and 32-channel 1x1 convs take small_1x1 both ways (pc.SMALL_1X1)
+SMALL_1X1_CONVS = {"dark2.0.pconv", "dark2.1.conv1", "dark2.1.conv2",
                    "dark2.1.m.0.conv1", "dark2.1.m.0.conv2.pconv"}
+
+
+def _multiscale_sizes(exp):
+    """Every training size of the exp's multiscale range (its
+    ``random_resize``: ``random.randint`` includes both ends)."""
+    lo, hi = exp.random_size or (
+        int(exp.input_size[0] / 32) - exp.multiscale_range,
+        int(exp.input_size[0] / 32) + exp.multiscale_range)
+    factor = exp.input_size[1] / exp.input_size[0]
+    return {(32 * s, 32 * int(s * factor)) for s in range(lo, hi + 1)}
 
 
 def _early_convs(name):
@@ -321,14 +331,18 @@ def _early_convs(name):
 
 @pytest.mark.parametrize("name", MODELS)
 def test_every_early_conv_takes_the_tensor_cores(name):
-    """Every model of exps/default and 24p-s at its training and serving
-    sizes, fp32 and bf16: the stems on ``wgmma_rows``, the other early convs
-    on ``wgmma_taps`` (but Nano's 16-channel 1x1 convs on ``direct``), every
-    weight gradient on ``wgmma``, every data gradient on
-    ``flipped:wgmma_taps`` (stride 1) or ``wgmma_classes`` (stride 2)."""
+    """Every model of exps/default and 24p-s at its serving size and every
+    size of its multiscale training range, fp32 and bf16: the stems on
+    ``wgmma_rows`` (X's fp32 stem at 800 px in N tiles of 64), the other
+    early convs on ``wgmma_taps`` but Nano's 16- and 32-channel 1x1 convs on
+    ``small_1x1``, every weight gradient on ``wgmma``, every data gradient
+    on ``small_1x1`` (Nano's five), ``flipped:wgmma_taps`` (stride 1) or
+    ``wgmma_classes`` (stride 2): none on ``direct`` or ``cuda_cores``."""
     exp, convs = _early_convs(name)
     assert convs
-    sizes = {tuple(exp.input_size), tuple(exp.test_size)}
+    sizes = {tuple(exp.input_size), tuple(exp.test_size),
+             *_multiscale_sizes(exp)}
+    assert len(sizes) >= 11
     for size in sizes:
         f = size[0] / 64
         for conv, k, s, p, h, w, c, co in convs:
@@ -338,13 +352,18 @@ def test_every_early_conv_takes_the_tensor_cores(name):
                 fwd = pc.kernel_variant((8, h, w, c), (k, k, c, co), s, p,
                                         dtype)
                 wg = pc.wgrad_variant((8, h, w, c), co, k, s, dtype)
-                want = ("wgmma_rows" if c == 3 else "direct"
-                        if name == "yolox-nano" and conv in DIRECT_CONVS
+                small = name == "yolox-nano" and conv in SMALL_1X1_CONVS
+                want = ("wgmma_rows" if c == 3 else "small_1x1" if small
                         else "wgmma_taps")
                 assert fwd == want, (name, conv, size, dtype)
                 assert wg == "wgmma", (name, conv, size, dtype)
                 dg = pc.dgrad_variant((8, ho, wo, co), (k, k, c, co), s, p,
                                       dtype)
-                want = "flipped:wgmma_taps" if s == 1 else "wgmma_classes"
+                want = ("small_1x1" if small else "flipped:wgmma_taps"
+                        if s == 1 else "wgmma_classes")
                 if c != 3:   # the stems' input is the image: no dgrad
                     assert dg == want, (name, conv, size, dtype)
+                if name == "yolox-x" and c == 3:
+                    assert pc.rows_tile(w, co, k, dtype) == (
+                        (64, 2) if size[1] > 783 and dtype == torch.float32
+                        else (96, 1)), (size, dtype)
