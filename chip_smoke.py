@@ -20,7 +20,11 @@
    with seeded random weights behind the threaded HTTP front end, answers
    concurrent raw-body requests, then JPEG and PNG bodies, each of which
    must get the answer of the raw body of its decoded pixels, and checks
-   every kernel of the path ran; then serves one batch with a ``relu``
+   every kernel of the path ran; then serves the same 32 frames through
+   the event-loop front end (``serving/http_async.py``) from 16 clients on
+   persistent connections, whose answers must equal the threaded front
+   end's, and two detects and a stats request pipelined in one write,
+   answered in order; then serves one batch with a ``relu``
    24p-s, whose 8 early convs launch the kernel without its SiLU epilogue,
    and holds that model on the card against the CPU;
 5. times the stages of one serving call on the device;
@@ -96,7 +100,13 @@
     clients, four alone and a JPEG body; ``bbox`` answers against direct
     calls; 12
     fused launches a forward; the stages in fp32 and bf16; the card against
-    the CPU) and one YOLOv3 request (10 unfused launches); trains each with
+    the CPU) and one YOLOv3 request (10 unfused launches); then the load
+    phase: ``python -m eop_tpu_torch.tools.load_test_serving --spawn``, the
+    server a process of its own on the card, for 24p-s behind each front
+    end (closed loop at 1, 16 and 64 clients, and 720x1280 JPEG bodies at
+    16; on async also open-loop steps at 50 % and 90 % of its closed-loop
+    throughput at 16) and YOLOX-L behind each (16 clients), each table on a
+    line of its own; trains each with
     ``python -m eop_tpu_torch.tools.train -n NAME -b 8`` as a subprocess for
     an epoch (launches every step as the model gives them), evaluates each
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
@@ -564,9 +574,17 @@ def serving_exp():
     return exp
 
 
+def serve_bodies() -> list:
+    """The 32 seeded raw 640x640 frames both serving phases post."""
+    rng = np.random.RandomState(0)
+    return [rng.randint(0, 256, (640, 640, 3), np.uint8).tobytes()
+            for _ in range(N_REQUESTS)]
+
+
 def serve_main_path(smi: str, exp, model):
-    """The 24p-s server on the card behind HTTP; returns its report and the
-    launch counts of this run."""
+    """The 24p-s server on the card behind the threaded HTTP front end;
+    returns its report, the launch counts of this run and each request's
+    detections."""
     from eop_tpu_torch.data.coco_classes import COCO_CLASSES
     from eop_tpu_torch.ops.phase_conv import phase_conv
     from eop_tpu_torch.serving.http import make_http_server
@@ -582,10 +600,9 @@ def serve_main_path(smi: str, exp, model):
     srv = threading.Thread(target=server.serve_forever, daemon=True)
     srv.start()
     url = f"http://127.0.0.1:{server.server_address[1]}/v1/detect"
-    rng = np.random.RandomState(0)
-    bodies = [rng.randint(0, 256, (640, 640, 3), np.uint8).tobytes()
-              for _ in range(N_REQUESTS)]
-    codes, lat_ms, n_dets = [None] * N_REQUESTS, [0.0] * N_REQUESTS, [0] * N_REQUESTS
+    bodies = serve_bodies()
+    codes, lat_ms, answers = ([None] * N_REQUESTS, [0.0] * N_REQUESTS,
+                              [None] * N_REQUESTS)
 
     def post(body, headers):
         req = urllib.request.Request(url, data=body, method="POST",
@@ -603,7 +620,7 @@ def serve_main_path(smi: str, exp, model):
             t = time.perf_counter()
             with urllib.request.urlopen(req, timeout=300) as r:
                 codes[i] = r.status
-                n_dets[i] = len(json.loads(r.read())["detections"])
+                answers[i] = json.loads(r.read())["detections"]
             lat_ms[i] = (time.perf_counter() - t) * 1e3
 
     try:
@@ -615,6 +632,7 @@ def serve_main_path(smi: str, exp, model):
         for t in clients:
             t.join(timeout=600)
         wall_s = time.perf_counter() - t0
+        batcher = svc.stats()  # before the encoded requests, one at a time
         encoded = encoded_requests(post, bodies[:N_ENCODED])
         torch.cuda.synchronize()
         launches = {"phase_conv": phase_conv.launches, **_variants()}
@@ -626,6 +644,7 @@ def serve_main_path(smi: str, exp, model):
         srv.join(timeout=30)
     if any(t.is_alive() for t in clients) or codes != [200] * N_REQUESTS:
         raise AssertionError(f"HTTP codes {codes}")
+    n_dets = [len(a) for a in answers]
     forwards = stats["device_calls"]  # batches + one warmup per bucket
     report = {
         "phase": "serve", "card": smi, "model": "yolox_24p_s",
@@ -639,6 +658,8 @@ def serve_main_path(smi: str, exp, model):
         "phase_conv_launches": launches["phase_conv"],
         "request_ms_p50": float(np.percentile(lat_ms, 50)),
         "request_ms_max": float(max(lat_ms)),
+        "server_latency_ms_p50": batcher["latency_ms_p50"],
+        "server_latency_ms_p99": batcher["latency_ms_p99"],
         "wall_s": wall_s, "warmup_s": warmup_s, **encoded,
     }
     if sum(n_dets) <= 0:
@@ -646,7 +667,7 @@ def serve_main_path(smi: str, exp, model):
     if launches["phase_conv"] != 8 * forwards:
         raise AssertionError(f"phase_conv launches {launches['phase_conv']} "
                              f"!= 8 x {forwards} forward calls")
-    return report, launches
+    return report, launches, answers
 
 
 def encoded_requests(post, frames):
@@ -678,6 +699,274 @@ def encoded_requests(post, frames):
     return {"encoded_http_codes": codes, "encoded_pairs_equal": pairs,
             "jpeg_request_ms_median": float(np.median(ms["jpeg"])),
             "png_request_ms_median": float(np.median(ms["png"]))}
+
+
+def match_polygons(got: list, want: list, tol: float) -> bool:
+    """Polygon dicts of one answer against another's: the same count, each
+    of ``want`` with an unused one of ``got`` of its class whose center and
+    24 radii are all within ``tol`` px."""
+    if len(got) != len(want):
+        return False
+    if not got:
+        return True
+
+    def coords(dets):
+        return np.array([d["center"] + d["radii"] for d in dets])
+
+    dist = np.abs(coords(want)[:, None] - coords(got)[None]).max(-1)
+    dist[np.array([d["class_id"] for d in want])[:, None]
+         != np.array([d["class_id"] for d in got])[None]] = np.inf
+    free = np.ones(len(got), bool)
+    for row in dist:
+        hit = int(np.argmin(np.where(free, row, np.inf)))
+        if not (free[hit] and row[hit] <= tol):
+            return False
+        free[hit] = False
+    return True
+
+
+def read_http_answers(sock, n: int) -> list:
+    """``n`` HTTP answers from a raw socket, in the order they arrive:
+    ``[(status, JSON body, body bytes)]``."""
+    buf, out = b"", []
+    while len(out) < n:
+        end = buf.find(b"\r\n\r\n")
+        if end >= 0:
+            head = buf[:end].decode("latin1").split("\r\n")
+            length = next(int(ln.split(":", 1)[1]) for ln in head[1:]
+                          if ln.lower().startswith("content-length:"))
+            if len(buf) >= end + 4 + length:
+                body = buf[end + 4:end + 4 + length]
+                out.append((int(head[0].split()[1]), json.loads(body),
+                            len(body)))
+                buf = buf[end + 4 + length:]
+                continue
+        chunk = sock.recv(1 << 20)
+        if not chunk:
+            raise AssertionError(f"connection closed after {len(out)} of "
+                                 f"{n} answers")
+        buf += chunk
+    return out
+
+
+def host_split(svc, bodies: list, reps: int = 3) -> dict:
+    """One full batch's host wall ms on the serving path, each part alone
+    (median of ``reps``): the device call (letterboxed canvases in, rows on
+    the host out), the answers' dicts (``_to_dicts``, on the batcher's
+    dispatcher thread when served) and their JSON (``json.dumps``, on the
+    front end's thread)."""
+    canvases = np.stack([np.frombuffer(b, np.uint8).reshape(640, 640, 3)
+                         for b in bodies])
+    parts = {"device_call": [], "to_dicts": [], "json_dumps": []}
+    for _ in range(reps):
+        t = time.perf_counter()
+        rows, valid = svc._device_call(canvases)
+        parts["device_call"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        dicts = [svc._to_dicts(rows[i], valid[i], 1.0)
+                 for i in range(len(bodies))]
+        parts["to_dicts"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        for d in dicts:
+            json.dumps({"detections": d, "image_hw": [640, 640], "ms": 0.0})
+        parts["json_dumps"].append(time.perf_counter() - t)
+    return {k: 1e3 * float(np.median(v)) for k, v in parts.items()}
+
+
+def serve_async(smi: str, exp, model, threaded: list):
+    """The 24p-s server on the card behind the event-loop front end
+    (``serving/http_async.py``): the same 32 frames as the threaded phase
+    from 16 clients over persistent ``http.client`` connections, then two
+    detects and a stats request pipelined in one write.  The answers must
+    equal the threaded phase's (``threaded``) frame by frame: the same
+    count, coordinates within 1e-3 of the image scale (the batcher forms
+    other batches).  Returns the report and the launch counts."""
+    import http.client
+    import socket
+
+    from eop_tpu_torch.data.coco_classes import COCO_CLASSES
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+    from eop_tpu_torch.serving.http_async import make_async_http_server
+    from eop_tpu_torch.serving.service import DetectionService
+
+    _reset_counts()
+    svc = DetectionService.from_exp(exp, model, SERVE_BATCH, (640, 640),
+                                    device="cuda", max_wait_ms=20.0,
+                                    class_names=COCO_CLASSES)
+    server = make_async_http_server(svc, host="127.0.0.1", port=0)
+    srv = threading.Thread(target=server.serve_forever, daemon=True)
+    srv.start()
+    port = server.server_address[1]
+    bodies = serve_bodies()
+    codes, lat_ms, sizes, answers = ([None] * N_REQUESTS,
+                                     [0.0] * N_REQUESTS, [0] * N_REQUESTS,
+                                     [None] * N_REQUESTS)
+    headers = {"X-Raw-Shape": "640,640,3"}
+
+    def client(j):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            for i in range(j, N_REQUESTS, N_CLIENTS):
+                t = time.perf_counter()
+                conn.request("POST", "/v1/detect", body=bodies[i],
+                             headers=headers)
+                r = conn.getresponse()
+                data = r.read()
+                lat_ms[i] = (time.perf_counter() - t) * 1e3
+                codes[i], sizes[i] = r.status, len(data)
+                answers[i] = json.loads(data)["detections"]
+        finally:
+            conn.close()
+
+    def post(body):
+        return (f"POST /v1/detect HTTP/1.1\r\nHost: x\r\nX-Raw-Shape: "
+                f"640,640,3\r\nContent-Length: {len(body)}\r\n\r\n"
+                ).encode() + body
+
+    try:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(j,))
+                   for j in range(N_CLIENTS)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t0
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            conn.request("GET", "/v1/stats")
+            stats = json.loads(conn.getresponse().read())
+        finally:
+            conn.close()
+        with socket.create_connection(("127.0.0.1", port),
+                                      timeout=300) as sock:
+            sock.sendall(post(bodies[0]) + post(bodies[1])
+                         + b"GET /v1/stats HTTP/1.1\r\nHost: x\r\n\r\n")
+            piped = read_http_answers(sock, 3)
+        torch.cuda.synchronize()
+        launches = {"phase_conv": phase_conv.launches, **_variants()}
+        calls = svc.stats()["device_calls"]
+        split = host_split(svc, bodies[:SERVE_BATCH])
+    finally:
+        server.shutdown()
+        svc.close()
+        srv.join(timeout=30)
+    if any(t.is_alive() for t in clients) or codes != [200] * N_REQUESTS:
+        raise AssertionError(f"async HTTP codes {codes}")
+    tol = 1e-3 * 640
+    unequal = [i for i in range(N_REQUESTS)
+               if not match_polygons(answers[i], threaded[i], tol)]
+    piped_ok = ([c for c, _, _ in piped] == [200] * 3
+                and all("image_hw" in b for _, b, _ in piped[:2])
+                and "requests" in piped[2][1]
+                and piped[2][1]["requests"] == stats["requests"] + 2
+                and all(match_polygons(piped[i][1]["detections"],
+                                       threaded[i], tol) for i in range(2)))
+    client_p50 = float(np.percentile(lat_ms, 50))
+    report = {
+        "phase": "serve_async", "card": smi, "model": "yolox_24p_s",
+        "frontend": "async", "batch": SERVE_BATCH, "max_wait_ms": 20.0,
+        "requests": N_REQUESTS, "clients": N_CLIENTS, "persistent": True,
+        "http_200": codes.count(200), "batches": stats["batches"],
+        "mean_batch_occupancy": stats["mean_batch_occupancy"],
+        "forward_calls": calls, "phase_conv_launches": launches["phase_conv"],
+        "request_ms_p50": client_p50, "request_ms_max": float(max(lat_ms)),
+        # the batcher's own latency (enqueue to result): the rest of the
+        # client's time is HTTP, decode and JSON
+        "server_latency_ms_p50": stats["latency_ms_p50"],
+        "server_latency_ms_p99": stats["latency_ms_p99"],
+        "http_json_ms_p50": client_p50 - stats["latency_ms_p50"],
+        "response_bytes_mean": float(np.mean(sizes)),
+        "detections_per_response": float(np.mean([len(a) for a in answers])),
+        "host_split_b8_ms": split,
+        "equal_to_threaded": N_REQUESTS - len(unequal),
+        "pipelined_in_order": piped_ok, "wall_s": wall_s,
+    }
+    if unequal or not piped_ok:
+        raise AssertionError(f"async answers differ from the threaded "
+                             f"phase's on frames {unequal}: {report}")
+    if launches["phase_conv"] != 8 * calls:
+        raise AssertionError(f"phase_conv launches {launches['phase_conv']} "
+                             f"!= 8 x {calls} forward calls")
+    return report, launches
+
+
+# the load phase's runs of tools/load_test_serving.py: (name, the spawned
+# server's arguments, the tool's); open-loop rates are given as fractions
+# of the async closed-loop throughput at 16 clients, and taken by two
+# generator processes and by one, to see whether one sets the pace
+LOAD_SERVE_24P = ["-n", "yolox_24p_s", "--batch", str(SERVE_BATCH),
+                  "--max-wait-ms", "20"]
+LOAD_SERVE_L = ["-n", "yolox-l", "--batch", str(SERVE_BATCH),
+                "--max-wait-ms", "20"]
+LOAD_RUNS = (
+    ("24p_s_async", LOAD_SERVE_24P + ["--frontend", "async"],
+     ["--closed", "1,16,64"]),
+    ("24p_s_async_open", LOAD_SERVE_24P + ["--frontend", "async"],
+     ["--procs", "2", "--rates", (0.5, 0.9)]),
+    ("24p_s_async_open_procs1", LOAD_SERVE_24P + ["--frontend", "async"],
+     ["--procs", "1", "--rates", (0.9,)]),
+    ("24p_s_async_jpeg", LOAD_SERVE_24P + ["--frontend", "async"],
+     ["--jpeg", "--hw", "720,1280", "--closed", "16"]),
+    ("24p_s_threaded", LOAD_SERVE_24P + ["--frontend", "threaded"],
+     ["--closed", "1,16,64"]),
+    ("24p_s_threaded_jpeg", LOAD_SERVE_24P + ["--frontend", "threaded"],
+     ["--jpeg", "--hw", "720,1280", "--closed", "16"]),
+    ("yolox_l_async", LOAD_SERVE_L + ["--frontend", "async"],
+     ["--closed", "16"]),
+    ("yolox_l_threaded", LOAD_SERVE_L + ["--frontend", "threaded"],
+     ["--closed", "16"]),
+)
+
+
+def load_run(smi: str, name: str, serve_args: list, tool_args: list,
+             duration: float = 5.0) -> dict:
+    """``python -m eop_tpu_torch.tools.load_test_serving --spawn ...``: the
+    server a process of its own on the card (seeded weights, ``test_conf
+    1e-5`` so that answers carry detections, as in the in-process phases).
+    Fails where the server does not report ``device=cuda``, or a row of at
+    most 16 clients (or an open-loop row) has an error or no answer."""
+    import shlex
+
+    cmd = [sys.executable, "-m", "eop_tpu_torch.tools.load_test_serving",
+           "--url", f"http://127.0.0.1:{free_port()}",
+           "--duration", str(duration), "--health-timeout", "300",
+           "--spawn", shlex.join(["--host", "127.0.0.1", *serve_args,
+                                  "test_conf", "1e-5"]),
+           *tool_args]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    lines = r.stdout.strip().splitlines()
+    banner = next((ln.strip() for ln in lines
+                   if ln.startswith("serving on")), "")
+    report = {"phase": "load", "run": name, "card": smi, "server": banner,
+              "args": tool_args, "wall_s": time.perf_counter() - t0}
+    if r.returncode or "device=cuda" not in banner:
+        raise AssertionError(f"load {name}: exit {r.returncode}, {report}: "
+                             f"{r.stderr[-3000:]}")
+    report["table"] = table = json.loads(lines[-1])
+    bad = [row for row in table if row.get("concurrency", 0) <= 16
+           and (row["errors"] or not row["ok"])]
+    if bad:
+        raise AssertionError(f"load {name}: rows with errors or no answer "
+                             f"{bad}")
+    return report
+
+
+def load_phase(smi: str) -> list:
+    """Every run of ``LOAD_RUNS`` in turn, open-loop rates set from the
+    first run's throughput at 16 clients."""
+    reports = []
+    for name, serve_args, tool_args in LOAD_RUNS:
+        if isinstance(tool_args[-1], tuple):
+            rps = next(row["throughput_rps"] for row in reports[0]["table"]
+                       if row["concurrency"] == 16)
+            tool_args = tool_args[:-1] + [",".join(
+                f"{f * rps:.1f}" for f in tool_args[-1])]
+        reports.append(load_run(smi, name, serve_args, tool_args))
+        emit(reports[-1])
+    return reports
 
 
 def serve_relu(smi: str):
@@ -1418,16 +1707,24 @@ def train_main_path(smi: str, compute_dtype: str = "float32",
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
 
-    # one more step under the profiler: device time by kernel name
+    # one more step under the profiler: device time by kernel name; the
+    # profiler can miss a trace's first kernels, so one warm-up step goes
+    # before the recorded one
     step_fn = make_train_step_24p(
         Loss24PConfig(num_classes=exp.num_classes), ema_decay=exp.ema_decay)
     imgs, labels = exp.loader.batch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step_fn(state, imgs, labels)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
+    traced = []
+    with torch.profiler.profile(
+            activities=acts, on_trace_ready=traced.append,
+            schedule=torch.profiler.schedule(wait=0, warmup=1, active=1,
+                                             repeat=1)) as prof:
+        for _ in range(2):
+            step_fn(state, imgs, labels)
+            torch.cuda.synchronize()
+            prof.step()
+    kernels = [e for e in traced[0].key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -3074,8 +3371,14 @@ def main() -> int:
 
     exp = serving_exp()
     model = exp.get_model("cuda")
-    serve_report, launches = serve_main_path(smi, exp, model)
+    serve_report, launches, threaded_answers = serve_main_path(smi, exp,
+                                                               model)
     emit(serve_report)
+    t0 = time.perf_counter()
+    async_report, async_launches = serve_async(smi, exp, model,
+                                               threaded_answers)
+    async_report["phase_s"] = time.perf_counter() - t0
+    emit(async_report)
     emit(serving_stages(smi, exp, model))
     emit(card_vs_cpu(exp))
     t0 = time.perf_counter()
@@ -3089,6 +3392,11 @@ def main() -> int:
     bbox_serve_report, bbox_serve_launches = serve_bbox(smi)
     bbox_serve_report["phase_s"] = time.perf_counter() - t0
     emit(bbox_serve_report)
+    # the servers as processes of their own under the load generator
+    t0 = time.perf_counter()
+    load_phase(smi)
+    emit({"phase": "load_done", "card": smi,
+          "phase_s": time.perf_counter() - t0})
 
     back_rows, back_err = check_phase_conv_backward()
     for row in back_rows:
@@ -3201,6 +3509,7 @@ def main() -> int:
     # (bf16: serve_bf16, and train_bf16 and train_remat, whose recompute
     # launches the forward again)
     by_path = {"serve": launches["phase_conv"],
+               "serve_async": async_launches["phase_conv"],
                "serve_relu": relu_launches["phase_conv"],
                "serve_bf16": serve16_launches["phase_conv"],
                "eval": eval_launches["phase_conv"],
@@ -3230,6 +3539,7 @@ def main() -> int:
     # forward or the cuda_cores weight or data gradient
     PATH_VARIANTS.update({
         "serve": _variants(launches), "serve_relu": _variants(relu_launches),
+        "serve_async": _variants(async_launches),
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
         **{k: _variants(c) for k, c in train_paths.items()}})

@@ -7,6 +7,7 @@ Wraps the fused serving function (``exp.get_serving_fn``: uint8 letterbox
 
     svc = DetectionService.from_exp(exp, model, batch=8, src_hw=(720, 1280))
     dets = svc.detect(frame_bgr)     # any HxW uint8 image, thread-safe
+    svc.detect_async(frame_bgr, callback)  # callback(dets, error) later
 
 The serving function takes ``[bucket, *src_hw, 3]`` uint8.  Client images
 of another size are letterboxed onto that canvas on the host (pad 114); the
@@ -95,11 +96,23 @@ class DetectionService:
                timeout: Optional[float] = 30.0) -> List[dict]:
         """Detect on one uint8 HWC (BGR) image of any size; blocks until its
         batch completes.  Coordinates are in the input image's pixels."""
+        return self._batcher.submit(self._canvas(img), timeout=timeout,
+                                    cost=self._canvas_bytes)
+
+    def detect_async(self, img: np.ndarray, callback) -> None:
+        """Non-blocking :meth:`detect`: ``callback(dets, error)`` fires from
+        the batcher's dispatcher thread when the batch settles.  Admission
+        failures (``QueueFullError`` / ``BatcherClosedError``) raise here
+        and never invoke the callback: the event-loop HTTP front end maps
+        them to 429 / 503 inline."""
+        self._batcher.submit_nowait(self._canvas(img), callback,
+                                    cost=self._canvas_bytes)
+
+    def _canvas(self, img: np.ndarray):
         if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
             raise ValueError(f"expected uint8 HWC 3-channel image, got "
                              f"{img.dtype}{list(img.shape)}")
-        return self._batcher.submit(letterbox_host(img, self.src_hw),
-                                    timeout=timeout, cost=self._canvas_bytes)
+        return letterbox_host(img, self.src_hw)
 
     def stats(self) -> dict:
         s = self._batcher.stats()

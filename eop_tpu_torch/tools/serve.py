@@ -2,7 +2,8 @@
 
     python -m eop_tpu_torch.tools.serve [-n yolox_24p_s | -n yolox-l | \
         -f exp.py] [-w model.pth] [--device cuda] [--batch 8] \
-        [--src-hw 720,1280] [--port 8000] [key value ...]
+        [--src-hw 720,1280] [--port 8000] [--frontend async|threaded] \
+        [key value ...]
 
 ``-n`` names the 24p preset ``yolox_24p_s`` (the default) or a bbox exp of
 ``exps/default/`` (``yolox-s|m|l|x|nano|tiny``, ``yolov3``); ``-f`` reads an
@@ -14,7 +15,10 @@ checkpoint (its EMA weights where it has them) or a PyTorch state_dict in
 the reference's key names, loaded strictly; without it the model serves
 seeded random weights.  Trailing ``key value``
 pairs override exp attributes (e.g. ``test_conf 0.3``, ``compute_dtype
-bfloat16``).
+bfloat16``).  ``--frontend async`` (the default, as the JAX package's
+``tools/serve.py``) serves every connection from one event-loop thread
+(``serving/http_async.py``); ``--frontend threaded`` takes a thread per
+connection (``serving/http.py``).
 
 Client:
 
@@ -46,6 +50,10 @@ def make_parser():
     p.add_argument("--max-wait-ms", type=float, default=5.0,
                    help="batching window after the first request")
     p.add_argument("--max-queue", type=int, default=256)
+    p.add_argument("--frontend", choices=["async", "threaded"],
+                   default="async",
+                   help="HTTP front end: one selectors event loop (default) "
+                        "or a thread per connection")
     p.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                    help="exp overrides: key value ...")
     return p
@@ -92,11 +100,15 @@ def build_service(args):
 def main(argv=None):
     args = make_parser().parse_args(argv)
     from ..serving.http import make_http_server
+    from ..serving.http_async import make_async_http_server
 
     service = build_service(args)
-    server = make_http_server(service, args.host, args.port)
+    make_server = (make_http_server if args.frontend == "threaded"
+                   else make_async_http_server)
+    server = make_server(service, args.host, args.port)
     print(f"serving on http://{args.host}:{server.server_address[1]}  "
-          f"device={args.device} batch={service.batch} "
+          f"frontend={args.frontend} device={args.device} "
+          f"batch={service.batch} "
           f"src_hw={service.src_hw} test_size={service.test_size}",
           flush=True)
     print("  POST /v1/detect | GET /v1/stats | GET /healthz", flush=True)
@@ -105,7 +117,8 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     finally:
-        server.server_close()
+        if args.frontend == "threaded":
+            server.server_close()
         service.close()
 
 

@@ -585,6 +585,65 @@ def test_http_jpeg_body_is_200_on_the_card(cuda):
 
 
 @pytest.mark.gpu
+def test_async_front_end_answers_as_the_threaded_one_on_the_card(cuda):
+    """The event-loop and the threaded front end over one service on the
+    card's 24p serving function: the same detections for the same frames
+    (each posted alone, so each is a batch of its own in both), and
+    ``phase_conv`` launched 8 times a device call."""
+    import http.client
+    import json
+    import threading
+
+    from eop_tpu_torch.serving.http import make_http_server
+    from eop_tpu_torch.serving.http_async import make_async_http_server
+    from eop_tpu_torch.serving.service import DetectionService
+
+    exp = _tiny_24p_exp((None, None), width=0.5)
+    exp.test_conf = 1e-5
+    launches = pc.phase_conv.launches
+    svc = DetectionService.from_exp(exp, exp.get_model(cuda), batch=2,
+                                    src_hw=(48, 80), device=cuda,
+                                    max_wait_ms=5.0)
+    calls = svc.stats()["device_calls"]
+    frames = np.random.RandomState(0).randint(0, 256, (4, 48, 80, 3),
+                                              np.uint8)
+    answers = {}
+    try:
+        for name, make in (("async", make_async_http_server),
+                           ("threaded", make_http_server)):
+            server = make(svc, host="127.0.0.1", port=0)
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", server.server_address[1], timeout=120)
+            try:
+                for frame in frames:
+                    conn.request("POST", "/v1/detect", body=frame.tobytes(),
+                                 headers={"X-Raw-Shape": "48,80,3"})
+                    r = conn.getresponse()
+                    answers.setdefault(name, []).append(
+                        (r.status, json.loads(r.read())["detections"]))
+            finally:
+                conn.close()
+                server.shutdown()
+                thread.join(timeout=30)
+                if name == "threaded":
+                    server.server_close()
+            assert not thread.is_alive()
+        torch.cuda.synchronize()
+        calls = svc.stats()["device_calls"] - calls
+    finally:
+        svc.close()
+    assert [c for c, _ in answers["async"]] == [200] * len(frames)
+    assert answers["async"] == answers["threaded"]
+    assert sum(len(d) for _, d in answers["async"]) > 0
+    assert calls == 2 * len(frames)
+    # the warmup's calls (one a bucket) and the requests', 8 launches each
+    assert pc.phase_conv.launches - launches == 8 * (calls + 2)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("act", ["relu", "lrelu"])
 def test_non_silu_model_launches_phase_conv_unfused(cuda, act):
     """An ``act`` the kernel's epilogue lacks: the 8 early convs still launch

@@ -52,7 +52,9 @@ def test_every_module_imports_without_jax():
                  # Nano / Tiny / YOLOv3 and bbox serving
                  "ops.blocks", "models.darknet", "models.pafpn",
                  "models.head", "models.yolox", "exp.base_exp",
-                 "serving.service", "utils.weights"):
+                 "serving.service", "utils.weights",
+                 # the event-loop front end and the load generator
+                 "serving.http_async", "tools.load_test_serving"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
