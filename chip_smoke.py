@@ -112,12 +112,25 @@
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
     at Tiny's 416 px (AP 1); one YOLOv3, Nano, Tiny and X step on the card
     against the CPU;
+16b. the feature-map study at full width: YOLOX-L over VGG19, the
+    half-width ResNet50 and DenseNet121, each served at batch 8 in fp32
+    and bf16 (stages), one image on the card against the CPU (the 6-tuple
+    and the detections), four fp32 training steps on batches of the bbox
+    dataset's files (step ms, peak memory, DenseNet's dropout kept
+    fraction) and ``get_model_info``'s line, with no ``phase_conv`` launch;
+    ``python -m eop_tpu_torch.tools.serve -n yolox-l backbone_type resnet``
+    answering HTTP; ``python -m eop_tpu_torch.tools.demo_featuremap -n
+    yolox-l --backbone resnet --theta-range 30,95,30`` on a synthesized
+    fixture in a child where cv2, matplotlib, seaborn and tabulate do not
+    import (every sweep's files, four AP blocks, a finite table); the
+    host resizers' times on the loader's and the letterbox's shapes;
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
-phase, N times in one process, one line a run.
+phase, N times in one process, one line a run.  ``python3 chip_smoke.py
+--backbones`` runs only 16b (with the bbox dataset it reads).
 
 ``python3 chip_smoke.py --compare-steps TREE ...`` times YOLOX-L's bf16 and
 YOLOX-X's fp32 and bf16 training steps (batch 8, 640 px) with the port of
@@ -920,7 +933,7 @@ LOAD_RUNS = (
 
 
 def load_run(smi: str, name: str, serve_args: list, tool_args: list,
-             duration: float = 5.0) -> dict:
+             duration: float = 3.5) -> dict:
     """``python -m eop_tpu_torch.tools.load_test_serving --spawn ...``: the
     server a process of its own on the card (seeded weights, ``test_conf
     1e-5`` so that answers carry detections, as in the in-process phases).
@@ -1112,18 +1125,16 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def serve_exp_file(smi: str, exp_text: str, requests: int = 4) -> dict:
-    """``python -m eop_tpu_torch.tools.serve -f <exp file>`` as a user starts
+def serve_round(serve_args: list, requests: int = 4, what: str = "serve"):
+    """``python -m eop_tpu_torch.tools.serve SERVE_ARGS`` as a user starts
     it (the card, batch 8), a few raw 640x640 requests over HTTP, then the
-    server stopped."""
-    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
-    exp_path = os.path.join(root, "exp_bf16.py")
-    with open(exp_path, "w") as f:
-        f.write(exp_text)
+    server stopped: (seconds to listen, codes, detections an answer, ms a
+    request, the server's stats, its last lines)."""
     port = free_port()
-    cmd = [sys.executable, "-m", "eop_tpu_torch.tools.serve", "-f", exp_path,
-           "--batch", str(SERVE_BATCH), "--host", "127.0.0.1", "--port",
-           str(port), "--max-wait-ms", "20"]
+    cmd = [sys.executable, "-m", "eop_tpu_torch.tools.serve", *serve_args[:1],
+           *serve_args[1:2], "--batch", str(SERVE_BATCH), "--host",
+           "127.0.0.1", "--port", str(port), "--max-wait-ms", "20",
+           *serve_args[2:]]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -1132,12 +1143,12 @@ def serve_exp_file(smi: str, exp_text: str, requests: int = 4) -> dict:
         while True:  # the server prints its address once it listens
             line = proc.stdout.readline()
             if not line:
-                raise AssertionError(f"serve -f ended: {''.join(lines)}")
+                raise AssertionError(f"{what} ended: {''.join(lines)}")
             lines.append(line)
             if line.startswith("serving on"):
                 break
             if time.perf_counter() - t0 > 300:
-                raise AssertionError(f"serve -f did not start: {lines}")
+                raise AssertionError(f"{what} did not start: {lines}")
         start_s = time.perf_counter() - t0
         url = f"http://127.0.0.1:{port}"
         rng = np.random.RandomState(4)
@@ -1161,6 +1172,20 @@ def serve_exp_file(smi: str, exp_text: str, requests: int = 4) -> dict:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=60)
+    return start_s, codes, n_dets, ms, stats, lines
+
+
+def serve_exp_file(smi: str, exp_text: str, requests: int = 4) -> dict:
+    """``python -m eop_tpu_torch.tools.serve -f <exp file>`` answering a few
+    raw requests over HTTP (:func:`serve_round`)."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    exp_path = os.path.join(root, "exp_bf16.py")
+    with open(exp_path, "w") as f:
+        f.write(exp_text)
+    try:
+        start_s, codes, n_dets, ms, stats, lines = serve_round(
+            ["-f", exp_path], requests, "serve -f")
+    finally:
         shutil.rmtree(root, ignore_errors=True)
     report = {"serve_f_start_s": start_s, "serve_f_http_codes": codes,
               "serve_f_detections": n_dets,
@@ -3151,6 +3176,325 @@ def eval_zoo(smi: str, data_dir: str, ckpts: dict):
     return report, by_path
 
 
+# ---- the feature-map study: YOLOX-L over VGG19, ResNet50, DenseNet121 ----
+
+BACKBONES = ("vgg", "resnet", "densenet")
+BACKBONE_STEPS = 4
+# demo_featuremap as a child in which the plotting and OpenCV libraries do
+# not import (the card's machine has none of them)
+DEMO_CHILD = (
+    "import sys\n"
+    "for name in ('cv2', 'matplotlib', 'seaborn', 'tabulate'):\n"
+    "    sys.modules[name] = None\n"
+    "from eop_tpu_torch.tools.demo_featuremap import main\n"
+    "main(sys.argv[1:])\n")
+
+
+def file_batches(data_dir: str, n: int) -> list:
+    """``n`` batches of 8 from the bbox dataset's files through the exp's
+    own loader (no mosaic, loaded in this process), on the card."""
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(exp_name="yolox-l")
+    exp.data_dir, exp.data_num_workers, exp.seed = data_dir, 0, 0
+    it = iter(exp.get_data_loader(BBOX_BATCH, no_aug=True, seed=0))
+    out = []
+    for _ in range(n):
+        imgs, labels = next(it)[:2]
+        out.append((torch.as_tensor(imgs).float().cuda(),
+                    torch.as_tensor(labels).float().cuda()))
+    return out
+
+
+def bbox_detections_vs(dets, ref) -> dict:
+    """One image's bbox detections against a reference's: the counts, the
+    scores in order (largest relative difference), the boxes of each that
+    lie within 10,000 px of the image and cover more than a pixel (random
+    weights can collapse a box's width or send its height past 1e10), and
+    the median best IoU of those with the reference's (None where
+    either has none)."""
+    from eop_tpu_torch.ops.boxes import bboxes_iou
+
+    got = dets.rows[0][dets.valid[0]].float().cpu()
+    want = ref.rows[0][ref.valid[0]].float().cpu()
+    gs = (got[:, 4] * got[:, 5]).sort(descending=True).values
+    ws = (want[:, 4] * want[:, 5]).sort(descending=True).values
+    def proper(rows):
+        b = rows[:, :4]
+        keep = ((b.abs() < 1e4).all(1)
+                & ((b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1]) > 1.0))
+        return b[keep]
+
+    gf, wf = proper(got), proper(want)
+    iou = (bboxes_iou(gf, wf).amax(dim=1).median().item()
+           if len(gf) and len(wf) else None)
+    return {"count": len(got), "count_ref": len(want),
+            "score_max_rel_err": ((gs - ws).abs().max() / ws.abs().max())
+            .item() if len(gs) == len(ws) and len(ws) else None,
+            "boxes_in_frame": len(gf), "boxes_in_frame_ref": len(wf),
+            "matched_iou_median": iou}
+
+
+def backbone_phase(smi: str, backbone: str, batches: list) -> dict:
+    """YOLOX-L at full width over ``backbone``, seeded weights: one serving
+    call at B=8, 640 px, in fp32 and bf16 (stages by CUDA events), one image
+    on the card against the CPU (the 6-tuple within 1e-3 of each output's
+    scale, the detections by IoU), ``BACKBONE_STEPS`` fp32 training steps on
+    the files' batches (step ms, peak memory, losses; DenseNet's dropout
+    kept fraction), ``get_model_info``'s line.  No path may launch
+    ``phase_conv``: these backbones are ``F.conv2d``."""
+    from eop_tpu_torch.eval.postprocess import postprocess_bbox_heads
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.models.densenet import ChannelDropout, step_seed
+    from eop_tpu_torch.models.yolox import dropouts
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+    from eop_tpu_torch.utils.model_utils import get_model_info
+
+    t_phase = time.perf_counter()
+    report = {"phase": "backbone", "backbone": backbone, "card": smi,
+              "model": "yolox-l", "batch": BBOX_BATCH,
+              "input_size": [640, 640]}
+    _reset_counts()
+    for dtype in ("float32", "bfloat16"):
+        exp = get_exp(exp_name="yolox-l")
+        exp.backbone_type, exp.compute_dtype = backbone, dtype
+        model = exp.get_model("cuda", seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        st = serving_stages(smi, exp, model, iters=5)
+        report[f"serve_{dtype}"] = {
+            k: st[k] for k in ("h2d_letterbox_ms", "forward_ms",
+                               "postprocess_ms", "call_wall_ms",
+                               "profiled_device_busy_ms", "own_kernels",
+                               "top_kernels")}
+        report[f"serve_{dtype}"]["max_memory_allocated_bytes"] = (
+            torch.cuda.max_memory_allocated())
+        if dtype == "float32":
+            report["model_info"] = get_model_info(model, (640, 640))
+            # one image on the card and on the CPU
+            raw = torch.from_numpy(np.random.RandomState(7).uniform(
+                0, 255, (1, 640, 640, 3)).astype(np.float32))
+            outs, dets = {}, {}
+            for dev, m in (("cuda", model), ("cpu", exp.get_model("cpu",
+                                                                  seed=0))):
+                with torch.inference_mode():
+                    heads, fpn = m(raw.to(dev).permute(0, 3, 1, 2).contiguous(
+                        memory_format=torch.channels_last))
+                    dets[dev] = postprocess_bbox_heads(
+                        heads, exp.num_classes, conf_thre=1e-6,
+                        nms_thre=exp.nmsthre)
+                outs[dev] = [t.float().cpu() for t in (*heads, *fpn)]
+                del m
+            errs = [((g - c).abs().max() / c.abs().max().clamp(min=1.0))
+                    .item() for g, c in zip(outs["cuda"], outs["cpu"])]
+            report["card_vs_cpu"] = {
+                "max_rel_err": max(errs), "tol": 1e-3,
+                "taps_channels": [t.shape[1] for t in outs["cpu"][-3:]],
+                "detections": bbox_detections_vs(dets["cuda"],
+                                                 dets["cpu"])}
+        del model
+        torch.cuda.empty_cache()
+    serve_launches = _launch_counts()["forward"]
+
+    # training steps on the files' batches
+    exp = get_exp(exp_name="yolox-l")
+    exp.backbone_type = backbone
+    torch.cuda.reset_peak_memory_stats()
+    model = exp.get_model("cuda", seed=0).train()
+    state = create_train_state(model, exp.get_optimizer(
+        model, BBOX_BATCH, BACKBONE_STEPS))
+    gens = dropouts(model)
+    events = []
+
+    def hook(name_, metrics=None):
+        if name_ in ("start", "step"):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((ev, metrics))
+
+    step = make_train_step_bbox(YoloxLossConfig(num_classes=exp.num_classes),
+                                ema_decay=exp.ema_decay, hook=hook)
+    for i, (imgs, labels) in enumerate(batches[:BACKBONE_STEPS]):
+        for d in gens:  # as the Trainer seeds them
+            d.reseed(step_seed(exp.seed or 0, i))
+        state, _ = step(state, imgs, labels)
+    torch.cuda.synchronize()
+    ms = [events[2 * i][0].elapsed_time(events[2 * i + 1][0])
+          for i in range(BACKBONE_STEPS)]
+    losses = [float(events[2 * i + 1][1]["total_loss"])
+              for i in range(BACKBONE_STEPS)]
+    report["train"] = {
+        "steps": BACKBONE_STEPS, "step_ms_all": ms,
+        "step_ms": float(np.median(ms[1:])), "losses": losses,
+        "num_fg": [float(events[2 * i + 1][1]["num_fg"])
+                   for i in range(BACKBONE_STEPS)],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    if gens:
+        # the steps' masks again, replayed from each step's seed: DenseNet's
+        # 58 dense layers draw (B, 32) each, in order
+        kept = []
+        for i in range(BACKBONE_STEPS):
+            replay = ChannelDropout(gens[0].p, step_seed(exp.seed or 0, i))
+            kept += [replay.keep_mask((BBOX_BATCH, 32, 1, 1), "cuda")
+                     for _ in range(58)]
+        kept = torch.cat(kept)
+        report["train"]["dropout_kept_fraction"] = kept.float().mean().item()
+        report["train"]["dropout_drawn"] = kept.numel()
+    counts = _launch_counts()
+    report["phase_conv_launches"] = {"serve": serve_launches,
+                                     "train": {k: counts[k] for k in (
+                                         "forward", "wgrad", "dgrad",
+                                         "pack")}}
+    del state, model
+    torch.cuda.empty_cache()
+    report["phase_s"] = time.perf_counter() - t_phase
+    cvc = report["card_vs_cpu"]
+    if (serve_launches or any(report["phase_conv_launches"]["train"].values())
+            or cvc["max_rel_err"] > 1e-3
+            or cvc["taps_channels"] != [256, 512, 1024]
+            or not 0 < cvc["detections"]["count"]
+            == cvc["detections"]["count_ref"]
+            or cvc["detections"]["score_max_rel_err"] > 1e-3
+            or (cvc["detections"]["matched_iou_median"] is not None
+                and cvc["detections"]["matched_iou_median"] < 0.99)
+            or not (np.isfinite(losses).all() and np.isfinite(ms).all())
+            or not report["train"]["max_memory_allocated_bytes"] > 0
+            or (backbone == "densenet" and not 0.6 < report["train"][
+                "dropout_kept_fraction"] < 0.8)):
+        raise AssertionError(f"backbone {backbone}: {report}")
+    return report
+
+
+def demo_featuremap_phase(smi: str, root: str) -> dict:
+    """``python -m eop_tpu_torch.tools.demo_featuremap -n yolox-l --backbone
+    resnet --theta-range 30,95,30`` on a synthesized fixture, in a child in
+    which cv2, matplotlib, seaborn and tabulate do not import: every
+    sweep's images, figures, gt.json and dt.json, four AP blocks, a finite
+    activation table."""
+    import re
+
+    from eop_tpu_torch.utils.synth import write_featuremap_fixture
+
+    fixture = write_featuremap_fixture(os.path.join(root, "fixture"))
+    out = os.path.join(root, "demo_out")
+    cmd = [sys.executable, "-c", DEMO_CHILD, "-n", "yolox-l", "--backbone",
+           "resnet", "--theta-range", "30,95,30", "--json", fixture,
+           "--conf", "0.001", "output_dir", out]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    sweeps = ("none", "theta_30", "theta_60", "theta_90")
+    files = {}
+    for sweep in sweeps:
+        files[sweep] = {
+            "new_data": sorted(os.listdir(os.path.join(out, "new_data",
+                                                       sweep)))
+            if os.path.isdir(os.path.join(out, "new_data", sweep)) else [],
+            "vis_res": len(os.listdir(os.path.join(
+                out, "yolox_l_resnet", "vis_res", sweep)))
+            if os.path.isdir(os.path.join(out, "yolox_l_resnet", "vis_res",
+                                          sweep)) else 0,
+            "dt_json": os.path.exists(os.path.join(
+                out, "yolox_l_resnet", "dt_json", sweep, "dt.json"))}
+    text = r.stdout
+    blocks = [s for s in sweeps if f"{'*' * 24}{s}{'*' * 24}" in text]
+    ap = re.findall(r"Average Precision.*= *(-?[0-9.]+)", text)
+    table = text[text.find("===== Feature Map Size"):]
+    values = [float(v) for v in re.findall(r"(-?[0-9]+\.[0-9]+|nan)(?= *\|)",
+                                           table)]
+    finite = int(np.isfinite(values).sum()) if values else 0
+    n_dt = {}
+    for sweep in sweeps:
+        path = os.path.join(out, "yolox_l_resnet", "dt_json", sweep,
+                            "dt.json")
+        if os.path.exists(path):
+            with open(path) as f:
+                n_dt[sweep] = len(json.load(f))
+    report = {"phase": "demo_featuremap", "card": smi, "backbone": "resnet",
+              "model": "yolox-l", "wall_s": wall, "exit": r.returncode,
+              "files": files, "ap_blocks": blocks, "ap_lines": len(ap),
+              "ap": ap[:12], "detections": n_dt,
+              "table_values": len(values), "table_finite": finite,
+              "model_summary": next((ln for ln in text.splitlines()
+                                     if ln.startswith("Model Summary")), "")}
+    ok = (r.returncode == 0 and len(blocks) == 4 and len(ap) == 4 * 6
+          and len(values) == 60 and finite > 0
+          and all(len(f["new_data"]) == 6 and "gt.json" in f["new_data"]
+                  and f["vis_res"] == 10 and f["dt_json"]
+                  for f in files.values()))
+    if not ok:
+        raise AssertionError(f"demo_featuremap: {report}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    return report
+
+
+def host_resize(smi: str, reps: int = 7) -> dict:
+    """The two host resizers on the loader's and the letterbox's shapes
+    (median wall ms of ``reps``, one torch thread as in a loader worker):
+    ``resize_host`` (torch bilinear, within one level of cv2) and
+    ``resize_linear`` (cv2's fixed point, bit for bit; the feature-map
+    study's)."""
+    from eop_tpu_torch.data.transforms import resize_host, resize_linear
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(0)
+    report = {"phase": "host_resize", "card": smi, "reps": reps}
+    try:
+        for src, dst in (((480, 640), (640, 853)), ((720, 1280), (360, 640))):
+            img = rng.integers(0, 256, src + (3,), dtype=np.uint8)
+            for name, fn in (("resize_host", resize_host),
+                             ("resize_linear", resize_linear)):
+                ts = []
+                for _ in range(reps):
+                    t = time.perf_counter()
+                    fn(img, dst)
+                    ts.append(time.perf_counter() - t)
+                report[f"{name}_{src[0]}x{src[1]}_to_{dst[0]}x{dst[1]}_ms"] = (
+                    1e3 * float(np.median(ts)))
+    finally:
+        torch.set_num_threads(threads)
+    return report
+
+
+def backbones_phases(smi: str, data_dir: str, root: str) -> dict:
+    """The study's models at full width, then one HTTP round through
+    ``serve -n yolox-l backbone_type resnet``, then the study itself:
+    each phase's line emitted, their times returned."""
+    t0 = time.perf_counter()
+    batches = file_batches(data_dir, BACKBONE_STEPS)
+    load_s = time.perf_counter() - t0
+    times = {"file_batches_s": load_s}
+    for backbone in BACKBONES:
+        report = backbone_phase(smi, backbone, batches)
+        emit(report)
+        times[backbone] = report["phase_s"]
+    del batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    start_s, codes, n_dets, ms, stats, lines = serve_round(
+        ["-n", "yolox-l", "test_conf", "1e-5", "backbone_type", "resnet"],
+        4, "serve -n yolox-l backbone_type resnet")
+    http = {"phase": "serve_backbone", "card": smi, "backbone": "resnet",
+            "start_s": start_s, "http_codes": codes, "detections": n_dets,
+            "request_ms_median": float(np.median(ms)),
+            "device_calls": stats.get("device_calls"),
+            "banner": [ln.strip() for ln in lines[-2:]],
+            "phase_s": time.perf_counter() - t0}
+    emit(http)
+    if codes != [200] * 4 or min(n_dets) <= 0 or "device=cuda" not in "".join(
+            lines):
+        raise AssertionError(f"serve_backbone: {http}")
+    times["serve_backbone"] = http["phase_s"]
+    demo = demo_featuremap_phase(smi, root)
+    emit(demo)
+    times["demo_featuremap"] = demo["wall_s"]
+    emit(host_resize(smi))
+    return times
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3336,6 +3680,27 @@ def compare_steps(trees) -> int:
     return 0
 
 
+def backbones_only() -> int:
+    """``python3 chip_smoke.py --backbones``: the bbox dataset written to a
+    temporary directory, then :func:`backbones_phases` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_backbones_")
+    try:
+        emit({**write_bbox_dataset(os.path.join(root, "coco")), "card": smi})
+        emit({"phase": "backbones_done", "card": smi, **backbones_phases(
+            smi, os.path.join(root, "coco"), os.path.join(root, "fm"))})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3460,6 +3825,11 @@ def main() -> int:
         bbox_report["bf16_step"] = bf16_report
         emit(bbox_report)
         emit(bbox_card_vs_cpu())
+        # the feature-map study: YOLOX-L over VGG19, ResNet50, DenseNet121
+        # (served, card against CPU, trained from the files), served over
+        # HTTP, and demo_featuremap in a child without OpenCV
+        emit({"phase": "backbones_done", "card": smi, **backbones_phases(
+            smi, bbox_dir, os.path.join(data_root, "featuremap"))})
         # YOLOX-X's steps, whose 13 data gradients all left the CUDA cores
         x_reports, x_launches = {}, {}
         for dtype, path in (("float32", "train_x"),
@@ -3830,5 +4200,7 @@ if __name__ == "__main__":
         sys.exit(steps_child(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--compare-steps"]:
         sys.exit(compare_steps(sys.argv[2:]))
+    if sys.argv[1:] == ["--backbones"]:
+        sys.exit(backbones_only())
     sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
              else main())

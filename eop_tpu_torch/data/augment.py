@@ -210,23 +210,61 @@ def warp_affine(img: np.ndarray, M: np.ndarray, dsize,
     ys = np.arange(h_out, dtype=f32)[:, None]
     sx = _fused(m[0], xs, m[1] * ys + m[2])
     sy = _fused(m[3], xs, m[4] * ys + m[5])
-    fx, fy = np.floor(sx), np.floor(sy)
-    ax, ay = (sx - fx)[..., None], (sy - fy)[..., None]
-    h, w = img.shape[:2]
-    # a ring of border pixels; coordinates beyond it read the ring
-    padded = np.full((h + 2, w + 2, img.shape[2]), border, np.uint8)
-    padded[1:-1, 1:-1] = img
-    x0, y0 = fx.astype(np.int64) + 1, fy.astype(np.int64) + 1
-    ix, ix1 = np.clip(x0, 0, w + 1), np.clip(x0 + 1, 0, w + 1)
-    iy, iy1 = np.clip(y0, 0, h + 1), np.clip(y0 + 1, 0, h + 1)
+    return remap(img, sx, sy, border)
 
-    def at(yy, xx):
-        return padded[yy, xx].astype(f32)
 
-    top = _fused(ax, at(iy, ix1) - at(iy, ix), at(iy, ix))
-    bottom = _fused(ax, at(iy1, ix1) - at(iy1, ix), at(iy1, ix))
+def _bilinear(ax, ay, v00, v01, v10, v11) -> np.ndarray:
+    """OpenCV 4.11+ / 5.0's bilinear blend: fp32 FMAs along x, then y,
+    rounded to even and saturated to uint8."""
+    top = _fused(ax, v01 - v00, v00)
+    bottom = _fused(ax, v11 - v10, v10)
     out = _fused(ay, bottom - top, top)
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def remap(img: np.ndarray, map_x: np.ndarray, map_y: np.ndarray,
+          border: int = _PAD, nearest: bool = False) -> np.ndarray:
+    """``cv2.remap(img, map_x, map_y, INTER_LINEAR or INTER_NEAREST,
+    borderMode=BORDER_CONSTANT, borderValue=(border,) * C)`` for a uint8
+    ``[H, W, C]`` image and fp32 maps (OpenCV 4.11+ / 5.0's vector paths:
+    bilinear with fp32 FMAs, rounded to even; nearest by rounding the
+    coordinate)."""
+    return remap_sampled(lambda y, x: img[y, x], img.shape[:2],
+                         img.shape[2:], map_x, map_y, border, nearest)
+
+
+def remap_sampled(sample, hw, channels, map_x: np.ndarray,
+                  map_y: np.ndarray, border: int, nearest: bool = False):
+    """:func:`remap` of an image given by ``sample(ys, xs)`` (its uint8
+    pixels ``[N, *channels]`` at integer coordinates inside ``hw``), which
+    is asked only for the pixels the map reads: an image too large to
+    build whole, e.g. one upscaled to the 13,200 columns of the sector
+    warp.  A tap outside the image reads ``sample`` at the nearest edge
+    and is then set to ``border``."""
+    h, w = hw
+    if nearest:
+        xs = [np.rint(map_x).astype(np.int64)]
+        ys = [np.rint(map_y).astype(np.int64)]
+    else:
+        fx, fy = np.floor(map_x), np.floor(map_y)
+        x0, y0 = fx.astype(np.int64), fy.astype(np.int64)
+        xs, ys = [x0, x0 + 1], [y0, y0 + 1]
+    # per axis and tap: the clamped coordinate, and where it left the image
+    cx = [(np.clip(x, 0, w - 1), (x < 0) | (x >= w)) for x in xs]
+    cy = [(np.clip(y, 0, h - 1), (y < 0) | (y >= h)) for y in ys]
+
+    def at(j, i):
+        (yy, out_y), (xx, out_x) = cy[j], cx[i]
+        v = sample(yy, xx)
+        v[out_y | out_x] = border
+        return v
+
+    if nearest:
+        return at(0, 0)
+    ax, ay = (map_x - fx)[..., None], (map_y - fy)[..., None]
+    return _bilinear(ax, ay, *(at(j, i).astype(np.float32)
+                               for j, i in ((0, 0), (0, 1), (1, 0),
+                                            (1, 1))))
 
 
 def random_affine(img, targets=(), target_size=(640, 640), degrees=10,

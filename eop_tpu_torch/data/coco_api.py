@@ -6,7 +6,8 @@
 * the RLE codec: COCO's column-major uncompressed counts, and the decoder
   of the compressed string format;
 * ``mask_iou`` for segmentation AP.  Polygon segmentations render with
-  OpenCV (``polygons_to_mask``), which is imported only there.
+  :func:`fill_poly`, ``cv2.fillPoly`` written in numpy
+  (``polygons_to_mask``).
 """
 
 from __future__ import annotations
@@ -77,21 +78,136 @@ def _decode_rle_string(s) -> List[int]:
     return counts
 
 
+_XY_SHIFT = 16
+_XY_ONE = 1 << _XY_SHIFT
+
+
+def _clip_line(w: int, h: int, p1, p2):
+    """OpenCV's ``clipLine`` on integer points: the segment's part inside
+    ``[0, w) x [0, h)`` as (inside, p1, p2)."""
+    (x1, y1), (x2, y2) = p1, p2
+    right, bottom = w - 1, h - 1
+
+    def code(x, y):
+        return (x < 0) + (x > right) * 2 + (y < 0) * 4 + (y > bottom) * 8
+
+    c1, c2 = code(x1, y1), code(x2, y2)
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, (x1, y1), (x2, y2)
+
+
+def draw_line(img: np.ndarray, p1, p2, value) -> None:
+    """An 8-connected line between integer points, OpenCV's ``LineIterator``
+    (Bresenham, walked left to right, clipped to the image)."""
+    h, w = img.shape[:2]
+    if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
+            and 0 <= p2[1] < h):
+        inside, p1, p2 = _clip_line(w, h, p1, p2)
+        if not inside:
+            return
+    (x, y), (x2, y2) = p1, p2
+    dx, dy = x2 - x, y2 - y
+    if dx < 0:
+        dx, dy, x, y = -dx, -dy, x2, y2
+    step_y = -1 if dy < 0 else 1
+    dy = abs(dy)
+    vert = dy > dx
+    major, minor = (dy, dx) if vert else (dx, dy)
+    err = major - 2 * minor
+    for _ in range(major + 1):
+        img[y, x] = value
+        bump = err < 0
+        err += -2 * minor + (2 * major if bump else 0)
+        if vert:
+            y += step_y
+            x += 1 if bump else 0
+        else:
+            x += 1
+            y += step_y if bump else 0
+
+
+def fill_poly(img: np.ndarray, polys, value) -> np.ndarray:
+    """``cv2.fillPoly(img, polys, value)`` for integer vertices (shift 0,
+    8-connected), in numpy: every edge drawn as a line, then the scanline
+    fill of all the polygons' edges together (even-odd across them, as
+    OpenCV collects one edge list).  Edge x in 16.16 fixed point from its
+    upper vertex, its slope truncated toward zero; a row fills from
+    ``ceil(x_left)`` to ``floor(x_right)`` between consecutive active edges
+    in x order; an edge is active on rows ``[y0, y1)``."""
+    h, w = img.shape[:2]
+    edges = []  # (y0, y1, x at y0, dx), fixed point
+    for poly in polys:
+        pts = [(int(x), int(y)) for x, y in np.asarray(poly).reshape(-1, 2)]
+        for i in range(len(pts)):
+            (x0, y0), (x1, y1) = pts[i - 1], pts[i]
+            draw_line(img, (x0, y0), (x1, y1), value)
+            # a segment leaving the image takes its slope from its clipped
+            # part (where that part is not horizontal)
+            c0, c1 = (x0, y0), (x1, y1)
+            if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
+                    and 0 <= y1 < h):
+                _, t0, t1 = _clip_line(w, h, c0, c1)
+                if t0[1] != t1[1]:
+                    c0, c1 = t0, t1
+            if y0 == y1:
+                continue
+            # C division of the 16.16 run: toward zero
+            run, rise = (c1[0] - c0[0]) << _XY_SHIFT, c1[1] - c0[1]
+            dx = abs(run) // abs(rise) * (1 if (run < 0) == (rise < 0)
+                                          else -1)
+            if y0 < y1:
+                edges.append((y0, y1, (c0[0] << _XY_SHIFT)
+                              + (y0 - c0[1]) * dx, dx))
+            else:
+                edges.append((y1, y0, (c1[0] << _XY_SHIFT)
+                              + (y1 - c1[1]) * dx, dx))
+    if len(edges) < 2:
+        return img
+    y_lo = max(min(e[0] for e in edges), 0)
+    y_hi = min(max(e[1] for e in edges), h)
+    for y in range(y_lo, y_hi):
+        xs = sorted(x + (y - y0) * dx for y0, y1, x, dx in edges
+                    if y0 <= y < y1)
+        for a, b in zip(xs[0::2], xs[1::2]):
+            x1, x2 = (a + _XY_ONE - 1) >> _XY_SHIFT, b >> _XY_SHIFT
+            if x1 < w and x2 >= 0:
+                img[y, max(x1, 0):min(x2, w - 1) + 1] = value
+    return img
+
+
 def polygons_to_mask(polys: List[List[float]], h: int, w: int) -> np.ndarray:
-    """Polygon segmentation -> binary mask [h, w] uint8 (cv2 rendering)."""
-    try:
-        import cv2
-    except ImportError:
-        raise RuntimeError("rendering polygon segmentations needs OpenCV "
-                           "(cv2), which is not installed") from None
+    """Polygon segmentation -> binary mask [h, w] uint8: the vertices
+    rounded, then :func:`fill_poly` (``cv2.fillPoly`` in numpy; no OpenCV
+    needed)."""
     mask = np.zeros((h, w), dtype=np.uint8)
     pts = [
-        np.asarray(p, dtype=np.float64).reshape(-1, 2).round().astype(np.int32)
+        np.asarray(p, dtype=np.float64).reshape(-1, 2).round().astype(np.int64)
         for p in polys
         if len(p) >= 6
     ]
     if pts:
-        cv2.fillPoly(mask, pts, 1)
+        fill_poly(mask, pts, 1)
     return mask
 
 
@@ -277,3 +393,13 @@ class COCO:
             return segm
         return {"size": segm["size"],
                 "counts": _decode_rle_string(segm["counts"])}
+
+    def annToMask(self, ann) -> np.ndarray:
+        """The annotation's binary mask [h, w] uint8."""
+        img = self.imgs[ann["image_id"]]
+        h, w = img["height"], img["width"]
+        segm = ann["segmentation"]
+        if isinstance(segm, list):
+            return polygons_to_mask(segm, h, w)
+        return rle_to_mask(segm if isinstance(segm["counts"], list)
+                           else self.annToRLE(ann))

@@ -12,6 +12,11 @@ Scale by ``r = min(H'/h, W'/w)`` (bilinear), paste top-left on a canvas of
   antialiasing and with rounding, which agrees with cv2 to one level.  The
   host letterbox, the data pipeline's ``preproc`` and ``fit_resize`` all
   resize through it.
+* :func:`resize_linear` is ``cv2.resize(INTER_LINEAR)`` bit for bit (its
+  fixed-point arithmetic, in numpy), and :func:`resized_at` the same
+  pixels picked out one by one; the feature-map study, held to OpenCV's
+  pixels, resizes through them.  Taking 1.5-2.2 times as long, it does not
+  replace :func:`resize_host` on the loader's and the letterbox's path.
 """
 
 from __future__ import annotations
@@ -57,6 +62,87 @@ def resize_host(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     x = torch.from_numpy(np.ascontiguousarray(img)).float()[None]
     out = _resize_nhwc(x, tuple(hw), antialias=False)[0]
     return out.round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+_COEF = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE: 11 fractional bits
+
+
+def _linear_taps(n_src: int, n_dst: int, clamp: bool):
+    """Source indices (clamped) and 11-bit weights of OpenCV's bilinear
+    resize along one axis: ``f = fp32((d + 0.5) * (1 / (n_dst / n_src)) -
+    0.5)``, weights ``round(1 - frac)``, ``round(frac)``.  Along x
+    (``clamp``) a tap before the first or past the last pixel takes the edge
+    pixel with weight 1; along y the weights stay and the rows clamp."""
+    d = np.arange(n_dst)
+    f = ((d + 0.5) * (1.0 / (n_dst / n_src)) - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0
+        s = np.where(s < 0, 0, np.where(s >= n_src - 1, n_src - 1, s))
+    w1 = np.rint(f * _COEF).astype(np.int32)
+    w0 = np.rint((np.float32(1) - f) * _COEF).astype(np.int32)
+    return np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1
+
+
+def _along_x(p0, p1, a0, a1):
+    """OpenCV's horizontal pass: uint8 taps times 11-bit weights, shifted
+    by 4 (int32)."""
+    r = p0 * a0
+    r += p1 * a1
+    r >>= 4
+    return r
+
+
+def _along_y(r0, r1, b0, b1):
+    """OpenCV's vertical pass over two horizontal sums: each times its
+    weight's high half (``>> 16``), then rounded by 2 bits to uint8."""
+    out = r0 * b0
+    out >>= 16
+    r1 = r1 * b1
+    r1 >>= 16
+    out += r1 + 2
+    out >>= 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def resize_linear(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """uint8 ``[H, W, C]`` -> uint8 ``[*hw, C]``, bit for bit
+    ``cv2.resize(img, (w, h))`` (INTER_LINEAR's fixed-point path), in
+    numpy.  The feature-map study's warps and letterbox use it, whose
+    pixels are held to OpenCV's; it takes 1.5-2.2 times :func:`resize_host`'s
+    time (``chip_smoke.py``'s ``host_resize``), which the loader and the
+    serving letterbox keep."""
+    h, w = img.shape[:2]
+    if (h, w) == tuple(hw):
+        return np.ascontiguousarray(img)
+    c = int(np.prod(img.shape[2:], dtype=np.int64))
+    sx, sx1, a0, a1 = _linear_taps(w, hw[1], True)
+    sy, sy1, b0, b1 = _linear_taps(h, hw[0], False)
+    # the channels flattened into the columns: contiguous rows
+    ch = np.arange(c)
+    x = np.ascontiguousarray(img).reshape(h, w * c)
+    rows = _along_x(x[:, (sx[:, None] * c + ch).ravel()],
+                    x[:, (sx1[:, None] * c + ch).ravel()],
+                    np.repeat(a0, c), np.repeat(a1, c))
+    out = _along_y(rows[sy], rows[sy1], b0[:, None], b1[:, None])
+    return out.reshape(tuple(hw) + img.shape[2:])
+
+
+def resized_at(img: np.ndarray, hw: Tuple[int, int], ys: np.ndarray,
+               xs: np.ndarray) -> np.ndarray:
+    """``resize_linear(img, hw)[ys, xs]`` (``[*ys.shape, C]``), computing
+    only those pixels."""
+    h, w = img.shape[:2]
+    if (h, w) == tuple(hw):
+        return img[ys, xs]
+    sx, sx1, a0, a1 = (t[xs] for t in _linear_taps(w, hw[1], True))
+    sy, sy1, b0, b1 = (t[ys] for t in _linear_taps(h, hw[0], False))
+    extra = (Ellipsis,) + (None,) * (img.ndim - 2)
+    a0, a1, b0, b1 = (v[extra] for v in (a0, a1, b0, b1))
+    return _along_y(_along_x(img[sy, sx], img[sy, sx1], a0, a1),
+                    _along_x(img[sy1, sx], img[sy1, sx1], a0, a1), b0, b1)
 
 
 def letterbox_host(img: np.ndarray, src_hw: Tuple[int, int]):

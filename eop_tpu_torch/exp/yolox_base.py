@@ -9,8 +9,9 @@ fused inference and serving functions (counterpart of
 ``yolov3.py``'s ``get_model``, which builds ``YOLOv3``; the port's ``ast``
 reader maps that override to ``model_kind = "yolov3"``.
 
-Not ported yet (each raises where asked for): backbones other than
-CSPDarknet, the sharded multi-chip inference function."""
+``backbone_type`` (``darknet``, ``vgg``, ``resnet``, ``densenet``) swaps
+the YOLOX backbone, as the feature-map study does.  Not ported yet (it
+raises where asked for): the sharded multi-chip inference function."""
 
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..eval.postprocess import postprocess_bbox_heads
-from ..models.yolox import YOLOX, YOLOv3, init_weights
+from ..models.yolox import YOLOX, YOLOv3, dropouts, init_weights
 from ..utils.device import resolve_device, set_fp32_precision
 from .base_exp import BaseExp
 from .yolox_24p_base import COMPUTE_DTYPES
@@ -97,13 +98,16 @@ class Exp(BaseExp):
     # ------------------------------------------------------------------
     # model and inference
 
-    def get_model(self, device=None, seed: int = 0):
+    def get_model(self, device=None, seed: int = 0,
+                  backbone_type: Optional[str] = None):
         """The model of ``model_kind`` with a 4-channel box head, in eval
         mode on ``device`` (the card unless ``"cpu"``), channels_last, with
         seeded random fp32 weights, computing in ``compute_dtype``.  YOLOX
-        takes ``depthwise`` and checkpoints its backbone + neck in training
-        where ``remat``; YOLOv3 takes ``num_classes``, ``width`` and the
-        dtype, as ``eop_tpu``'s ``yolov3`` exp builds it."""
+        takes ``depthwise``, ``backbone_type or self.backbone_type`` (an
+        unknown one raises ``ValueError``) and checkpoints its backbone +
+        neck in training where ``remat``; DenseNet's dropout generator is
+        seeded with ``seed``.  YOLOv3 takes ``num_classes``, ``width`` and
+        the dtype, as ``eop_tpu``'s ``yolov3`` exp builds it."""
         if self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}: the port "
                              f"computes in {sorted(COMPUTE_DTYPES)}")
@@ -118,15 +122,14 @@ class Exp(BaseExp):
         elif self.model_kind != "yolox":
             raise ValueError(f"model_kind {self.model_kind!r}: expected "
                              "'yolox' or 'yolov3'")
-        elif self.backbone_type != "darknet":
-            raise NotImplementedError(
-                f"backbone_type {self.backbone_type!r}: the port has "
-                "CSPDarknet only (other backbones: ROADMAP.md queue 1)")
         else:
             model = YOLOX(depth=self.depth, width=self.width,
                           num_classes=self.num_classes, reg_dim=4,
                           act=self.act, dtype=dtype, remat=bool(self.remat),
-                          depthwise=bool(self.depthwise))
+                          depthwise=bool(self.depthwise),
+                          backbone_type=backbone_type or self.backbone_type)
+            for d in dropouts(model):
+                d.reseed(seed)
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 

@@ -47,6 +47,7 @@ class CSPDarknet(nn.Module):
         super().__init__()
         self.out_features = tuple(out_features)
         base_ch = int(wid_mul * 64)
+        self.out_channels = (base_ch * 4, base_ch * 8, base_ch * 16)
         base_depth = max(round(dep_mul * 3), 1)
         Conv = conv_class(depthwise)
 

@@ -1,6 +1,7 @@
 """Necks (counterpart of ``eop_tpu/models/pafpn.py``): ``YOLOPAFPN``, the
-PAN neck over CSPDarknet (darknet backbone), and ``YOLOFPN``, YOLOv3's FPN
-over the classic Darknet."""
+PAN neck over a swappable backbone (``BACKBONE_TYPES``: CSPDarknet, VGG19,
+the half-width ResNet50, DenseNet121), and ``YOLOFPN``, YOLOv3's FPN over
+the classic Darknet."""
 
 from __future__ import annotations
 
@@ -12,8 +13,32 @@ import torch.nn.functional as F
 
 from ..ops.blocks import BaseConv, CSPLayer, conv_class
 from .darknet import CSPDarknet, Darknet
+from .densenet import densenet121
+from .resnet import resnet50
+from .vgg import vgg19
 
 IN_FEATURES = ("dark3", "dark4", "dark5")
+BACKBONE_TYPES = ("darknet", "vgg", "resnet", "densenet")
+
+
+def build_backbone(backbone_type: str, depth: float, width: float,
+                   act: str, dtype: torch.dtype, depthwise: bool):
+    """The backbone of ``backbone_type``; its ``out_channels`` are the
+    (dark3, dark4, dark5) taps' channels.  CSPDarknet's follow ``width``;
+    VGG19's, ResNet50's and DenseNet121's are 256 / 512 / 1024 at any
+    width (they ignore ``depth``, ``width``, ``act`` and ``depthwise``, as
+    in ``eop_tpu``)."""
+    if backbone_type == "darknet":
+        return CSPDarknet(depth, width, IN_FEATURES, act=act, dtype=dtype,
+                          depthwise=depthwise)
+    if backbone_type == "vgg":
+        return vgg19(out_features=IN_FEATURES, dtype=dtype)
+    if backbone_type == "resnet":
+        return resnet50(out_features=IN_FEATURES, dtype=dtype)
+    if backbone_type == "densenet":
+        return densenet121(out_features=IN_FEATURES, dtype=dtype)
+    raise ValueError(
+        f"unknown backbone_type {backbone_type!r}; expected {BACKBONE_TYPES}")
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -24,18 +49,18 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 class YOLOPAFPN(nn.Module):
     """Returns ``(pan_out2, pan_out1, pan_out0, x2, x1, x0)``: the FPN maps
     at strides 8/16/32 and the raw backbone taps (the reference's 6-tuple),
-    in the compute ``dtype``."""
+    in the compute ``dtype``.  The neck's convs take their input channels
+    from the backbone's taps."""
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  in_channels: Sequence[int] = (256, 512, 1024),
                  act: str = "silu", dtype: torch.dtype = torch.float32,
-                 depthwise: bool = False):
+                 depthwise: bool = False, backbone_type: str = "darknet"):
         super().__init__()
         conv = dict(act=act, dtype=dtype)
-        self.backbone = CSPDarknet(depth, width, IN_FEATURES,
-                                   depthwise=depthwise, **conv)
-        base_ch = int(width * 64)
-        b2, b1, b0 = base_ch * 4, base_ch * 8, base_ch * 16  # dark3/4/5
+        self.backbone = build_backbone(backbone_type, depth, width, act,
+                                       dtype, depthwise)
+        b2, b1, b0 = self.backbone.out_channels  # dark3/4/5
         c0, c1, c2 = [int(c * width) for c in in_channels]
         n = round(3 * depth)
         csp = dict(n=n, shortcut=False, depthwise=depthwise, **conv)

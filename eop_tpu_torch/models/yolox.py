@@ -17,6 +17,7 @@ import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.blocks import batch_stats_frozen
+from .densenet import ChannelDropout
 from .head import (
     PRIOR_BIAS,
     YOLOXHead,
@@ -27,15 +28,49 @@ from .head import (
 from .pafpn import YOLOFPN, YOLOPAFPN
 
 
-def _remat_contexts():
-    # the forward as usual; its recompute in the backward leaves the
-    # BatchNorm running statistics alone
-    return contextlib.nullcontext(), batch_stats_frozen()
+def dropouts(model: nn.Module):
+    """The distinct :class:`ChannelDropout` generators of ``model``'s
+    modules (DenseNet's)."""
+    found = {}
+    for m in model.modules():
+        d = getattr(m, "dropout", None)
+        if isinstance(d, ChannelDropout):
+            found[id(d)] = d
+    return list(found.values())
+
+
+def _remat_contexts(module: nn.Module):
+    """The checkpoint's (forward, recompute) contexts.  The recompute
+    leaves the BatchNorm running statistics alone and draws the forward's
+    dropout masks again: it starts each generator from the state the
+    forward started from, and leaves it where the forward left it."""
+    gens = dropouts(module)
+    at_start = []
+
+    @contextlib.contextmanager
+    def forward():
+        at_start[:] = [d.get_state() for d in gens]
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        after = [d.get_state() for d in gens]
+        for d, state in zip(gens, at_start):
+            d.set_state(state)
+        try:
+            with batch_stats_frozen():
+                yield
+        finally:
+            for d, state in zip(gens, after):
+                d.set_state(state)
+
+    return forward(), recompute()
 
 
 class YOLOX(nn.Module):
-    """YOLOPAFPN(CSPDarknet) -> YOLOXHead, attribute names ``backbone`` and
-    ``head`` as in the reference.
+    """YOLOPAFPN(backbone) -> YOLOXHead, attribute names ``backbone`` and
+    ``head`` as in the reference; ``backbone_type`` one of
+    ``pafpn.BACKBONE_TYPES``.
 
     ``dtype`` is the compute dtype of every conv (``ops/blocks.py``).
     ``depthwise`` makes the 3x3 convs of backbone, neck and head ``DWConv``s
@@ -44,25 +79,28 @@ class YOLOX(nn.Module):
     activations are not kept but recomputed in the backward, which launches
     the early convs' forward kernel a second time; the recompute leaves
     BatchNorm's running statistics alone, so a step updates them once, as
-    JAX's functional remat does.
+    JAX's functional remat does, and draws DenseNet's dropout masks again
+    from the generator state the forward started from.
     """
 
     def __init__(self, depth: float = 1.0, width: float = 1.0,
                  num_classes: int = 80, reg_dim: int = 4,
                  in_channels: Sequence[int] = (256, 512, 1024),
                  act: str = "silu", dtype: torch.dtype = torch.float32,
-                 remat: bool = False, depthwise: bool = False):
+                 remat: bool = False, depthwise: bool = False,
+                 backbone_type: str = "darknet"):
         super().__init__()
         self.backbone = YOLOPAFPN(depth, width, in_channels, act, dtype,
-                                  depthwise)
+                                  depthwise, backbone_type)
         self.head = YOLOXHead(num_classes, width, in_channels, reg_dim, act,
                               dtype, depthwise)
         self.remat = remat
 
     def forward(self, x):
         if self.remat and self.training and torch.is_grad_enabled():
-            fpn_outs = checkpoint(self.backbone, x, use_reentrant=False,
-                                  context_fn=_remat_contexts)
+            fpn_outs = checkpoint(
+                self.backbone, x, use_reentrant=False,
+                context_fn=lambda: _remat_contexts(self.backbone))
         else:
             fpn_outs = self.backbone(x)
         return self.head(fpn_outs[:3]), fpn_outs

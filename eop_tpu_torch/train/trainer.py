@@ -13,6 +13,11 @@ loader's iterator is made again so that the workers see the sampler's
 flag from the next batch on (batches already prefetched were drawn with
 mosaic).
 
+Before each step, DenseNet's dropout generator is seeded from the exp's
+seed and the global step (``models/densenet.py::step_seed``), so a resumed
+run draws the masks an uninterrupted one draws, as ``eop_tpu``'s
+``PRNGKey(step)`` does.
+
 The steps keep their metrics on the device; the print step fetches them in
 one transfer (``host_fetches`` counts them), and with ``tensorboardX`` each
 step writes one row.  One device; the mesh, several hosts, ``--spatial``,
@@ -30,6 +35,8 @@ import time
 import torch
 
 from ..losses import YoloxLossConfig
+from ..models.densenet import step_seed
+from ..models.yolox import dropouts
 from ..utils.device import resolve_device
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import (
@@ -125,6 +132,7 @@ class Trainer:
             cache_img=getattr(args, "cache", False))
         self.iters_per_epoch = len(self.train_loader)
         model = exp.get_model(self.device, seed=exp.seed or 0).train()
+        self._dropouts = dropouts(model)
         optimizer = exp.get_optimizer(model, args.batch_size,
                                       self.iters_per_epoch)
         jax_state = getattr(args, "jax_state", None)
@@ -201,6 +209,9 @@ class Trainer:
             if self.tsize != tuple(self.input_size):
                 imgs, labels = self.exp.preprocess(imgs, labels, self.tsize)
             data_time = time.perf_counter() - t0
+            for d in self._dropouts:  # DenseNet's masks: (seed, step)
+                d.reseed(step_seed(self.exp.seed or 0,
+                                   self.progress_in_iter))
             self.state, metrics = step_fn(self.state, imgs, labels)
             pending.append((self.progress_in_iter, metrics))
             self.meter.update(iter_time=time.perf_counter() - t0,

@@ -13,7 +13,9 @@ library alone (``write_bmp``, ``write_jpeg``, ``write_png``) so that a
 machine without an image library writes and reads it.  ``write_coco_dataset``:
 the bbox family's seeded COCO-format dataset (``make_synth_datasets.py``'s
 ``make_coco`` recipe: coloured rectangles on dark noise, the class is the
-colour).  ``LabelOracle``: an ``infer_fn`` that answers with a dataset's
+colour).  ``write_featuremap_fixture``: the feature-map study's
+single-image COCO fixture with polygon segmentations.  ``LabelOracle``: an
+``infer_fn`` that answers with a dataset's
 labels, for which an evaluator must give AP 1.
 """
 
@@ -478,6 +480,60 @@ def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
             json.dump({"images": images, "annotations": annotations,
                        "categories": cats}, f)
     return root
+
+
+def _fixture_polygon(rng: np.random.RandomState, cx: float, cy: float,
+                     radius: float, concave: bool) -> np.ndarray:
+    """A closed polygon of 8 (convex) or 10 (a star) vertices about (cx,
+    cy), as ``[K, 2]`` floats rounded to 0.1 px."""
+    k = 10 if concave else 8
+    ang = np.sort(rng.uniform(0, 2 * np.pi, k)) if not concave else (
+        np.arange(k) * 2 * np.pi / k + rng.uniform(0, 0.3))
+    rad = radius * (np.where(np.arange(k) % 2, 0.45, 1.0) if concave
+                    else rng.uniform(0.7, 1.0, k))
+    pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+    return np.round(pts, 1)
+
+
+def write_featuremap_fixture(root: str, hw=(480, 640), objects: int = 2,
+                             seed: int = 0, image_id: int = 130566):
+    """The feature-map study's input: a seeded single-image COCO json
+    (``fixture.json``) and its PNG beside it, ``objects`` (1 or 2)
+    polygon-segmented objects (a convex blob of COCO category 1, a star of
+    category 3) filled with colour on gray noise.  Returns the json's
+    path."""
+    from ..data.coco_api import polygons_to_mask
+
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    img = rng.randint(90, 140, (h, w, 3)).astype(np.uint8)
+    os.makedirs(root, exist_ok=True)
+    name = f"{image_id:012}.png"
+    annotations = []
+    for i in range(objects):
+        radius = min(h, w) * rng.uniform(0.15, 0.22)
+        cx = w * (0.3 + 0.4 * i) + rng.uniform(-0.05, 0.05) * w
+        cy = h * rng.uniform(0.35, 0.55)
+        poly = _fixture_polygon(rng, cx, cy, radius, concave=i == 1)
+        flat = [float(v) for v in poly.reshape(-1)]
+        mask = polygons_to_mask([flat], h, w).astype(bool)
+        img[mask] = rng.randint(0, 256, 3)
+        x0, y0 = poly.min(0)
+        x1, y1 = poly.max(0)
+        annotations.append({
+            "id": i + 1, "image_id": image_id, "category_id": (1, 3)[i],
+            "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+            "area": float(mask.sum()), "iscrowd": 0,
+            "segmentation": [flat]})
+    write_png(os.path.join(root, name), img)
+    path = os.path.join(root, "fixture.json")
+    with open(path, "w") as f:
+        json.dump({"images": [{"id": image_id, "width": w, "height": h,
+                               "file_name": name}],
+                   "annotations": annotations,
+                   "categories": [{"id": 1, "name": "person"},
+                                  {"id": 3, "name": "car"}]}, f)
+    return path
 
 
 def label_detections(targets, max_det: int = 10):

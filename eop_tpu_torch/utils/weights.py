@@ -4,6 +4,11 @@ The port's own copy of ``eop_tpu/utils/torch_export.py`` (the port imports
 nothing of ``eop_tpu``): the same rename table and layout transforms, so a
 checkpoint trained by the JAX package, or its freshly initialised variables
 in the parity tests, loads into the port's modules with ``strict=True``.
+The table also carries the backbones of the feature-map study, the inverse
+of ``eop_tpu/utils/torch_import.py``'s renames: DenseNet's dense layers
+(``D{i}.layer{j}.conv{1,2}``), transitions and stem, VGG's
+``conv_pool{i}_conv{j}`` and ResNet's ``layer{i}_block{j}`` with its
+``down_conv`` / ``down_bn``; ``eop_tpu``'s exporter has none of them.
 
 YOLOv3 (classic Darknet + YOLOFPN) has names of its own: ``eop_tpu`` maps
 them one way only, reference -> flax (``torch_import.py::map_yolofpn_key``),
@@ -29,6 +34,17 @@ _INVERSE_RENAMES = [
     (r"\bcls_conv_(\d+)_(\d+)\.", r"cls_convs.\1.\2."),
     (r"\breg_conv_(\d+)_(\d+)\.", r"reg_convs.\1.\2."),
     (r"\b(cls|reg|obj)_pred_(\d+)\.", r"\1_preds.\2."),
+    # ---- DenseNet (before ResNet's: its dense layers are ``layer{j}``) ----
+    (r"\bD(\d)\.layer(\d+)\.conv1\.", r"D\1.denseblock.\2.conv_block.0."),
+    (r"\bD(\d)\.layer(\d+)\.conv2\.", r"D\1.denseblock.\2.conv_block.1."),
+    (r"\bT(\d)\.conv\.", r"T\1.trans.0."),
+    (r"\bstem_conv\.", r"stem.0."),
+    # ---- VGG ----
+    (r"\bconv_pool(\d)_conv(\d+)\.", r"conv_pool\1.\2."),
+    # ---- ResNet ----
+    (r"\blayer(\d)_block(\d+)\.down_conv\.", r"layer\1.\2.downsample.0."),
+    (r"\blayer(\d)_block(\d+)\.down_bn\.", r"layer\1.\2.downsample.1."),
+    (r"\blayer(\d)_block(\d+)\.", r"layer\1.\2."),
     # ---- CSPDarknet stages ----
     (r"\bdark5_spp\.", r"dark5.1."),
     (r"\bdark5_csp\.", r"dark5.2."),

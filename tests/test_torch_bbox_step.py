@@ -256,15 +256,27 @@ def test_exp_by_name_matches_eop_tpu(name, depth, width):
 
 
 @pytest.mark.parametrize("name,needs", [
-    ("yolox-nano", "vgg"), ("yolox-tiny", "resnet"), ("yolox-s", "densenet")])
+    ("yolox-nano", "vgg"), ("yolox-tiny", "resnet"), ("yolox-s", "densenet"),
+    ("yolox-s", "mobilenet")])
 def test_unported_exps_raise_naming_what_they_need(name, needs):
-    """Every exps/default model builds since Nano, Tiny and YOLOv3 were
-    ported; what is left unported, another backbone_type, raises naming it
-    and the ROADMAP queue."""
+    """Every exps/default model builds over each backbone_type of the
+    feature-map study on the CPU, with the backbone's fixed 256 / 512 /
+    1024 taps under the exp's narrower neck; a backbone_type that is none of
+    them raises ValueError naming BACKBONE_TYPES."""
     exp = get_exp(exp_name=name)
     exp.backbone_type = needs
-    with pytest.raises(NotImplementedError, match=f"{needs}.*ROADMAP"):
-        exp.get_model("cpu")
+    if needs == "mobilenet":
+        with pytest.raises(ValueError, match=r"mobilenet.*'darknet', 'vgg', "
+                                             r"'resnet', 'densenet'"):
+            exp.get_model("cpu")
+        return
+    model = exp.get_model("cpu")
+    x = torch.zeros(1, 3, 64, 64).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        _, fpn = model(x)
+    assert model.backbone.backbone.out_channels == (256, 512, 1024)
+    assert [t.shape[1] for t in fpn[3:]] == [256, 512, 1024]
+    assert fpn[0].shape[1] == int(256 * exp.width)
 
 
 def test_trainer_starts_from_a_jax_state(jax_side, tmp_path):

@@ -1280,3 +1280,64 @@ def test_wide_stem_takes_wgmma_rows_in_n_tiles(cuda, size, tile):
         _assert_kernel_matches_plain(x.bfloat16(), wgt.bfloat16(), 2, 2, 1e-2)
         assert pc.phase_conv.last_variant == "wgmma_rows"
         assert pc.rows_tile(size, 80, 6, torch.bfloat16) == (96, 1)
+
+
+# ---- the feature-map study's backbones and demo ----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone", ["vgg", "resnet", "densenet"])
+def test_backbone_on_card_matches_cpu(cuda, backbone):
+    """YOLOX over VGG19 / ResNet50 / DenseNet121 (their fixed 256 / 512 /
+    1024 taps under a width-0.25 neck), eval mode, 64 px, B=2: the 6-tuple
+    and the head maps on the card within 1e-3 of the CPU's (relative to each
+    output's scale); no phase_conv launch (the backbones are F.conv2d)."""
+    from eop_tpu_torch.exp import Exp
+
+    exp = Exp()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    exp.backbone_type = backbone
+    x = torch.from_numpy(np.random.RandomState(0).uniform(
+        0, 255, (2, 64, 64, 3)).astype(np.float32)).permute(0, 3, 1, 2)
+    outs = {}
+    before = pc.phase_conv.launches
+    for dev in ("cpu", "cuda"):
+        model = exp.get_model(dev)
+        with torch.inference_mode():
+            heads, fpn = model(x.to(dev).contiguous(
+                memory_format=torch.channels_last))
+        outs[dev] = [t.float().cpu() for t in (*heads, *fpn)]
+    assert pc.phase_conv.launches == before
+    assert [t.shape[1] for t in outs["cuda"][-3:]] == [256, 512, 1024]
+    for g, c in zip(outs["cuda"], outs["cpu"]):
+        _assert_close_scaled(g, c, 1e-3, backbone)
+
+
+@pytest.mark.gpu
+def test_demo_featuremap_on_card_without_cv2(cuda, tmp_path, monkeypatch):
+    """demo_featuremap --backbone resnet on the card at 64 px with cv2,
+    matplotlib, seaborn and tabulate unimportable: every sweep's images,
+    figures, gt.json and dt.json written, four AP blocks, a finite table."""
+    import os
+    import sys
+
+    from eop_tpu_torch.tools import demo_featuremap
+    from eop_tpu_torch.utils.synth import write_featuremap_fixture
+
+    fixture = write_featuremap_fixture(str(tmp_path / "fx"), (240, 320))
+    for name in ("cv2", "matplotlib", "seaborn", "tabulate"):
+        monkeypatch.setitem(sys.modules, name, None)
+    out = tmp_path / "out"
+    table = demo_featuremap.main([
+        "-n", "yolox-s", "--backbone", "resnet", "--tsize", "64",
+        "--theta-range", "30,95,30", "--json", fixture, "--conf", "0.003",
+        "depth", "0.33", "width", "0.25", "output_dir", str(out)])
+    for sweep in ("none", "theta_30", "theta_60", "theta_90"):
+        data = os.listdir(out / "new_data" / sweep)
+        assert len(data) == 6 and "gt.json" in data
+        assert len(os.listdir(out / "yolox_s_resnet" / "vis_res" / sweep)) \
+            == 10
+        assert (out / "yolox_s_resnet" / "dt_json" / sweep
+                / "dt.json").exists()
+    assert len(table) == 20
+    values = np.array([v for row in table.values() for v in row], float)
+    assert np.isfinite(values).sum() > 10

@@ -1,6 +1,7 @@
 """The port stands alone: no module of eop_tpu_torch imports JAX, flax or
 the eop_tpu package, so it runs where JAX is not installed; nor PIL or
-tabulate, and OpenCV only inside the functions that decode other formats,
+tabulate, and OpenCV, matplotlib and seaborn only inside functions (the
+decoder of other formats, ``vis``'s labels), never at module level,
 because the H100 hosts it targets may have none of them.  chip_smoke.py
 keeps to the same rules."""
 
@@ -17,7 +18,7 @@ import eop_tpu_torch
 PKG_DIR = Path(eop_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "eop_tpu",
              "PIL", "tabulate")
-NOT_AT_MODULE_LEVEL = ("cv2",)
+NOT_AT_MODULE_LEVEL = ("cv2", "matplotlib", "seaborn")
 
 
 def _forbidden(name: str) -> bool:
@@ -54,7 +55,12 @@ def test_every_module_imports_without_jax():
                  "models.head", "models.yolox", "exp.base_exp",
                  "serving.service", "utils.weights",
                  # the event-loop front end and the load generator
-                 "serving.http_async", "tools.load_test_serving"):
+                 "serving.http_async", "tools.load_test_serving",
+                 # the feature-map study
+                 "models.vgg", "models.resnet", "models.densenet",
+                 "data.labels24p", "tools.featuremap",
+                 "tools.demo_featuremap", "utils.visualize",
+                 "utils.model_utils"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
