@@ -124,6 +124,17 @@
     fixture in a child where cv2, matplotlib, seaborn and tabulate do not
     import (every sweep's files, four AP blocks, a finite table); the
     host resizers' times on the loader's and the letterbox's shapes;
+16c. PASCAL VOC: a seeded VOCdevkit (VOC2007 and VOC2012 trainval, 16
+    375x500 JPEG images each, VOC2007 test, 8), YOLOX-S at full width
+    trained from ``exps/example/yolox_voc/yolox_voc_s.py`` with ``-b 8
+    --accum 2`` as a subprocess (a mosaic epoch and an L1 epoch, each step
+    launching twice one micro-batch's kernels by variant, the last scored
+    by VOC mAP), the step alone with accum 1 and 2 on batches held on the
+    card, its checkpoint evaluated by ``tools.eval -f`` (20 class APs, the
+    forward / NMS split), once more with ``--legacy``; a label
+    oracle through ``VOCEvaluator`` (mAP50 = mAP50:95 = 1); ``tools.eval -n
+    yolox-s --testdev`` on the bbox dataset's val split as test-dev (the
+    json written);
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
@@ -933,7 +944,7 @@ LOAD_RUNS = (
 
 
 def load_run(smi: str, name: str, serve_args: list, tool_args: list,
-             duration: float = 3.5) -> dict:
+             duration: float = 2.5) -> dict:
     """``python -m eop_tpu_torch.tools.load_test_serving --spawn ...``: the
     server a process of its own on the card (seeded weights, ``test_conf
     1e-5`` so that answers carry detections, as in the in-process phases).
@@ -2248,11 +2259,15 @@ def train_bbox_child(out_path: str, argv) -> int:
     steps, waits, marks = [], [], {}
 
     def hook(name, metrics=None):
-        if name == "start":
+        # a step with --accum marks "start" once a micro-batch: it begins at
+        # the first
+        if name == "start" and not marks.get("in_step"):
+            marks["in_step"] = True
             marks["counts"] = _launch_counts()
             marks["event"] = torch.cuda.Event(enable_timing=True)
             marks["event"].record()
         elif name == "step":
+            marks["in_step"] = False
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             counts = _launch_counts()
@@ -3115,52 +3130,71 @@ def train_zoo(smi: str, data_dir: str, out_dir: str):
     return report, by_path, ckpts
 
 
-def eval_zoo(smi: str, data_dir: str, ckpts: dict):
-    """``tools.eval -n NAME -c CKPT -b 8`` in this process for each zoo
-    model (the AP line; its forward launches counted from 0 just before, 8
-    or 10 a forward, fused where the model is SiLU), then the label oracle
-    through YOLOX-Tiny's evaluator, at its 416-px test size (AP 1)."""
-    import contextlib
+# tools.eval's forward / NMS estimate adds 8 forwards on the first batch: an
+# untimed and three timed calls of the infer function, and of the
+# decode-only one
+SPLIT_FORWARDS = 8
+SPLIT_LINE = (r"Average forward time(?: per batch)?: ([0-9.]+) ms, Average "
+              r"NMS time[^:]*: ([0-9.]+) ms, Average inference time"
+              r"(?: per batch)?: ([0-9.]+) ms")
+
+
+def eval_cli_in_process(argv: list, cwd=None) -> tuple:
+    """``tools.eval``'s ``main(argv)`` here, in ``cwd``, the counts set to 0
+    just before: (its printed text, AP line, forward / NMS / inference ms,
+    the forward launches, fused ones, launches by variant, wall s)."""
     import io
     import re
 
-    from eop_tpu_torch.eval import fast_cocoeval
-    from eop_tpu_torch.exp import get_exp
     from eop_tpu_torch.ops.phase_conv import phase_conv
     from eop_tpu_torch.tools import eval as eval_cli
+
+    _reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), contextlib.chdir(cwd or ROOT):
+        eval_cli.main(argv)
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    aps = re.findall(AP_LINE, text)
+    split = re.findall(SPLIT_LINE, text)
+    return (text, [float(v) for v in aps[-1]] if aps else None,
+            [float(v) for v in split[-1]] if split else None,
+            phase_conv.launches, phase_conv.fused_launches, _variants(),
+            time.perf_counter() - t0)
+
+
+def eval_zoo(smi: str, data_dir: str, ckpts: dict):
+    """``tools.eval -n NAME -c CKPT -b 8`` in this process for each zoo
+    model (the AP line, the forward / NMS split; its forward launches
+    counted from 0 just before, 8 or 10 a forward, fused where the model is
+    SiLU), then the label oracle through YOLOX-Tiny's evaluator, at its
+    416-px test size (AP 1)."""
+    from eop_tpu_torch.eval import fast_cocoeval
+    from eop_tpu_torch.exp import get_exp
     from eop_tpu_torch.utils.synth import LabelOracle
 
     report, by_path = {"phase": "eval_zoo", "card": smi}, {}
     # the evaluator runs its first batch twice (the first call untimed)
-    forwards = -(-BBOX_VAL_IMAGES // EVAL_BATCH) + 1
+    forwards = -(-BBOX_VAL_IMAGES // EVAL_BATCH) + 1 + SPLIT_FORWARDS
     for name, fused in (("yolox-nano", True), ("yolox-tiny", True),
                         ("yolov3", False)):
         per_forward = step_launches(name)["forward"]
-        _reset_counts()
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            eval_cli.main(["-n", name, "-c", ckpts[name], "-b",
-                           str(EVAL_BATCH), "--data-dir", data_dir,
-                           "test_conf", "1e-5", "data_num_workers", "0"])
-        torch.cuda.synchronize()
-        aps = re.findall(AP_LINE, buf.getvalue())
-        variants = _variants()
-        row = {"wall_s": time.perf_counter() - t0,
-               "ap_line": [float(v) for v in aps[-1]] if aps else None,
-               "phase_conv_launches": phase_conv.launches,
-               "phase_conv_fused_launches": phase_conv.fused_launches,
+        text, ap, split, n, n_fused, variants, wall = eval_cli_in_process(
+            ["-n", name, "-c", ckpts[name], "-b", str(EVAL_BATCH),
+             "--data-dir", data_dir, "test_conf", "1e-5",
+             "data_num_workers", "0"])
+        row = {"wall_s": wall, "ap_line": ap, "split_ms": split,
+               "phase_conv_launches": n, "phase_conv_fused_launches": n_fused,
                "launches_by_variant": variants}
         report[name] = row
-        by_path[f"eval_{name}"] = phase_conv.launches
+        by_path[f"eval_{name}"] = n
         PATH_VARIANTS[f"eval_{name}"] = variants
-        if (not aps or phase_conv.launches != per_forward * forwards
+        if (ap is None or split is None or n != per_forward * forwards
                 or variants != forward_variants(
                     list(ZOO_VARIANTS[name].values()), forwards)
-                or phase_conv.fused_launches != (phase_conv.launches
-                                                 if fused else 0)):
-            raise AssertionError(f"eval_zoo {name}: {row}\n"
-                                 f"{buf.getvalue()[-3000:]}")
+                or n_fused != (n if fused else 0)):
+            raise AssertionError(f"eval_zoo {name}: {row}\n{text[-3000:]}")
     exp = get_exp(exp_name="yolox-tiny")
     exp.data_dir, exp.data_num_workers = data_dir, 0
     evaluator = exp.get_evaluator(EVAL_BATCH)
@@ -3174,6 +3208,230 @@ def eval_zoo(smi: str, data_dir: str, ckpts: dict):
     if not (abs(o5095 - 1.0) <= 1e-6 and abs(o50 - 1.0) <= 1e-6):
         raise AssertionError(f"eval_zoo oracle: {report['oracle']}")
     return report, by_path
+
+
+# ---------------------------------------------------------------------------
+# PASCAL VOC: YOLOX-S (depth 0.33, width 0.50, 20 classes, 640 px) from
+# exps/example/yolox_voc/yolox_voc_s.py; its 8 early convs have MAIN_PATH's
+# shapes
+
+VOC_EXP_FILE = os.path.join(ROOT, "exps", "example", "yolox_voc",
+                            "yolox_voc_s.py")
+VOC_TRAINVAL, VOC_TEST, VOC_HW = 16, 8, (375, 500)
+VOC_ACCUM = 2
+# the (forward, weight-gradient, data-gradient) variants of its 8 convs,
+# in MAIN_PATH's order (None: the stem has no data gradient)
+VOC_PATH = ([("wgmma_rows", "wgmma", None),
+             ("wgmma_taps", "wgmma", "wgmma_classes")]
+            + [("wgmma_taps", "wgmma", "flipped:wgmma_taps")] * 5
+            + [("wgmma_taps", "wgmma", "wgmma_classes")])
+# one micro-batch: 8 forward convs, 8 weight and 7 data gradients, each data
+# gradient packing its weights; a step launches VOC_ACCUM times as many
+VOC_MICRO_LAUNCHES = {"forward": 8, "wgrad": 8, "dgrad": 7, "pack": 7,
+                      **variant_counts(VOC_PATH)}
+VOC_STEP_LAUNCHES = {k: VOC_ACCUM * v for k, v in VOC_MICRO_LAUNCHES.items()}
+def voc_steps(root: str, timed: int = 4) -> dict:
+    """YOLOX-S's training step on two VOC batches of 8 (no mosaic, loaded
+    here), 640 px, with accum 1 and 2 in turn from the same seeded model:
+    one untimed step, then ``timed`` steps by CUDA events, peak memory, and
+    each step's launches by variant checked against one or two
+    micro-batches'."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+
+    exp = get_exp(VOC_EXP_FILE)
+    exp.data_dir, exp.data_num_workers, exp.seed = root, 0, 0
+    it = iter(exp.get_data_loader(BBOX_BATCH, no_aug=True, seed=0))
+    batches = [tuple(torch.as_tensor(t).float().cuda() for t in next(it)[:2])
+               for _ in range(2)]
+    del it
+    out = {}
+    for accum in (1, 2):
+        want = {k: accum * v for k, v in VOC_MICRO_LAUNCHES.items()}
+        model = exp.get_model("cuda", seed=0).train()
+        state = create_train_state(model, exp.get_optimizer(
+            model, BBOX_BATCH, 4))
+        step = make_train_step_bbox(
+            YoloxLossConfig(num_classes=exp.num_classes),
+            ema_decay=exp.ema_decay, accum_steps=accum)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, losses = [], []
+        for i in range(timed + 1):
+            imgs, labels = batches[i % 2]
+            _reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, metrics = step(state, imgs, labels)
+            end.record()
+            counts = _launch_counts()
+            if {k: counts[k] for k in want} != want:
+                raise AssertionError(f"voc accum {accum}: step {i} launched "
+                                     f"{counts}, expected {want}")
+            torch.cuda.synchronize()
+            losses.append(float(metrics["total_loss"]))
+            if i:
+                ms.append(start.elapsed_time(end))
+        out[f"accum{accum}"] = {
+            "step_ms": float(np.median(ms)), "step_ms_all": ms,
+            "losses": losses,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"voc accum {accum}: losses {losses}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def voc_phase(smi: str, root: str, bbox_dir: str):
+    """PASCAL VOC on the card (docstring item 16c).  Returns the report,
+    the training child's launch totals and {evaluation: (its forward
+    launches, by variant)}."""
+    import io
+    import re
+
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.utils.synth import LabelOracle, write_voc_devkit
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    devkit = write_voc_devkit(root, VOC_TRAINVAL, VOC_TEST, VOC_HW, seed=0)
+    report = {"phase": "voc", "card": smi, "model": "yolox_voc_s",
+              "depth": 0.33, "width": 0.50, "num_classes": 20,
+              "input_size": [640, 640], "batch": BBOX_BATCH,
+              "accum": VOC_ACCUM, "devkit_s": time.perf_counter() - t0,
+              "trainval_images": 2 * VOC_TRAINVAL, "test_images": VOC_TEST,
+              "image_hw": list(VOC_HW)}
+
+    # training: a mosaic epoch, the no-aug switch, an L1 epoch scored by
+    # VOC mAP on the EMA weights (the switch sets eval_interval 1)
+    out_dir = os.path.join(root, "voc_out")
+    record = os.path.join(root, "train_voc.json")
+    cmd = [sys.executable, os.path.abspath(__file__), "--train-bbox-child",
+           record, "--", "-f", VOC_EXP_FILE, "-b", str(BBOX_BATCH),
+           "--accum", str(VOC_ACCUM), "--data-dir", root, "max_epoch", "2",
+           "no_aug_epochs", "0", "eval_interval", "10", "data_num_workers",
+           "2", "seed", "0", "print_interval", "4", "output_dir", out_dir]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    log = r.stdout + r.stderr
+    aps = re.findall(AP_LINE, log)
+    if r.returncode != 0 or len(aps) != 1:
+        raise AssertionError(f"voc train: rc {r.returncode}, AP lines {aps}"
+                             f"\n{log[-6000:]}")
+    with open(record) as f:
+        rec = json.load(f)
+    iters = rec["iters_per_epoch"]
+    losses = [m["total_loss"] for m in rec["metrics"]]
+    l1 = [m["l1_loss"] for m in rec["metrics"]]
+    bad = [i for i, c in enumerate(rec["launches"])
+           if {k: c[k] for k in VOC_STEP_LAUNCHES} != VOC_STEP_LAUNCHES]
+    ms = rec["step_ms"]
+    report["train"] = {
+        "command": " ".join(cmd[4:]), "rc": r.returncode, "wall_s": wall,
+        "steps": len(ms), "iters_per_epoch": iters, "losses": losses,
+        "l1_losses": l1, "num_fg": [m["num_fg"] for m in rec["metrics"]],
+        "expected_launches_per_step": VOC_STEP_LAUNCHES,
+        "launches_per_step": rec["launches"][-1], "step_ms_all": ms,
+        "step_ms_mosaic": float(np.median(ms[1:iters])),
+        "step_ms_no_aug": float(np.median(ms[iters + 1:])),
+        "first_batch_wait_s": rec["data_wait_s"][0],
+        "switch_first_batch_wait_s": rec["data_wait_s"][iters],
+        "data_wait_ms_median": 1e3 * float(np.median(rec["data_wait_s"])),
+        "max_memory_allocated_bytes": rec["max_memory_allocated_bytes"],
+        "ap_lines": [[float(a), float(b)] for a, b in aps],
+        "eval_forward_launches": rec["totals"]["forward"] - sum(
+            c["forward"] for c in rec["launches"]),
+        "eval_fused_launches": rec["fused_launches"],
+        "worker_aborts": r.stderr.count("killed by signal")}
+    if (len(ms) != 2 * iters or iters != 2 * VOC_TRAINVAL // BBOX_BATCH
+            or bad or not all(np.isfinite(losses))
+            or any(v != 0 for v in l1[:iters])
+            or not all(v > 0 for v in l1[iters:])
+            or report["train"]["worker_aborts"]
+            or report["train"]["eval_fused_launches"]
+            != report["train"]["eval_forward_launches"]
+            # one evaluation of the one test batch, which runs it twice
+            or report["train"]["eval_forward_launches"]
+            != 2 * VOC_MICRO_LAUNCHES["forward"]):
+        raise AssertionError(f"voc train: steps {bad} launched otherwise "
+                             f"than {VOC_STEP_LAUNCHES}, or: "
+                             f"{report['train']}")
+
+    # the step alone with accum 1 and 2 on batches held on the card
+    report["steps"] = voc_steps(root)
+
+    # tools.eval -f on the checkpoint: the first batch twice, then the
+    # split's forwards (10 of 8 fused launches), the 20 class APs; once
+    # more --legacy
+    ckpt = os.path.join(out_dir, "yolox_voc_s", "latest_ckpt.pth")
+    base = ["-f", VOC_EXP_FILE, "-c", ckpt, "-b", str(EVAL_BATCH),
+            "--data-dir", root, "data_num_workers", "0"]
+    forwards = -(-VOC_TEST // EVAL_BATCH) + 1 + SPLIT_FORWARDS
+    evals = {}
+    for name, extra in (("eval_voc", []), ("eval_voc_legacy", ["--legacy"])):
+        text, ap, split, n, fused, variants, wall = eval_cli_in_process(
+            base[:4] + extra + base[4:])
+        evals[name] = (n, variants)
+        row = {"wall_s": wall, "ap_line": ap, "split_ms": split,
+               "class_ap_lines": text.count("AP for "),
+               "phase_conv_launches": n, "fused_launches": fused,
+               "launches_by_variant": variants}
+        report[name] = row
+        if (ap is None or split is None or row["class_ap_lines"] != 20
+                or abs(split[0] + split[1] - split[2]) > 0.011
+                or n != VOC_MICRO_LAUNCHES["forward"] * forwards or fused != n
+                or variants != forward_variants(VOC_PATH, forwards)):
+            raise AssertionError(f"voc {name}: {row}\n{text[-3000:]}")
+
+    # the label oracle through VOCEvaluator on the card
+    exp = get_exp(VOC_EXP_FILE)
+    exp.data_dir, exp.data_num_workers = root, 0
+    evaluator = exp.get_evaluator(EVAL_BATCH)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        o5095, o50, _ = evaluator.evaluate(
+            LabelOracle(evaluator.dataloader.dataset, "cuda"))
+    report["oracle"] = {"map50_95": float(o5095), "map50": float(o50),
+                        "images": evaluator.timings["images"],
+                        "class_ap_lines": printed.getvalue().count("AP for ")}
+    if not (abs(o5095 - 1.0) <= 1e-6 and abs(o50 - 1.0) <= 1e-6
+            and report["oracle"]["images"] == VOC_TEST):
+        raise AssertionError(f"voc oracle: {report['oracle']}")
+
+    # --testdev: the bbox dataset's val split laid out as test-dev, scored
+    # through ./yolox_testdev_2017.json in a directory of its own
+    os.symlink("val2017", os.path.join(bbox_dir, "test2017"))
+    shutil.copy(os.path.join(bbox_dir, "annotations", "instances_val2017.json"),
+                os.path.join(bbox_dir, "annotations",
+                             "instances_test2017.json"))
+    cwd = os.path.join(root, "testdev")
+    os.makedirs(cwd)
+    text, ap, split, n, fused, variants, wall = eval_cli_in_process(
+        ["-n", "yolox-s", "-b", str(EVAL_BATCH), "--data-dir", bbox_dir,
+         "--testdev", "test_conf", "1e-5", "data_num_workers", "0"], cwd)
+    evals["eval_testdev"] = (n, variants)
+    written = os.path.join(cwd, "yolox_testdev_2017.json")
+    with open(written) as f:
+        n_results = len(json.load(f))
+    forwards = -(-BBOX_VAL_IMAGES // EVAL_BATCH) + 1 + SPLIT_FORWARDS
+    report["eval_testdev"] = {"wall_s": wall, "ap_line": ap, "split_ms": split,
+                              "json_results": n_results,
+                              "phase_conv_launches": n,
+                              "fused_launches": fused}
+    if (ap is None or split is None or n_results <= 0
+            or n != VOC_MICRO_LAUNCHES["forward"] * forwards or fused != n
+            or variants != forward_variants(VOC_PATH, forwards)):
+        raise AssertionError(f"voc testdev: {report['eval_testdev']}\n"
+                             f"{text[-3000:]}")
+    report["phase_s"] = time.perf_counter() - t_phase
+    return report, rec["totals"], evals
 
 
 # ---- the feature-map study: YOLOX-L over VGG19, ResNet50, DenseNet121 ----
@@ -3815,7 +4073,7 @@ def main() -> int:
         emit(eval_report)
         cli_report = run_cli(smi, img_dir, lab_dir)
         emit(cli_report)
-        drops = drop_loaders(img_dir, lab_dir)
+        drops = drop_loaders(img_dir, lab_dir, drops=3)
         # the bbox family: YOLOX-L from COCO files
         bbox_dir = os.path.join(data_root, "coco")
         emit({**write_bbox_dataset(bbox_dir), "card": smi})
@@ -3853,9 +4111,14 @@ def main() -> int:
                                                       zoo_ckpts)
         zoo_eval_report["phase_s"] = time.perf_counter() - t0
         emit(zoo_eval_report)
+        # YOLOX-S on PASCAL VOC: trained with --accum 2, evaluated (also
+        # --legacy), the oracle, and --testdev on the bbox dataset
+        voc_report, voc_launches, voc_evals = voc_phase(
+            smi, os.path.join(data_root, "voc"), bbox_dir)
+        emit(voc_report)
         for name in ("yolov3", "yolox-nano", "yolox-tiny", "yolox-x"):
             emit(bbox_card_vs_cpu(name))
-        drops.update(drop_bbox_loaders(bbox_dir))
+        drops.update(drop_bbox_loaders(bbox_dir, drops=1))
         gc.collect()
     finally:
         sys.unraisablehook = default_hook
@@ -3866,6 +4129,7 @@ def main() -> int:
           "cli_workers_died": (cli_report["train_24p_worker_aborts"]
                                + cli_report["eval_worker_aborts"]),
           "bbox_workers_died": bbox_report["worker_aborts"],
+          "voc_workers_died": voc_report["train"]["worker_aborts"],
           "zoo_workers_died": sum(zoo_report[n]["worker_aborts"]
                                   for n in ZOO_NAMES),
           "unraisable": unraisable[:5]})
@@ -3896,13 +4160,17 @@ def main() -> int:
                # the bbox server (YOLOX-L fp32 over HTTP, its bf16 call,
                # one YOLOv3 request), the zoo's evaluations and training
                **bbox_serve_launches, **zoo_eval_launches,
-               **{k: c["forward"] for k, c in zoo_launches.items()}}
+               **{k: c["forward"] for k, c in zoo_launches.items()},
+               # YOLOX-S on VOC: the training child's total (steps of two
+               # micro-batches and the EMA evaluations), tools.eval's calls
+               "train_voc": voc_launches["forward"],
+               **{k: n for k, (n, _) in voc_evals.items()}}
     train_paths = {"train": repeat_launches, "train_files": files_launches,
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
                    "train_bbox": bbox_launches,
                    "train_bbox_bf16": bbox16_launches, **x_launches,
-                   **zoo_launches}
+                   **zoo_launches, "train_voc": voc_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
     # launches by variant on every path: none launches the CUDA-core direct
@@ -3912,6 +4180,7 @@ def main() -> int:
         "serve_async": _variants(async_launches),
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
+        **{k: v for k, (_, v) in voc_evals.items()},
         **{k: _variants(c) for k, c in train_paths.items()}})
     cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()
                        if v["forward:direct"] or v["wgrad:cuda_cores"]

@@ -38,6 +38,8 @@ import numpy as np
 from .transforms import PAD_VALUE, resize_host
 
 _PAD = int(PAD_VALUE)
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 def xyxy2cxcywh_np(bboxes: np.ndarray) -> np.ndarray:
@@ -360,8 +362,17 @@ class TrainTransform:
 
 
 class ValTransform:
-    """Letterbox only (NHWC float32, BGR, 0..255)."""
+    """Letterbox only (NHWC float32, BGR, 0..255); ``legacy`` flips BGR ->
+    RGB, scales to 0..1 and applies the ImageNet normalisation, as
+    ``eop_tpu``'s legacy mode does."""
+
+    def __init__(self, legacy: bool = False):
+        self.legacy = legacy
 
     def __call__(self, img, res, input_size):
         img, _ = preproc(img, input_size)
+        if self.legacy:
+            img = img[:, :, ::-1] / 255.0
+            img = (img - _IMAGENET_MEAN) / _IMAGENET_STD
+            img = np.ascontiguousarray(img, dtype=np.float32)
         return img, np.zeros((1, 5), dtype=np.float32)

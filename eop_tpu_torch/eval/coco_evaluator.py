@@ -2,16 +2,22 @@
 ``eop_tpu/eval/coco_evaluator.py``): the batched evaluation loop over the
 val loader, detections rescaled to the raw images as COCO result dicts,
 the port's COCOeval, and the per-class AP / AR tables as markdown (the same
-text ``tabulate``'s ``pipe`` format prints, without the package)."""
+text ``tabulate``'s ``pipe`` format prints, without the package).  With
+``testdev`` the results go through ``./yolox_testdev_2017.json`` in the
+working directory, as ``eop_tpu`` writes them.  Given a decode-only
+function, the summary splits the inference time into forward and NMS by
+:func:`estimate_nms_time`."""
 
 from __future__ import annotations
 
 import contextlib
 import io
+import json
 import time
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .coco_eval import COCOeval
 
@@ -72,61 +78,126 @@ def per_class_AP_table(coco_eval, class_names) -> str:
          for k, name in enumerate(class_names)}, "AP")
 
 
+def _wait(out) -> None:
+    """Wait for ``out`` (a tensor, or ``Detections``) without copying it:
+    on the card ``torch.cuda.synchronize``; CPU results are done."""
+    t = out if isinstance(out, torch.Tensor) else out.rows
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def estimate_nms_time(infer_fn: Callable, decode_fn: Callable, imgs,
+                      reps: int = 3) -> float:
+    """Seconds of NMS in one call of ``infer_fn`` on ``imgs``: the best of
+    ``reps`` timed calls of ``infer_fn`` (forward, decode, NMS) less the
+    best of ``reps`` of ``decode_fn`` (forward and decode), each after one
+    untimed call, at least 0."""
+
+    def timed(fn):
+        _wait(fn(imgs))
+        best = float("inf")
+        for _ in range(reps):
+            start = time.perf_counter()
+            _wait(fn(imgs))
+            best = min(best, time.perf_counter() - start)
+        return best
+
+    return max(0.0, timed(infer_fn) - timed(decode_fn))
+
+
+def run_batches(dataloader, infer_fn: Callable, convert: Callable,
+                decode_fn: Optional[Callable] = None):
+    """The evaluation loop both box evaluators share: ``infer_fn`` over the
+    loader's batches, ``convert(rows, valid, info_imgs, ids)`` of each
+    batch's detections on the host.  The first batch runs once more,
+    untimed, before its timed call; each timed call ends in the host copy
+    of its detections, which waits for the device.  With ``decode_fn`` the
+    NMS share is estimated on the first batch (:func:`estimate_nms_time`,
+    once for each batch, at most the total).  Returns (the converted
+    results in order, timings: seconds and counts)."""
+    results = []
+    inference_time = data_wait = first_wait = 0.0
+    n_batches = n_images = 0
+    first_imgs = None
+    batches = iter(dataloader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        data_wait += time.perf_counter() - t0
+        if batch is None:
+            break
+        imgs, _, info_imgs, ids = batch
+        if n_batches == 0:
+            first_wait, first_imgs = data_wait, imgs
+            infer_fn(imgs).rows.cpu()
+        start = time.perf_counter()
+        dets = infer_fn(imgs)
+        rows = dets.rows.float().cpu().numpy()
+        valid = dets.valid.cpu().numpy()
+        inference_time += time.perf_counter() - start
+        n_batches += 1
+        n_images += rows.shape[0]
+        results.append(convert(rows, valid, info_imgs, ids))
+    nms_time = 0.0
+    if decode_fn is not None and first_imgs is not None:
+        nms_time = min(estimate_nms_time(infer_fn, decode_fn, first_imgs)
+                       * n_batches, inference_time)
+    return results, {"batches": n_batches, "images": n_images,
+                     "inference_s": inference_time, "nms_s": nms_time,
+                     "data_wait_s": data_wait,
+                     "first_batch_wait_s": first_wait}
+
+
+def time_summary(inference_s: float, nms_s: float, denom: int,
+                 per: str = "") -> str:
+    """``eop_tpu``'s line of the forward, NMS and inference averages in ms
+    over ``denom``: COCO's (``per=""``, the NMS time "(estimated)") or
+    VOC's (``per=" per batch"``)."""
+    forward = 1000 * (inference_s - nms_s) / denom
+    nms = 1000 * nms_s / denom
+    nms_name = f"NMS time{per}" if per else "NMS time (estimated)"
+    return (f"Average forward time{per}: {forward:.2f} ms, "
+            f"Average {nms_name}: {nms:.2f} ms, "
+            f"Average inference time{per}: {forward + nms:.2f} ms\n")
+
+
 class COCOEvaluator:
     """COCO box AP over a val loader of ``COCODataset`` batches.
 
     After :meth:`evaluate`, ``timings`` holds the seconds spent waiting for
     the loader (and for its first batch, which includes starting its
-    workers), in the timed inference calls and in COCOeval, with the image,
-    batch and detection counts.
+    workers), in the timed inference calls, in NMS (estimated, 0 without a
+    decode-only function) and in COCOeval, with the image, batch and
+    detection counts.
     """
 
     def __init__(self, dataloader, img_size, num_classes: int,
-                 per_class_AP: bool = False, per_class_AR: bool = False):
+                 per_class_AP: bool = False, per_class_AR: bool = False,
+                 testdev: bool = False):
         self.dataloader = dataloader
         self.img_size = img_size
         self.num_classes = num_classes
         self.per_class_AP = per_class_AP
         self.per_class_AR = per_class_AR
+        self.testdev = testdev
         self.timings: dict = {}
 
-    def evaluate(self, infer_fn: Callable):
+    def evaluate(self, infer_fn: Callable,
+                 decode_fn: Optional[Callable] = None):
         """Returns (ap50_95, ap50, summary).
 
         ``infer_fn`` maps a letterboxed batch to ``Detections`` and must be
-        pure: the first batch runs once more, untimed, before its timed
-        call.  Each timed call ends in the host copy of its detections,
-        which waits for the device."""
-        data_list: List[dict] = []
-        inference_time = data_wait = first_wait = 0.0
-        n_batches = n_images = 0
-        batches = iter(self.dataloader)
-        while True:
-            t0 = time.perf_counter()
-            batch = next(batches, None)
-            data_wait += time.perf_counter() - t0
-            if batch is None:
-                break
-            imgs, _, info_imgs, ids = batch
-            if n_batches == 0:
-                first_wait = data_wait
-                infer_fn(imgs).rows.cpu()
-            start = time.perf_counter()
-            dets = infer_fn(imgs)
-            rows = dets.rows.float().cpu().numpy()
-            valid = dets.valid.cpu().numpy()
-            inference_time += time.perf_counter() - start
-            n_batches += 1
-            n_images += rows.shape[0]
-            data_list.extend(self.convert_to_coco_format(rows, valid,
-                                                         info_imgs, ids))
-        self.timings = {"batches": n_batches, "images": n_images,
-                        "detections": len(data_list),
-                        "inference_s": inference_time,
-                        "data_wait_s": data_wait,
-                        "first_batch_wait_s": first_wait, "cocoeval_s": 0.0}
-        return self.evaluate_prediction(data_list, inference_time,
-                                        max(n_batches, 1))
+        pure (:func:`run_batches`).  ``decode_fn`` (forward and decode, no
+        NMS) splits the summary's time into forward and NMS; without it
+        the NMS time is 0."""
+        parts, timings = run_batches(self.dataloader, infer_fn,
+                                     self.convert_to_coco_format, decode_fn)
+        data_list = [d for part in parts for d in part]
+        self.timings = {**timings, "detections": len(data_list),
+                        "cocoeval_s": 0.0}
+        return self.evaluate_prediction(
+            data_list, (timings["inference_s"], timings["nms_s"],
+                        max(timings["batches"], 1)))
 
     def convert_to_coco_format(self, rows: np.ndarray, valid: np.ndarray,
                                info_imgs, ids) -> List[dict]:
@@ -154,17 +225,27 @@ class COCOEvaluator:
         return out
 
     def evaluate_prediction(self, data_list: List[dict],
-                            inference_time: float = 0.0,
-                            n_batches: int = 1):
-        """COCO result dicts -> COCOeval -> (ap50_95, ap50, summary)."""
-        info = (f"Average inference time: "
-                f"{1000 * inference_time / n_batches:.2f} ms/batch "
-                "(NMS fused)\n")
+                            statistics=(0.0, 0.0, 1)):
+        """COCO result dicts -> COCOeval -> (ap50_95, ap50, summary).
+        ``statistics`` is (inference seconds, NMS seconds, batches); the
+        summary's times are per image (per batch where the loader has no
+        ``batch_size``), as ``eop_tpu`` averages them."""
+        inference_time, nms_time, n_batches = statistics
+        batch_size = getattr(self.dataloader, "batch_size", None)
+        info = time_summary(inference_time, nms_time,
+                            n_batches * batch_size if batch_size
+                            else n_batches)
         if not data_list:
             return 0.0, 0.0, info + "no detections\n"
         t0 = time.perf_counter()
         coco_gt = self.dataloader.dataset.coco
-        coco_eval = COCOeval(coco_gt, coco_gt.loadRes(data_list), "bbox")
+        if self.testdev:
+            with open("./yolox_testdev_2017.json", "w") as f:
+                json.dump(data_list, f)
+            coco_dt = coco_gt.loadRes("./yolox_testdev_2017.json")
+        else:
+            coco_dt = coco_gt.loadRes(data_list)
+        coco_eval = COCOeval(coco_gt, coco_dt, "bbox")
         coco_eval.evaluate()
         coco_eval.accumulate()
         buf = io.StringIO()

@@ -10,11 +10,17 @@ name the file imports it under), checks that ``__init__`` calls
 self.test_size = (416, 416)`` included; ``config_name(__file__)`` is the
 file's stem), and applies those assignments to a fresh instance.  Any other
 statement, and an attribute the class does not have (a misspelt or unported
-field), raises, naming its file and line.  One method override is read:
-``exps/default/yolov3.py``'s ``get_model``, which builds ``eop_tpu``'s
-``YOLOv3(num_classes=self.num_classes, width=self.width, dtype=...)``; it
-becomes ``model_kind = "yolov3"``.  Any other method raises, naming the
-file, the line and the method.
+field), raises, naming its file and line.  Two kinds of method override
+are read.  ``exps/default/yolov3.py``'s ``get_model``, which builds
+``eop_tpu``'s ``YOLOv3(num_classes=self.num_classes, width=self.width,
+dtype=...)``, becomes ``model_kind = "yolov3"``.  The four VOC methods of
+``exps/example/yolox_voc/yolox_voc_s.py`` (``_devkit_dir``,
+``get_data_loader``, ``get_eval_loader``, ``get_evaluator``), each as
+written there but for its literal ``image_sets``, become ``data_kind =
+"voc"``, ``voc_train_sets`` and ``voc_test_sets``; the port's ``Exp``
+builds the same loaders and evaluator from them.  Any other method, or
+one of those with another body, raises, naming the file, the line and the
+method.
 
 By name: ``yolox-s``, ``-m``, ``-l``, ``-x``, ``-nano``, ``-tiny`` and
 ``yolov3`` read ``exps/default/``; ``yolox_24p_s`` is a preset of
@@ -24,6 +30,7 @@ By name: ``yolox-s``, ``-m``, ``-l``, ``-x``, ``-nano``, ``-tiny`` and
 from __future__ import annotations
 
 import ast
+import copy
 from pathlib import Path
 
 from .yolox_24p_base import Exp24P
@@ -108,6 +115,107 @@ def _builds_yolov3(fn) -> bool:
             and _self_attr(kw["width"], "width"))
 
 
+# The VOC methods of exps/example/yolox_voc/yolox_voc_s.py as the port reads
+# them: a method must equal its template (as ``ast.dump`` shows it, without
+# a docstring) once the literal value of its ``image_sets`` keyword, which
+# the port takes as the setting named beside it, stands in for IMAGE_SETS.
+_VOC_METHODS = {
+    "_devkit_dir": (None, """
+def _devkit_dir(self):
+    return os.path.join(self.data_dir or "datasets", "VOCdevkit")
+"""),
+    "get_data_loader": ("voc_train_sets", """
+def get_data_loader(self, batch_size, is_distributed, no_aug=False,
+                    cache_img=False, rank=0, world_size=1, seed=None):
+    from eop_tpu.data.voc import VOCDetection
+
+    dataset = VOCDetection(
+        data_dir=self._devkit_dir(),
+        image_sets=IMAGE_SETS,
+        img_size=self.input_size,
+        preproc=self.build_train_transform(max_labels=50),
+        cache=cache_img,
+    )
+    return self.wrap_train_dataset(
+        dataset, batch_size, is_distributed=is_distributed,
+        no_aug=no_aug, rank=rank, world_size=world_size, seed=seed,
+    )
+"""),
+    "get_eval_loader": ("voc_test_sets", """
+def get_eval_loader(self, batch_size, is_distributed=False,
+                    testdev=False, legacy=False):
+    from eop_tpu.data.augment import ValTransform
+    from eop_tpu.data.dataloading import DataLoader
+    from eop_tpu.data.voc import VOCDetection
+
+    valdataset = VOCDetection(
+        data_dir=self._devkit_dir(),
+        image_sets=IMAGE_SETS,
+        img_size=self.test_size,
+        preproc=ValTransform(legacy=legacy),
+    )
+    sampler = None
+    if is_distributed:
+        from eop_tpu.parallel import dist
+
+        sampler = list(range(
+            dist.get_rank(), len(valdataset), dist.get_world_size()
+        ))
+    return DataLoader(valdataset, batch_size=batch_size, shuffle=False,
+                      sampler=sampler,
+                      num_workers=self.data_num_workers)
+"""),
+    "get_evaluator": (None, """
+def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
+                  legacy=False):
+    from eop_tpu.eval.voc_evaluator import VOCEvaluator
+
+    return VOCEvaluator(
+        dataloader=self.get_eval_loader(batch_size, is_distributed,
+                                        testdev, legacy),
+        img_size=self.test_size,
+        confthre=self.test_conf,
+        nmsthre=self.nmsthre,
+        num_classes=self.num_classes,
+    )
+"""),
+}
+
+
+def _without_docstring(fn) -> list:
+    return [s for s in fn.body if not _is_docstring(s)]
+
+
+def _voc_setting(fn):
+    """``(setting name or None, its value)`` where ``fn`` is one of
+    :data:`_VOC_METHODS` as written in the VOC exp file, else None."""
+    if fn.name not in _VOC_METHODS:
+        return None
+    setting, template = _VOC_METHODS[fn.name]
+    want = ast.parse(template).body[0]
+    want.body = _without_docstring(want)
+    fn = copy.deepcopy(fn)  # rewritten below
+    fn.body = _without_docstring(fn)
+    sets = [k for n in ast.walk(fn) if isinstance(n, ast.Call)
+            for k in n.keywords if k.arg == "image_sets"]
+    value = None
+    if setting is not None:
+        if len(sets) != 1:
+            return None
+        try:
+            value = [tuple(p) for p in ast.literal_eval(sets[0].value)]
+        except (ValueError, TypeError):
+            return None
+        if not value or not all(len(p) == 2 and all(isinstance(v, str)
+                                                    for v in p)
+                                for p in value):
+            return None
+        sets[0].value = ast.Name(id="IMAGE_SETS", ctx=ast.Load())
+    if ast.dump(fn) != ast.dump(want):
+        return None
+    return setting, value
+
+
 def read_exp_file(exp_file: str):
     """(the port's exp class the file's ``Exp`` subclasses, the ``self``
     attribute assignments of its ``__init__`` in order as {name:
@@ -130,15 +238,30 @@ def read_exp_file(exp_file: str):
             and body[0].name == "__init__"):
         raise ValueError(f"{exp_file}:{exp_cls.lineno}: class Exp must start "
                          "with __init__")
-    overrides = {}
+    overrides, voc = {}, []
     for fn in body[1:]:
-        if not (isinstance(fn, ast.FunctionDef) and _builds_yolov3(fn)):
-            name = getattr(fn, "name", type(fn).__name__)
+        name = getattr(fn, "name", type(fn).__name__)
+        is_fn = isinstance(fn, ast.FunctionDef)
+        if is_fn and _builds_yolov3(fn):
+            overrides["model_kind"] = "yolov3"
+            continue
+        read = _voc_setting(fn) if is_fn else None
+        if read is None:
             raise ValueError(
                 f"{exp_file}:{fn.lineno}: method {name!r} of class Exp is not "
-                "read (the port reads __init__, and a get_model that builds "
-                "eop_tpu.models.YOLOv3)")
-        overrides["model_kind"] = "yolov3"
+                "read (the port reads __init__, a get_model that builds "
+                "eop_tpu.models.YOLOv3, and yolox_voc_s.py's four VOC "
+                "methods as written there)")
+        voc.append(name)
+        setting, value = read
+        if setting is not None:
+            overrides[setting] = value
+    if voc:
+        if sorted(voc) != sorted(_VOC_METHODS):
+            raise ValueError(
+                f"{exp_file}:{exp_cls.lineno}: the VOC methods come as "
+                f"yolox_voc_s.py's four, each once: given {voc}")
+        overrides["data_kind"] = "voc"
     init = [s for s in body[0].body if not _is_docstring(s)]
     if not init or not _is_super_init(init[0]):
         raise ValueError(f"{exp_file}:{body[0].lineno}: Exp.__init__ must "

@@ -1,20 +1,28 @@
 """The bbox family's experiment: YOLOX-S/M/L/X, -Nano, -Tiny and YOLOv3
 defaults and the factories for the model, the mosaic train loader,
 multiscale resizing, the optimizer with its weight-decay groups, the
-``yoloxwarmcos`` schedule, the COCO evaluation loader, the evaluator and the
-fused inference and serving functions (counterpart of
-``eop_tpu/exp/yolox_base.py``).
+``yoloxwarmcos`` schedule, the COCO and VOC evaluation loaders and
+evaluators, and the fused inference, decode-only and serving functions
+(counterpart of ``eop_tpu/exp/yolox_base.py``).
 
 ``model_kind`` stands for the one method override of ``exps/default/``:
 ``yolov3.py``'s ``get_model``, which builds ``YOLOv3``; the port's ``ast``
 reader maps that override to ``model_kind = "yolov3"``.
 
 ``backbone_type`` (``darknet``, ``vgg``, ``resnet``, ``densenet``) swaps
-the YOLOX backbone, as the feature-map study does.  Not ported yet (it
-raises where asked for): the sharded multi-chip inference function."""
+the YOLOX backbone, as the feature-map study does.
+
+``data_kind = "voc"`` stands for the loader and evaluator overrides of
+``exps/example/yolox_voc/yolox_voc_s.py`` (``exp/build.py`` recognises
+them): the training set is ``voc_train_sets`` of ``<data_dir>/VOCdevkit``
+in mosaic, the test set ``voc_test_sets``, scored by ``VOCEvaluator``.
+Otherwise the data are COCO-format under ``data_dir``.  Not ported yet (it
+raises where asked for): the sharded multi-chip inference function and
+the distributed evaluation loader."""
 
 from __future__ import annotations
 
+import os
 import random
 from typing import Optional
 
@@ -22,7 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ..eval.postprocess import postprocess_bbox_heads
-from ..models.yolox import YOLOX, YOLOv3, dropouts, init_weights
+from ..models.yolox import (YOLOX, YOLOv3, dropouts, inference_outputs,
+                            init_weights)
 from ..utils.device import resolve_device, set_fp32_precision
 from .base_exp import BaseExp
 from .yolox_24p_base import COMPUTE_DTYPES
@@ -49,6 +58,11 @@ class Exp(BaseExp):
         # input_size, which nothing reads: Tiny trains at input_size
         self.input_scale: Optional[tuple] = None
         self.data_dir = None
+        # "coco" (annotations/*.json under data_dir) or "voc" (the
+        # VOCdevkit under data_dir: yolox_voc_s.py's overrides)
+        self.data_kind = "coco"
+        self.voc_train_sets = [("2007", "trainval"), ("2012", "trainval")]
+        self.voc_test_sets = [("2007", "test")]
         self.train_ann = "instances_train2017.json"
         self.val_ann = "instances_val2017.json"
         self.test_ann = "instances_test2017.json"
@@ -158,17 +172,27 @@ class Exp(BaseExp):
 
     def get_data_loader(self, batch_size, is_distributed=False, no_aug=False,
                         cache_img=False, rank=0, world_size=1, seed=None):
-        """The mosaic train loader over ``data_dir``'s ``train_ann``:
-        batches ``[images [B, H, W, 3], labels [B, 120, 5], info, ids]``
-        drawn for ever from the rank-strided shuffled stream seeded by
-        ``seed``; its length is the iterations of one epoch."""
-        from ..data.coco_dataset import COCODataset
+        """The mosaic train loader over ``data_dir``'s ``train_ann`` (VOC:
+        ``voc_train_sets`` of the devkit): batches ``[images [B, H, W, 3],
+        labels [B, 120, 5], info, ids]`` drawn for ever from the
+        rank-strided shuffled stream seeded by ``seed``; its length is the
+        iterations of one epoch."""
+        if self.data_kind == "voc":
+            from ..data.voc import VOCDetection
 
-        dataset = COCODataset(
-            data_dir=self.data_dir, json_file=self.train_ann,
-            img_size=self.input_size,
-            preproc=self.build_train_transform(max_labels=50),
-            cache=cache_img)
+            dataset = VOCDetection(
+                data_dir=self._devkit_dir(), image_sets=self.voc_train_sets,
+                img_size=self.input_size,
+                preproc=self.build_train_transform(max_labels=50),
+                cache=cache_img)
+        else:
+            from ..data.coco_dataset import COCODataset
+
+            dataset = COCODataset(
+                data_dir=self.data_dir, json_file=self.train_ann,
+                img_size=self.input_size,
+                preproc=self.build_train_transform(max_labels=50),
+                cache=cache_img)
         return self.wrap_train_dataset(
             dataset, batch_size, is_distributed=is_distributed,
             no_aug=no_aug, rank=rank, world_size=world_size, seed=seed)
@@ -267,33 +291,86 @@ class Exp(BaseExp):
     # ------------------------------------------------------------------
     # evaluation
 
-    def get_eval_loader(self, batch_size):
-        """``data_dir``'s ``val_ann`` images (``val2017/``) in order,
-        letterboxed to ``test_size``, in batches of ``batch_size`` (the last
-        may be short)."""
+    def _devkit_dir(self):
+        return os.path.join(self.data_dir or "datasets", "VOCdevkit")
+
+    def get_eval_loader(self, batch_size, is_distributed=False,
+                        testdev=False, legacy=False):
+        """The evaluation images in order, letterboxed to ``test_size``
+        (``legacy``: RGB in 0..1, ImageNet-normalised), in batches of
+        ``batch_size`` (the last may be short): ``data_dir``'s ``val_ann``
+        (``val2017/``), with ``testdev`` its ``test_ann`` (``test2017/``);
+        VOC: ``voc_test_sets`` of the devkit."""
         from ..data.augment import ValTransform
-        from ..data.coco_dataset import COCODataset
         from ..data.dataloading import data_loader
 
-        dataset = COCODataset(
-            data_dir=self.data_dir, json_file=self.val_ann, name="val2017",
-            img_size=self.test_size, preproc=ValTransform())
+        if is_distributed:
+            raise NotImplementedError(
+                "is_distributed=True: the port evaluates on one device "
+                "(ROADMAP.md queue 1 item 7)")
+        if self.data_kind == "voc":
+            from ..data.voc import VOCDetection
+
+            dataset = VOCDetection(
+                data_dir=self._devkit_dir(), image_sets=self.voc_test_sets,
+                img_size=self.test_size, preproc=ValTransform(legacy=legacy))
+        else:
+            from ..data.coco_dataset import COCODataset
+
+            dataset = COCODataset(
+                data_dir=self.data_dir,
+                json_file=self.test_ann if testdev else self.val_ann,
+                name="test2017" if testdev else "val2017",
+                img_size=self.test_size, preproc=ValTransform(legacy=legacy))
         return data_loader(dataset, batch_size=batch_size,
                            num_workers=self.data_num_workers)
 
-    def get_evaluator(self, batch_size, per_class_AP: bool = False,
+    def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
+                      legacy=False, per_class_AP: bool = False,
                       per_class_AR: bool = False):
-        """COCO box AP over the val annotations; the thresholds are the
+        """COCO box AP over :meth:`get_eval_loader`'s images (with the
+        per-class tables where asked), or VOC mAP where ``data_kind`` is
+        ``"voc"`` (it prints every class's AP); the thresholds are the
         infer function's (``test_conf``, ``nmsthre``)."""
+        loader = self.get_eval_loader(batch_size, is_distributed, testdev,
+                                      legacy)
+        if self.data_kind == "voc":
+            from ..eval.voc_evaluator import VOCEvaluator
+
+            return VOCEvaluator(
+                dataloader=loader, img_size=self.test_size,
+                confthre=self.test_conf, nmsthre=self.nmsthre,
+                num_classes=self.num_classes)
         from ..eval.coco_evaluator import COCOEvaluator
 
         return COCOEvaluator(
-            dataloader=self.get_eval_loader(batch_size),
-            img_size=self.test_size, num_classes=self.num_classes,
-            per_class_AP=per_class_AP, per_class_AR=per_class_AR)
+            dataloader=loader, img_size=self.test_size,
+            num_classes=self.num_classes, per_class_AP=per_class_AP,
+            per_class_AR=per_class_AR, testdev=testdev)
 
-    def eval(self, model, evaluator):
+    def get_decode_fn(self, model, device=None):
+        """Forward and decode without NMS (``inference_outputs``), taking
+        the input :meth:`get_infer_fn` takes: what the evaluators time to
+        split the inference time into forward and NMS."""
+        device = resolve_device(device)
+        set_fp32_precision(device)
+
+        def decode_only(imgs):
+            with torch.inference_mode():
+                x = torch.as_tensor(imgs).to(device, non_blocking=True)
+                head_outs, _ = model(x.float().permute(0, 3, 1, 2))
+                return inference_outputs(head_outs, reg_dim=4)
+
+        return decode_only
+
+    def eval(self, model, evaluator, time_split: bool = False):
         """``evaluator.evaluate`` over ``model`` (in eval mode) on the
-        device its weights are on: (AP50:95, AP50, summary)."""
+        device its weights are on: (AP50:95, AP50, summary).
+        ``time_split`` also hands it :meth:`get_decode_fn`, whose extra
+        forwards estimate the NMS time (the evaluation command line's
+        diagnostic; training leaves it off)."""
         device = next(model.parameters()).device
-        return evaluator.evaluate(self.get_infer_fn(model, device))
+        return evaluator.evaluate(
+            self.get_infer_fn(model, device),
+            decode_fn=(self.get_decode_fn(model, device) if time_split
+                       else None))

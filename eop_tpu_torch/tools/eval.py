@@ -1,9 +1,13 @@
-"""COCO AP of a checkpoint (counterpart of ``tools/eval.py``): the bbox
-family over a COCO-format directory, the 24p family over image and label
-files (COCO-24p AP).
+"""AP of a checkpoint (counterpart of ``tools/eval.py``): the bbox family
+over a COCO-format directory (COCO AP) or a VOC devkit (VOC mAP), the 24p
+family over image and label files (COCO-24p AP).
 
     python -m eop_tpu_torch.tools.eval -n yolox-l -c CKPT -b 8 \
-        --data-dir COCO_DIR [--per-class-ap] [--device cuda] [key value ...]
+        --data-dir COCO_DIR [--per-class-ap] [--testdev] [--legacy] \
+        [--device cuda] [key value ...]
+    python -m eop_tpu_torch.tools.eval \
+        -f exps/example/yolox_voc/yolox_voc_s.py -c CKPT -b 8 \
+        --data-dir ROOT_OF_VOCDEVKIT
     python -m eop_tpu_torch.tools.eval -f load_eval/yolox_24p_eval.py \
         -c CKPT -b 8 --data-dir IMGS --label-dir LABELS [--device cuda] \
         [key value ...]
@@ -11,14 +15,20 @@ files (COCO-24p AP).
 ``-c`` takes the port's own checkpoint (``train/checkpoint.py``; its EMA
 weights where it has them, as the trainer evaluates) or a state_dict in the
 reference's key names; either loads strictly.  Without ``-c`` the model has
-seeded random weights.  Prints the COCO summary, then
-``AP50:95 = x  AP50 = y``.  Runs on the card; ``--device cpu`` runs on the
-CPU.
+seeded random weights.  ``--testdev`` scores ``test_ann`` (``test2017/``)
+through ``./yolox_testdev_2017.json``, ``--legacy`` feeds the model RGB in
+0..1 with ImageNet normalisation; both reach only an exp whose
+``get_evaluator`` takes them (the bbox family's; the 24p family's takes
+neither, and they are dropped).  Prints the summary (its first line the
+average forward, NMS and inference times: the NMS time is estimated from
+extra forward-and-decode calls on the first batch), then ``AP50:95 = x
+AP50 = y``.  Runs on the card; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 
 
 def make_parser():
@@ -37,6 +47,11 @@ def make_parser():
                         help="24p txt labels directory (24p family)")
     parser.add_argument("--per-class-ap", action="store_true",
                         help="print the per-class AP table (bbox family)")
+    parser.add_argument("--testdev", action="store_true",
+                        help="score test_ann (test2017/) through "
+                             "./yolox_testdev_2017.json")
+    parser.add_argument("--legacy", action="store_true",
+                        help="RGB in 0..1, ImageNet-normalised input")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return parser
@@ -79,7 +94,7 @@ def main(argv=None):
         exp.test_size = (args.tsize, args.tsize)
     if bbox and not exp.data_dir:
         raise SystemExit("set --data-dir (or data_dir) to a COCO-format "
-                         "directory")
+                         "directory, or for VOC the folder of VOCdevkit/")
     if not bbox and not (exp.data_dir and exp.label_dir):
         raise SystemExit("set --data-dir and --label-dir (or data_dir and "
                          "label_dir) to the images and the 24p txt labels")
@@ -87,10 +102,17 @@ def main(argv=None):
     model = exp.get_model(args.device)
     if args.ckpt:
         model.load_state_dict(eval_weights(args.ckpt), strict=True)
-    evaluator = (exp.get_evaluator(args.batch_size,
-                                   per_class_AP=args.per_class_ap)
-                 if bbox else exp.get_evaluator(batch_size=args.batch_size))
-    ap50_95, ap50, summary = exp.eval(model, evaluator)
+    # the 24p family's get_evaluator takes neither testdev nor legacy (COCO
+    # bbox notions): pass only what the exp's signature accepts
+    accepted = inspect.signature(exp.get_evaluator).parameters
+    extra = {k: v for k, v in (("testdev", args.testdev),
+                               ("legacy", args.legacy),
+                               ("per_class_AP", args.per_class_ap))
+             if k in accepted}
+    evaluator = exp.get_evaluator(batch_size=args.batch_size, **extra)
+    # the diagnostic command line splits forward and NMS time
+    ap50_95, ap50, summary = (exp.eval(model, evaluator, time_split=True)
+                              if bbox else exp.eval(model, evaluator))
     print(summary)
     print(f"AP50:95 = {ap50_95:.4f}  AP50 = {ap50:.4f}", flush=True)
     return ap50_95, ap50

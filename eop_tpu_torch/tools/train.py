@@ -1,13 +1,19 @@
-"""Train a bbox-family detector (YOLOX-S/M/L/X) from a COCO-format
-directory (counterpart of ``tools/train.py``).
+"""Train a bbox-family detector (YOLOX-S/M/L/X, -Nano, -Tiny, YOLOv3) from
+a COCO-format directory or a PASCAL VOC devkit (counterpart of
+``tools/train.py``).
 
     python -m eop_tpu_torch.tools.train -n yolox-l -b 8 --data-dir DIR \
-        [-f EXP_FILE] [--resume] [-c CKPT] [--device cuda] [key value ...]
+        [-f EXP_FILE] [--accum N] [--resume] [-c CKPT] [--device cuda] \
+        [key value ...]
+    python -m eop_tpu_torch.tools.train \
+        -f exps/example/yolox_voc/yolox_voc_s.py -b 8 --data-dir ROOT
 
 ``DIR`` holds ``annotations/instances_{train,val}2017.json``,
-``train2017/`` and ``val2017/``.  ``-n`` names an exp of ``exps/default/``,
-``-f`` reads an exp file whose ``Exp`` subclasses the bbox ``Exp``
-(``exp/build.py``); trailing ``key value`` pairs override exp attributes
+``train2017/`` and ``val2017/``; for the VOC exp, ``ROOT`` holds
+``VOCdevkit/VOC2007`` and ``VOC2012``.  ``--accum N`` runs N micro-batches
+of ``-b / N`` images before each optimizer step.  ``-n`` names an exp of
+``exps/default/``, ``-f`` reads an exp file whose ``Exp`` subclasses the
+bbox ``Exp`` (``exp/build.py``); trailing ``key value`` pairs override exp attributes
 and come after every flag.  Runs on the card; ``--device cpu`` runs on the
 CPU.  Checkpoints and the log go to ``output_dir/<experiment name>``; each
 evaluation prints ``AP50:95=x AP50=y``.  The options of ``tools/train.py``
@@ -36,11 +42,12 @@ def make_parser():
                         help="cache resized images in a np.memmap file")
     parser.add_argument("--data-dir", type=str, default=None)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--accum", type=int, default=1,
+                        help="micro-batches a step (the batch must split)")
     # eop_tpu's parallel and profiling options: not ported, they raise
     parser.add_argument("--spatial", type=int, default=1)
     parser.add_argument("--tensor", type=int, default=1)
     parser.add_argument("--fsdp", action="store_true")
-    parser.add_argument("--accum", type=int, default=1)
     parser.add_argument("--profile-port", type=int, default=None)
     parser.add_argument("--multi-host", action="store_true")
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
@@ -63,7 +70,7 @@ def build_exp(args):
         exp.data_dir = args.data_dir
     if not exp.data_dir:
         raise SystemExit("set --data-dir (or data_dir) to a COCO-format "
-                         "directory")
+                         "directory, or for VOC the folder of VOCdevkit/")
     return exp
 
 

@@ -120,12 +120,15 @@ def _marker(hook: Optional[Callable]) -> Callable:
 
 def make_train_step_bbox(config: YoloxLossConfig,
                          ema_decay: Optional[float] = 0.9998,
+                         accum_steps: int = 1,
                          hook: Optional[Callable] = None) -> Callable:
     """Train step for the bbox family: ``step(state, images, labels) ->
     (state, metrics)`` with images ``[B, H, W, 3]`` float in 0..255 and
     labels ``[B, M, 5]`` (cls, cx, cy, w, h), both on the model's device.
     ``config.use_l1`` changes what the step computes, so a trainer holds one
-    step for each value.  ``hook`` as in :func:`make_train_step_24p`."""
+    step for each value.  ``accum_steps`` and ``hook`` as in
+    :func:`make_train_step_24p` (BatchNorm statistics advance per
+    micro-batch)."""
     mark = _marker(hook)
 
     def micro(state: TrainState, images, labels, scale: float):
@@ -149,7 +152,7 @@ def make_train_step_bbox(config: YoloxLossConfig,
             "cand_dropped": aux.cand_dropped,
         }
 
-    return _make_step(micro, ema_decay, 1, mark)
+    return _make_step(micro, ema_decay, accum_steps, mark)
 
 
 def make_train_step_24p(config: Loss24PConfig,

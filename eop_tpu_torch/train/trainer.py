@@ -20,10 +20,12 @@ run draws the masks an uninterrupted one draws, as ``eop_tpu``'s
 
 The steps keep their metrics on the device; the print step fetches them in
 one transfer (``host_fetches`` counts them), and with ``tensorboardX`` each
-step writes one row.  One device; the mesh, several hosts, ``--spatial``,
-``--tensor``, ``--fsdp``, ``--accum``, ``--profile-port`` and the XLA
-bucket prewarm are not ported (ROADMAP.md queue 1) and raise where asked
-for.
+step writes one row.  ``--accum N`` splits each batch into N micro-batches
+before one optimizer step (``make_train_step_bbox(accum_steps=N)``;
+DenseNet's micro-batches draw their masks from the step's generator in
+order).  One device; the mesh, several hosts, ``--spatial``, ``--tensor``,
+``--fsdp``, ``--profile-port`` and the XLA bucket prewarm are not ported
+(ROADMAP.md queue 1) and raise where asked for.
 """
 
 from __future__ import annotations
@@ -50,15 +52,16 @@ from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
 from .steps import create_train_state, eval_weights, make_train_step_bbox
 
 # args that ask for what the port does not have, and their defaults
-_UNPORTED_ARGS = {"spatial": 1, "tensor": 1, "fsdp": False, "accum": 1,
+_UNPORTED_ARGS = {"spatial": 1, "tensor": 1, "fsdp": False,
                   "profile_port": None, "multi_host": False}
 
 
 class Trainer:
     """``Trainer(exp, args).train()`` returns the final ``TrainState``.
 
-    ``args`` attributes: ``batch_size``; optional ``resume``, ``ckpt``,
-    ``start_epoch``, ``cache``, ``experiment_name``, ``device`` (the card
+    ``args`` attributes: ``batch_size``; optional ``accum`` (micro-batches a
+    step, 1), ``resume``, ``ckpt``, ``start_epoch``, ``cache``,
+    ``experiment_name``, ``device`` (the card
     unless ``"cpu"``), ``jax_state`` (a JAX ``TrainState`` as numpy trees,
     the form ``utils.weights.train_state_from_jax`` takes, to start from).
     ``hook``, where set before ``train()``, is handed to the step functions
@@ -170,7 +173,7 @@ class Trainer:
                                   use_l1=self.use_l1)
             self._steps[self.use_l1] = make_train_step_bbox(
                 cfg, ema_decay=self.exp.ema_decay if self.exp.ema else None,
-                hook=self.hook)
+                accum_steps=getattr(self.args, "accum", 1), hook=self.hook)
         return self._steps[self.use_l1]
 
     def before_epoch(self):

@@ -13,7 +13,8 @@ library alone (``write_bmp``, ``write_jpeg``, ``write_png``) so that a
 machine without an image library writes and reads it.  ``write_coco_dataset``:
 the bbox family's seeded COCO-format dataset (``make_synth_datasets.py``'s
 ``make_coco`` recipe: coloured rectangles on dark noise, the class is the
-colour).  ``write_featuremap_fixture``: the feature-map study's
+colour).  ``write_voc_devkit``: a seeded PASCAL VOC devkit of the same
+kind of images, with VOC's xml annotations.  ``write_featuremap_fixture``: the feature-map study's
 single-image COCO fixture with polygon segmentations.  ``LabelOracle``: an
 ``infer_fn`` that answers with a dataset's
 labels, for which an evaluator must give AP 1.
@@ -482,6 +483,86 @@ def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
     return root
 
 
+VOC_POSES = ("Unspecified", "Left", "Right", "Frontal", "Rear")
+
+
+def write_voc_devkit(root: str, n_trainval: int = 16, n_test: int = 8,
+                     hw=(375, 500), years=("2007", "2012"), seed: int = 0):
+    """A seeded PASCAL VOC devkit at ``<root>/VOCdevkit``: for each year
+    ``VOC<year>/JPEGImages/<stem>.jpg`` (``hw`` baseline JPEG, quality 95,
+    4:2:0, written by :func:`write_jpeg`), ``Annotations/<stem>.xml`` and
+    ``ImageSets/Main/{trainval,test}.txt`` of ``n_trainval`` and ``n_test``
+    images (stems ``000001`` ... for 2007, ``2012_000001`` ... for 2012).
+    Each image holds three filled rectangles on dark noise whose colour is
+    the class, the classes taken in turn through the 20 VOC names over each
+    split (7 images or more hold every class), and, on about a third of
+    the images, a fourth of any class marked ``<difficult>1</difficult>``.
+    Boxes are VOC's 1-based inclusive pixels; every object has a pose and
+    ``truncated``.  Returns the devkit's path."""
+    import xml.etree.ElementTree as ET
+
+    from ..data.voc_classes import VOC_CLASSES
+
+    h, w = hw
+    side_lo = [min(30, max(4, v // 8)) for v in hw]
+    side_hi = [max(lo + 1, int(v * 0.35)) for lo, v in zip(side_lo, hw)]
+    colours = class_colours(len(VOC_CLASSES), seed)
+    devkit = os.path.join(root, "VOCdevkit")
+    for y, year in enumerate(years):
+        rng = np.random.RandomState(seed + y)
+        year_root = os.path.join(devkit, "VOC" + year)
+        for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                              "Main")):
+            os.makedirs(os.path.join(year_root, sub), exist_ok=True)
+        stem_no = 0
+        for split, n in (("trainval", n_trainval), ("test", n_test)):
+            stems, turn = [], 0
+            for _ in range(n):
+                stem_no += 1
+                stem = (f"{stem_no:06d}" if year == "2007"
+                        else f"{year}_{stem_no:06d}")
+                img = rng.randint(0, 60, (h, w, 3)).astype(np.uint8)
+                ann = ET.Element("annotation")
+                ET.SubElement(ann, "folder").text = "VOC" + year
+                ET.SubElement(ann, "filename").text = stem + ".jpg"
+                size = ET.SubElement(ann, "size")
+                for tag, v in (("width", w), ("height", h), ("depth", 3)):
+                    ET.SubElement(size, tag).text = str(v)
+                ET.SubElement(ann, "segmented").text = "0"
+                difficult = [0, 0, 0] + ([1] if rng.rand() < 1 / 3 else [])
+                for hard in difficult:
+                    bw = int(rng.randint(side_lo[1], side_hi[1]))
+                    bh = int(rng.randint(side_lo[0], side_hi[0]))
+                    x, y0 = (int(rng.randint(0, w - bw)),
+                             int(rng.randint(0, h - bh)))
+                    if hard:
+                        cls = int(rng.randint(len(VOC_CLASSES)))
+                    else:
+                        cls, turn = turn % len(VOC_CLASSES), turn + 1
+                    img[y0:y0 + bh, x:x + bw] = colours[cls]
+                    obj = ET.SubElement(ann, "object")
+                    ET.SubElement(obj, "name").text = VOC_CLASSES[cls]
+                    ET.SubElement(obj, "pose").text = VOC_POSES[
+                        rng.randint(len(VOC_POSES))]
+                    ET.SubElement(obj, "truncated").text = str(
+                        int(rng.rand() < 0.2))
+                    ET.SubElement(obj, "difficult").text = str(hard)
+                    box = ET.SubElement(obj, "bndbox")
+                    for tag, v in (("xmin", x + 1), ("ymin", y0 + 1),
+                                   ("xmax", x + bw), ("ymax", y0 + bh)):
+                        ET.SubElement(box, tag).text = str(v)
+                ET.indent(ann)
+                ET.ElementTree(ann).write(
+                    os.path.join(year_root, "Annotations", stem + ".xml"))
+                write_jpeg(os.path.join(year_root, "JPEGImages",
+                                        stem + ".jpg"), img)
+                stems.append(stem)
+            with open(os.path.join(year_root, "ImageSets", "Main",
+                                   split + ".txt"), "w") as f:
+                f.write("".join(s + "\n" for s in stems))
+    return devkit
+
+
 def _fixture_polygon(rng: np.random.RandomState, cx: float, cy: float,
                      radius: float, concave: bool) -> np.ndarray:
     """A closed polygon of 8 (convex) or 10 (a star) vertices about (cx,
@@ -570,8 +651,9 @@ def box_label_detections(records, max_det: int = 10):
 class LabelOracle:
     """``infer_fn`` whose detections are ``dataset``'s labels, in order, on
     ``device``: a 24p dataset's label rows, or a box dataset's annotations
-    (one with ``load_anno``; they are in the letterboxed pixels at the
-    evaluation size).  Pure in its input: a batch seen again (evaluators run
+    (one with ``load_anno``: COCO's, and VOC's with its difficult objects,
+    which the VOC protocol neither counts nor penalises; they are in the
+    letterboxed pixels at the evaluation size).  Pure in its input: a batch seen again (evaluators run
     their first batch twice) gets the same detections."""
 
     def __init__(self, dataset, device, max_det: int = 10):

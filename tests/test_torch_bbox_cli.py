@@ -80,7 +80,7 @@ def test_train_across_the_switch_resume_and_eval(coco_dir, tmp_path, capsys):
     assert "| class" in printed and 0.0 <= ap50_95 <= ap50 <= 1.0
 
 
-@pytest.mark.parametrize("flag", [["--accum", "2"], ["--fsdp"],
+@pytest.mark.parametrize("flag", [["--tensor", "2"], ["--fsdp"],
                                   ["--spatial", "2"], ["--multi-host"]])
 def test_unported_train_options_raise(coco_dir, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -5,6 +5,8 @@ neither JAX nor eop_tpu, so they run where only the port is installed:
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -1341,3 +1343,104 @@ def test_demo_featuremap_on_card_without_cv2(cuda, tmp_path, monkeypatch):
     assert len(table) == 20
     values = np.array([v for row in table.values() for v in row], float)
     assert np.isfinite(values).sum() > 10
+
+
+# ---- PASCAL VOC: YOLOX-S from exps/example/yolox_voc/yolox_voc_s.py ----
+
+VOC_EXP = str(Path(__file__).resolve().parents[1] / "exps" / "example"
+              / "yolox_voc" / "yolox_voc_s.py")
+
+
+def _voc_exp(data_dir):
+    """The VOC exp as read from its file (depth 0.33, width 0.50, 20
+    classes) over ``data_dir``, at 128 px."""
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(VOC_EXP)
+    exp.data_dir, exp.data_num_workers = data_dir, 0
+    exp.input_size = exp.test_size = (128, 128)
+    exp.test_conf = 1e-5
+    return exp
+
+
+@pytest.mark.gpu
+def test_voc_detections_on_card_match_cpu(cuda, tmp_path):
+    """One image of a seeded devkit through the VOC evaluation loader: the
+    forward and decode on the card within 1e-3 of the CPU's (relative to
+    the output's scale), the same detections (each box within 1e-2 px of
+    one of the CPU's of its class); 8 fused launches a forward.  The
+    box-regression weights are scaled by 1e-2 on both devices, so that
+    every box lies within the canvas's reach (tests above)."""
+    from eop_tpu_torch.utils.synth import write_voc_devkit
+
+    write_voc_devkit(str(tmp_path), 2, 2, (96, 128), seed=0)
+    exp = _voc_exp(str(tmp_path))
+    img = torch.from_numpy(exp.get_eval_loader(1).dataset[0][0][None])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = exp.get_model(dev, seed=3)
+        with torch.no_grad():
+            for p in model.head.reg_preds:
+                p.weight.mul_(1e-2)
+        before = (pc.phase_conv.launches, pc.phase_conv.fused_launches)
+        decoded = exp.get_decode_fn(model, dev)(img)
+        dets = exp.get_infer_fn(model, dev)(img)
+        torch.cuda.synchronize()
+        out[dev] = (decoded.float().cpu(), dets.rows.cpu(), dets.valid.cpu(),
+                    pc.phase_conv.launches - before[0],
+                    pc.phase_conv.fused_launches - before[1])
+    dec_c, rows_c, valid_c, n_c, _ = out["cpu"]
+    dec_g, rows_g, valid_g, n_g, f_g = out["cuda"]
+    assert n_c == 0 and n_g == f_g == 16
+    assert dec_c.shape[-1] == 4 + 1 + 20
+    _assert_close_scaled(dec_g, dec_c, 1e-3, "decoded")
+    assert torch.equal(valid_c, valid_g) and valid_c.sum() > 0
+    got, want = rows_g[0][valid_g[0]], rows_c[0][valid_c[0]]
+    dist = (got[:, None, :4] - want[None, :, :4]).abs().amax(dim=-1)
+    dist[got[:, None, 6] != want[None, :, 6]] = float("inf")
+    assert dist.amin(dim=1).max().item() <= 1e-2
+    assert dist.amin(dim=0).max().item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_voc_accum_step_on_card_matches_cpu(cuda):
+    """One accum=2 step of the VOC exp's YOLOX-S (128 px, B=4: two
+    micro-batches of 2) on the card and on the CPU from one state: the
+    same foreground count (the assignment), the loss within 1e-3; on the
+    card twice one micro-batch's launches by variant (the smoke's
+    VOC_MICRO_LAUNCHES: 8 forward, 8 weight and 7 data gradients, 7
+    packings), none on the CPU."""
+    import chip_smoke
+    from eop_tpu_torch.losses import YoloxLossConfig
+    from eop_tpu_torch.train.steps import create_train_state, \
+        make_train_step_bbox
+
+    exp = _voc_exp(None)
+    rng = np.random.RandomState(0)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (4, 128, 128, 3)).astype(
+        np.float32))
+    labels = torch.zeros((4, 50, 5))
+    for b in range(4):
+        for g in range(3):
+            w, h = rng.uniform(12, 50, 2)
+            labels[b, g] = torch.tensor([rng.randint(20),
+                                         rng.uniform(w, 128 - w),
+                                         rng.uniform(h, 128 - h), w, h])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = exp.get_model(dev, seed=0).train()
+        state = create_train_state(model, exp.get_optimizer(model, 4, 1))
+        chip_smoke._reset_counts()
+        step = make_train_step_bbox(YoloxLossConfig(num_classes=20),
+                                    accum_steps=2)
+        _, metrics = step(state, imgs.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        out[dev] = (metrics, chip_smoke._launch_counts())
+    (m_cpu, n_cpu), (m_gpu, n_gpu) = out["cpu"], out["cuda"]
+    want = {k: 2 * v for k, v in chip_smoke.VOC_MICRO_LAUNCHES.items()}
+    assert not any(n_cpu.values())
+    assert {k: n_gpu[k] for k in want} == want
+    assert want["forward:wgmma_rows"] == 2 and want["dgrad"] == 14
+    assert m_gpu["num_fg"].item() == m_cpu["num_fg"].item() > 0
+    assert abs(m_gpu["total_loss"].item() - m_cpu["total_loss"].item()) <= \
+        1e-3 * abs(m_cpu["total_loss"].item())

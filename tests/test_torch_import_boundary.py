@@ -60,7 +60,10 @@ def test_every_module_imports_without_jax():
                  "models.vgg", "models.resnet", "models.densenet",
                  "data.labels24p", "tools.featuremap",
                  "tools.demo_featuremap", "utils.visualize",
-                 "utils.model_utils"):
+                 "utils.model_utils",
+                 # PASCAL VOC
+                 "data.voc", "data.voc_classes", "eval.voc_eval",
+                 "eval.voc_evaluator"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
