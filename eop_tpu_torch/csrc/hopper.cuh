@@ -186,10 +186,12 @@ __device__ __forceinline__ void split_tf32(float a, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(a - __uint_as_float(hi));
 }
 
-// D[64 x 32] += A[64 x 8] (registers, TF32) * B[32 x 8]^T (shared, K-major)
+// D[64 x 32] (+)= A[64 x 8] (registers, TF32) * B[32 x 8]^T (shared,
+// K-major); with accumulate = 0 D is overwritten (the instruction's scale-d)
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], uint32_t a0,
                                               uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t desc_b) {
+                                              uint32_t a3, uint64_t desc_b,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -204,13 +206,15 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], uint32_t a0,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
-// D[64 x 64] += A[64 x 8] (registers, TF32) * B[64 x 8]^T (shared, K-major)
+// D[64 x 64] (+)= A[64 x 8] (registers, TF32) * B[64 x 8]^T (shared,
+// K-major); with accumulate = 0 D is overwritten
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0,
                                               uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t desc_b) {
+                                              uint32_t a3, uint64_t desc_b,
+                                              int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -230,7 +234,7 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0,
         "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
 // D[64 x 32] += A[64 x 16] (shared, K-major, bf16) * B[32 x 16]^T (shared)

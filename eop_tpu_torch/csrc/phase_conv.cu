@@ -23,8 +23,15 @@
 //    lo*hi + hi*lo + hi*hi into fp32 accumulators, small terms first.
 //    Weights arrive split (and K-permuted for 16-byte fragment loads) from the
 //    wrapper; activations are split in registers after the fragment load.
-//    A single TF32 product is never used for fp32 data.  bf16 data takes one
-//    bf16 wgmma per K step and no split;
+//    A single TF32 product is never used for fp32 data.  The tensor cores
+//    add into their accumulator rounding toward zero, so a long K chain
+//    drifts toward zero (3x3 over 128 channels: 1.3e-6 of the output's
+//    scale, 15x cuDNN's fp32 error, against float64 on an H100).  So the
+//    products of a short run of K (conv_taps: one 32-channel run of a tap;
+//    conv_rows: two K steps of 8) go into a fresh accumulator that is then
+//    added to an fp32 total with round-to-nearest, as the weight gradient's
+//    chunks are.
+//    bf16 data takes one bf16 wgmma per K step and no split;
 //  * scale, shift and SiLU are applied to the accumulators in registers, so
 //    the activation crosses device memory once instead of five times.
 //
@@ -77,15 +84,16 @@ struct TapParams {
   Epilogue epilogue;
 };
 
-// Per N tile width CO (32, 64, 96 or 128 output channels): the wgmma N (64
-// where CO allows: half the instructions of N = 32), ring depth and blocks
-// per SM (two where shared memory and registers allow, so four warpgroups
-// hide each other's waits).
-template <int CO>
+// Per N tile width CO (32, 64, 96 or 128 output channels) and element type
+// T: the wgmma N (64 where CO allows: half the instructions of N = 32), ring
+// depth and blocks per SM (two where shared memory and registers allow, so
+// four warpgroups hide each other's waits; fp32 keeps a total beside its
+// accumulators, and at two blocks it spilled them: one).
+template <typename T, int CO>
 struct TapConfig {
   static constexpr int kNI = CO % 64 == 0 ? 64 : 32;
   static constexpr int kStages = CO == 64 ? 3 : 4;
-  static constexpr int kMinBlocks = CO >= 96 ? 1 : 2;
+  static constexpr int kMinBlocks = CO >= 96 || sizeof(T) == 4 ? 1 : 2;
 };
 
 // A tile index walks N tiles fastest, then pixel tiles along x, y, image.
@@ -104,12 +112,12 @@ __device__ __forceinline__ TileCoord tile_coord(int tile, const TapParams& p) {
 }
 
 template <typename T, int CO, int STRIDE, int ROWB>
-__global__ void __launch_bounds__(kThreads, TapConfig<CO>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, TapConfig<T, CO>::kMinBlocks)
 conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
                  const __grid_constant__ CUtensorMap map_w, T* __restrict__ y,
                  const TapParams p) {
-  constexpr int kStages = TapConfig<CO>::kStages;
-  constexpr int NI = TapConfig<CO>::kNI, NCH = CO / NI;
+  constexpr int kStages = TapConfig<T, CO>::kStages;
+  constexpr int NI = TapConfig<T, CO>::kNI, NCH = CO / NI;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;  // fp32 weights come as hi and lo
   constexpr int KR = ROWB / (int)sizeof(T);   // channels per run
   constexpr uint32_t A_BYTES = kTileM * ROWB;
@@ -180,11 +188,11 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
   int pending = -1;  // stage whose wgmmas are in flight
   uint32_t ah[16] = {}, al[16] = {};
   for (int tile = blockIdx.x; tile < p.num_tiles; tile += gridDim.x) {
-    float acc[NCH][NI / 2];
+    float acc[NCH][NI / 2], total[NCH][NI / 2];
 #pragma unroll
     for (int n = 0; n < NCH; ++n)
 #pragma unroll
-      for (int i = 0; i < NI / 2; ++i) acc[n][i] = 0.f;
+      for (int i = 0; i < NI / 2; ++i) acc[n][i] = total[n][i] = 0.f;
 
     for (int s = 0; s < steps; ++s) {
       mbar_wait(full_bar(stage), phase);
@@ -210,7 +218,17 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
           keep(ah[i]);
           keep(al[i]);
         }
-        if (pending >= 0 && lane == 0) mbar_arrive(empty_bar(pending));
+        if (pending >= 0) {
+          if (lane == 0) mbar_arrive(empty_bar(pending));
+          // the previous step's products, into the total
+#pragma unroll
+          for (int n = 0; n < NCH; ++n)
+#pragma unroll
+            for (int i = 0; i < NI / 2; ++i) {
+              keep(acc[n][i]);
+              total[n][i] += acc[n][i];
+            }
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           split_tf32(v0[2 * j], ah[4 * j + 0], al[4 * j + 0]);
@@ -226,8 +244,9 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
             const uint32_t off = n * NI * 128u + j * 32u;
             const uint64_t b_hi = smem_desc<128>(b_base + off);
             const uint64_t b_lo = smem_desc<128>(b_base + CO * 128u + off);
+            // the step's first product starts a fresh accumulator
             wgmma_tf32_rs(acc[n], al[4 * j], al[4 * j + 1], al[4 * j + 2],
-                          al[4 * j + 3], b_hi);
+                          al[4 * j + 3], b_hi, j > 0);
             wgmma_tf32_rs(acc[n], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2],
                           ah[4 * j + 3], b_lo);
             wgmma_tf32_rs(acc[n], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2],
@@ -257,7 +276,10 @@ conv_taps_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
     for (int n = 0; n < NCH; ++n)
 #pragma unroll
-      for (int i = 0; i < NI / 2; ++i) keep(acc[n][i]);
+      for (int i = 0; i < NI / 2; ++i) {
+        keep(acc[n][i]);
+        if constexpr (sizeof(T) == 4) acc[n][i] += total[n][i];
+      }
     if (lane == 0) mbar_arrive(empty_bar(pending));
     pending = -1;
 
@@ -294,7 +316,7 @@ constexpr int kEncodeError = 100000;  // + CUresult of the tensor-map encoder
 template <typename T, int CO, int STRIDE, int ROWB>
 int launch_taps(const void* x, const void* wp, void* y, int B, TapParams p,
                 cudaStream_t stream) {
-  constexpr int kStages = TapConfig<CO>::kStages;
+  constexpr int kStages = TapConfig<T, CO>::kStages;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
   constexpr int KR = ROWB / (int)sizeof(T);
   constexpr uint32_t STAGE_BYTES = kTileM * ROWB + NB * CO * ROWB;
@@ -423,6 +445,7 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
   constexpr uint32_t ES = sizeof(T);
   constexpr uint32_t kWBytes = G::kRuns * G::kNB * CO * 128;
   constexpr int kSteps = G::kSteps;
+  static_assert(sizeof(T) == 2 || kSteps % 2 == 0, "fp32 K steps go in pairs");
   constexpr int kLive = S * (NWG - 1) + K, kNew = S * NWG;
   constexpr int kBlockThreads = NWG * 128 + 32;
   extern __shared__ uint8_t smem_raw[];
@@ -538,42 +561,55 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
 #pragma unroll
         for (int i = 0; i < 16; ++i) acc[c][i] = 0.f;
       if constexpr (sizeof(T) == 4) {
-        // Two K steps form a group; the A fragments of the next group are
-        // loaded and split while the wgmmas of this one run: two register
-        // sets, each reused once its wgmmas have retired.
-        uint32_t ah[2][8], al[2][8];
+        // Two K steps form a group.  A group's products go into a fresh
+        // accumulator that is then added to an fp32 total (see the header);
+        // a group's A values are loaded while the last group's wgmmas run.
+        float total[NCH][16];
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int i = 0; i < 16; ++i) total[c][i] = 0.f;
+        uint32_t h[8], l[8];
 #pragma unroll
         for (int grp = 0; grp < kSteps / 2; ++grp) {
-          uint32_t(&h)[8] = ah[grp & 1];
-          uint32_t(&l)[8] = al[grp & 1];
-          if (grp >= 2) {
-            wgmma_wait<1>();  // the wgmmas of group grp - 2 no longer read h, l
+          float2 pa[2], pb[2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int s = 2 * grp + j;
+            if constexpr (K == 6) {
+              const uint32_t src = k_addr(8 * s, 8 * s + 2 * t);
+              pa[j] = lds64(src + offa);
+              pb[j] = lds64(src + offb);
+            } else {
+              const uint32_t s0 = k_addr(8 * s, 8 * s + 2 * t);
+              const uint32_t s1 = k_addr(8 * s, 8 * s + 2 * t + 1);
+              pa[j] = make_float2(__uint_as_float(lds32(s0 + offa)),
+                                  __uint_as_float(lds32(s1 + offa)));
+              pb[j] = make_float2(__uint_as_float(lds32(s0 + offb)),
+                                  __uint_as_float(lds32(s1 + offb)));
+            }
+          }
+          if (grp > 0) {
+            wgmma_wait<0>();  // group grp - 1 no longer reads h, l or acc
 #pragma unroll
             for (int i = 0; i < 8; ++i) {
               keep(h[i]);
               keep(l[i]);
             }
+#pragma unroll
+            for (int c = 0; c < NCH; ++c)
+#pragma unroll
+              for (int i = 0; i < 16; ++i) {
+                keep(acc[c][i]);
+                total[c][i] += acc[c][i];
+              }
           }
 #pragma unroll
           for (int j = 0; j < 2; ++j) {
-            const int s = 2 * grp + j;
-            float2 pa, pb;
-            if constexpr (K == 6) {
-              const uint32_t src = k_addr(8 * s, 8 * s + 2 * t);
-              pa = lds64(src + offa);
-              pb = lds64(src + offb);
-            } else {
-              const uint32_t s0 = k_addr(8 * s, 8 * s + 2 * t);
-              const uint32_t s1 = k_addr(8 * s, 8 * s + 2 * t + 1);
-              pa = make_float2(__uint_as_float(lds32(s0 + offa)),
-                               __uint_as_float(lds32(s1 + offa)));
-              pb = make_float2(__uint_as_float(lds32(s0 + offb)),
-                               __uint_as_float(lds32(s1 + offb)));
-            }
-            split_tf32(pa.x, h[4 * j + 0], l[4 * j + 0]);
-            split_tf32(pb.x, h[4 * j + 1], l[4 * j + 1]);
-            split_tf32(pa.y, h[4 * j + 2], l[4 * j + 2]);
-            split_tf32(pb.y, h[4 * j + 3], l[4 * j + 3]);
+            split_tf32(pa[j].x, h[4 * j + 0], l[4 * j + 0]);
+            split_tf32(pb[j].x, h[4 * j + 1], l[4 * j + 1]);
+            split_tf32(pa[j].y, h[4 * j + 2], l[4 * j + 2]);
+            split_tf32(pb[j].y, h[4 * j + 3], l[4 * j + 3]);
           }
           wgmma_fence();
 #pragma unroll
@@ -584,7 +620,9 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
             for (int c = 0; c < NCH; ++c) {
               const uint64_t b_hi = smem_desc<128>(b_run + c * 32 * 128);
               const uint64_t b_lo = smem_desc<128>(b_run + (CO + c * 32) * 128);
-              wgmma_tf32_rs(acc[c], l[4 * j], l[4 * j + 1], l[4 * j + 2], l[4 * j + 3], b_hi);
+              // the group's first product starts a fresh accumulator
+              wgmma_tf32_rs(acc[c], l[4 * j], l[4 * j + 1], l[4 * j + 2], l[4 * j + 3],
+                            b_hi, j > 0);
               wgmma_tf32_rs(acc[c], h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_lo);
               wgmma_tf32_rs(acc[c], h[4 * j], h[4 * j + 1], h[4 * j + 2], h[4 * j + 3], b_hi);
             }
@@ -594,8 +632,16 @@ conv_rows_kernel(const __grid_constant__ CUtensorMap map_w,
         wgmma_wait<0>();
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          keep(ah[0][i]), keep(al[0][i]), keep(ah[1][i]), keep(al[1][i]);
+          keep(h[i]);
+          keep(l[i]);
         }
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+#pragma unroll
+          for (int i = 0; i < 16; ++i) {
+            keep(acc[c][i]);
+            acc[c][i] += total[c][i];
+          }
       } else {
         uint32_t a[kSteps][4];
 #pragma unroll

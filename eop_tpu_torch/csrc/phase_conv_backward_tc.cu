@@ -57,7 +57,9 @@
 // tiles of 32, 64, 96 or 128, a block owning a (class tile, N tile) pair,
 // N tiles fastest so that the second reads its dy boxes from L2, the
 // store masked past C.  Bound by bytes (dy read, dx written once) in bf16
-// and near the ridge in fp32.
+// and near the ridge in fp32.  In fp32 each K step's products go into a
+// fresh accumulator added to an fp32 total (the tensor cores' accumulation
+// rounds toward zero: see phase_conv.cu).
 //
 // Packing, pack_taps_kernel.  One launch writes the K-major tiles both data
 // gradients read: at stride 1 those of the forward on the flipped weights
@@ -512,11 +514,11 @@ struct DgradParams {
 };
 
 // the forward's TapConfig, for an N tile of CO of the C channels of dx
-template <int CO>
+template <typename T, int CO>
 struct DgradConfig {
   static constexpr int kNI = CO % 64 == 0 ? 64 : 32;
   static constexpr int kStages = CO == 64 ? 3 : 4;
-  static constexpr int kMinBlocks = CO >= 96 ? 1 : 2;
+  static constexpr int kMinBlocks = CO >= 96 || sizeof(T) == 4 ? 1 : 2;
 };
 
 // A tile index walks N tiles fastest, then class pixel tiles along x, y,
@@ -538,12 +540,12 @@ __device__ __forceinline__ ClassTile class_tile(int tile, const DgradParams& p) 
 }
 
 template <typename T, int CO, int ROWB>
-__global__ void __launch_bounds__(kThreads, DgradConfig<CO>::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, DgradConfig<T, CO>::kMinBlocks)
 dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
                 const __grid_constant__ CUtensorMap map_w, T* __restrict__ dx,
                 const DgradParams p) {
-  constexpr int kStages = DgradConfig<CO>::kStages;
-  constexpr int NI = DgradConfig<CO>::kNI, NCH = CO / NI;
+  constexpr int kStages = DgradConfig<T, CO>::kStages;
+  constexpr int NI = DgradConfig<T, CO>::kNI, NCH = CO / NI;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
   constexpr int KR = ROWB / (int)sizeof(T);
   constexpr uint32_t A_BYTES = kTileM * ROWB;
@@ -605,11 +607,11 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
   for (int tile = blockIdx.x; tile < p.num_tiles; tile += gridDim.x) {
     const ClassTile tc = class_tile(tile, p);
     const int steps = p.ct.ntaps[tc.cls] * p.cruns;
-    float acc[NCH][NI / 2];
+    float acc[NCH][NI / 2], total[NCH][NI / 2];
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int i = 0; i < NI / 2; ++i) acc[c][i] = 0.f;
+      for (int i = 0; i < NI / 2; ++i) acc[c][i] = total[c][i] = 0.f;
 
     for (int s = 0; s < steps; ++s) {
       mbar_wait(full_bar(stage), phase);
@@ -632,7 +634,17 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
           keep(ah[i]);
           keep(al[i]);
         }
-        if (pending >= 0 && lane == 0) mbar_arrive(empty_bar(pending));
+        if (pending >= 0) {
+          if (lane == 0) mbar_arrive(empty_bar(pending));
+          // the previous step's products, into the total (as the forward)
+#pragma unroll
+          for (int c = 0; c < NCH; ++c)
+#pragma unroll
+            for (int i = 0; i < NI / 2; ++i) {
+              keep(acc[c][i]);
+              total[c][i] += acc[c][i];
+            }
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           split_tf32(v0[2 * j], ah[4 * j + 0], al[4 * j + 0]);
@@ -648,7 +660,9 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
             const uint32_t off = c * NI * 128u + j * 32u;
             const uint64_t b_hi = smem_desc<128>(b_base + off);
             const uint64_t b_lo = smem_desc<128>(b_base + CO * 128u + off);
-            wgmma_tf32_rs(acc[c], al[4 * j], al[4 * j + 1], al[4 * j + 2], al[4 * j + 3], b_hi);
+            // the step's first product starts a fresh accumulator
+            wgmma_tf32_rs(acc[c], al[4 * j], al[4 * j + 1], al[4 * j + 2], al[4 * j + 3], b_hi,
+                          j > 0);
             wgmma_tf32_rs(acc[c], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2], ah[4 * j + 3], b_lo);
             wgmma_tf32_rs(acc[c], ah[4 * j], ah[4 * j + 1], ah[4 * j + 2], ah[4 * j + 3], b_hi);
           }
@@ -675,7 +689,10 @@ dgrad_tc_kernel(const __grid_constant__ CUtensorMap map_dy,
 #pragma unroll
     for (int c = 0; c < NCH; ++c)
 #pragma unroll
-      for (int i = 0; i < NI / 2; ++i) keep(acc[c][i]);
+      for (int i = 0; i < NI / 2; ++i) {
+        keep(acc[c][i]);
+        if constexpr (sizeof(T) == 4) acc[c][i] += total[c][i];
+      }
     if (pending >= 0 && lane == 0) mbar_arrive(empty_bar(pending));
     pending = -1;
 
@@ -701,7 +718,7 @@ template <typename T, int CO, int ROWB>
 int launch_dgrad_tc(const void* dy, const void* wp, void* dx, int B, int Co,
                     int Ho, int Wo, int total_taps, const DgradParams& p,
                     cudaStream_t stream) {
-  constexpr int kStages = DgradConfig<CO>::kStages;
+  constexpr int kStages = DgradConfig<T, CO>::kStages;
   constexpr int NB = sizeof(T) == 4 ? 2 : 1;
   constexpr int KR = ROWB / (int)sizeof(T);
   constexpr uint32_t STAGE_BYTES = kTileM * ROWB + NB * CO * ROWB;

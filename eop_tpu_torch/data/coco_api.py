@@ -82,9 +82,11 @@ _XY_SHIFT = 16
 _XY_ONE = 1 << _XY_SHIFT
 
 
-def _clip_line(w: int, h: int, p1, p2):
+def clip_line(w: int, h: int, p1, p2):
     """OpenCV's ``clipLine`` on integer points: the segment's part inside
-    ``[0, w) x [0, h)`` as (inside, p1, p2)."""
+    ``[0, w) x [0, h)`` as (inside, p1, p2).  The crossings are computed
+    in double, as OpenCV does: exact for products below 2**53, and equal
+    to OpenCV's beyond (16.16 points, ``utils/visualize.py``)."""
     (x1, y1), (x2, y2) = p1, p2
     right, bottom = w - 1, h - 1
 
@@ -95,23 +97,23 @@ def _clip_line(w: int, h: int, p1, p2):
     if (c1 & c2) == 0 and (c1 | c2) != 0:
         if c1 & 12:
             a = 0 if c1 < 8 else bottom
-            x1 += int((a - y1) * (x2 - x1) / (y2 - y1))
+            x1 += int(float(a - y1) * float(x2 - x1) / float(y2 - y1))
             y1 = a
             c1 = (x1 < 0) + (x1 > right) * 2
         if c2 & 12:
             a = 0 if c2 < 8 else bottom
-            x2 += int((a - y2) * (x2 - x1) / (y2 - y1))
+            x2 += int(float(a - y2) * float(x2 - x1) / float(y2 - y1))
             y2 = a
             c2 = (x2 < 0) + (x2 > right) * 2
         if (c1 & c2) == 0 and (c1 | c2) != 0:
             if c1:
                 a = 0 if c1 == 1 else right
-                y1 += int((a - x1) * (y2 - y1) / (x2 - x1))
+                y1 += int(float(a - x1) * float(y2 - y1) / float(x2 - x1))
                 x1 = a
                 c1 = 0
             if c2:
                 a = 0 if c2 == 1 else right
-                y2 += int((a - x2) * (y2 - y1) / (x2 - x1))
+                y2 += int(float(a - x2) * float(y2 - y1) / float(x2 - x1))
                 x2 = a
                 c2 = 0
     return (c1 | c2) == 0, (x1, y1), (x2, y2)
@@ -123,7 +125,7 @@ def draw_line(img: np.ndarray, p1, p2, value) -> None:
     h, w = img.shape[:2]
     if not (0 <= p1[0] < w and 0 <= p2[0] < w and 0 <= p1[1] < h
             and 0 <= p2[1] < h):
-        inside, p1, p2 = _clip_line(w, h, p1, p2)
+        inside, p1, p2 = clip_line(w, h, p1, p2)
         if not inside:
             return
     (x, y), (x2, y2) = p1, p2
@@ -167,7 +169,7 @@ def fill_poly(img: np.ndarray, polys, value) -> np.ndarray:
             c0, c1 = (x0, y0), (x1, y1)
             if not (0 <= x0 < w and 0 <= x1 < w and 0 <= y0 < h
                     and 0 <= y1 < h):
-                _, t0, t1 = _clip_line(w, h, c0, c1)
+                _, t0, t1 = clip_line(w, h, c0, c1)
                 if t0[1] != t1[1]:
                     c0, c1 = t0, t1
             if y0 == y1:

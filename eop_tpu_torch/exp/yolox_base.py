@@ -105,7 +105,7 @@ class Exp(BaseExp):
         # gradient checkpointing of the backbone + neck in training steps
         self.remat = False
         # eop_tpu's TPU MXU packed layout; it changes no result, so the port
-        # reads neither (ROADMAP.md queue 1 item 13)
+        # reads neither (ROADMAP.md queue 1 item 9)
         self.packed_early = "auto"
         self.packed_infer_max_batch = 64
 

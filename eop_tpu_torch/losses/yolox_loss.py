@@ -54,8 +54,10 @@ def yolox_losses(decoded, origin_reg, labels, grids, strides,
     zero-padded, grids [A, 2], strides [A].  Returns (total loss,
     :class:`YoloxLossAux`)."""
     c = config.num_classes
-    decoded = decoded.float()
-    labels = labels.float()
+    # fp32 for fp32 and bf16 inputs; float64 stays float64 (a referee step)
+    dtype = torch.promote_types(decoded.dtype, torch.float32)
+    decoded = decoded.to(dtype)
+    labels = labels.to(dtype)
     bbox_preds = decoded[..., :4]
     obj_logits = decoded[..., 4]
     cls_logits = decoded[..., 5:]
@@ -85,7 +87,7 @@ def yolox_losses(decoded, origin_reg, labels, grids, strides,
                 * w_fg[..., None]).sum() / num_fg
     if config.use_l1:
         grids_k, strides_k = gather_anchor_geometry(grids, strides, fg_idx)
-        origin_k = gather_anchors(origin_reg.float(), fg_idx)
+        origin_k = gather_anchors(origin_reg.to(dtype), fg_idx)
         l1_t = _l1_target(gt_boxes, grids_k, strides_k)
         loss_l1 = ((origin_k - l1_t).abs() * w_fg[..., None]).sum() / num_fg
     else:

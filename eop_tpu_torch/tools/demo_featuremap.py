@@ -42,7 +42,8 @@ def make_parser():
     parser.add_argument("-n", "--name", type=str, default="yolox-l")
     parser.add_argument("-f", "--exp_file", type=str, default=None)
     parser.add_argument("-c", "--ckpt", type=str, default=None,
-                        help="a port checkpoint (its EMA weights if any)")
+                        help="a port checkpoint (its EMA weights if any), "
+                             "the reference's .pth or a state_dict")
     parser.add_argument("--backbone", type=str, default="darknet",
                         choices=["darknet", "vgg", "resnet", "densenet"])
     parser.add_argument("--json", type=str, default=DEFAULT_FIXTURE,

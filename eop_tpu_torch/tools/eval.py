@@ -13,8 +13,9 @@ family over image and label files (COCO-24p AP).
         [key value ...]
 
 ``-c`` takes the port's own checkpoint (``train/checkpoint.py``; its EMA
-weights where it has them, as the trainer evaluates) or a state_dict in the
-reference's key names; either loads strictly.  Without ``-c`` the model has
+weights where it has them, as the trainer evaluates), the reference's
+``.pth`` (``{"model": state_dict, ...}``) or a bare state_dict in the
+reference's key names; each loads strictly.  Without ``-c`` the model has
 seeded random weights.  ``--testdev`` scores ``test_ann`` (``test2017/``)
 through ``./yolox_testdev_2017.json``, ``--legacy`` feeds the model RGB in
 0..1 with ImageNet normalisation; both reach only an exp whose
@@ -36,8 +37,8 @@ def make_parser():
     parser.add_argument("-n", "--name", type=str, default=None)
     parser.add_argument("-f", "--exp_file", type=str, default=None)
     parser.add_argument("-c", "--ckpt", type=str, default=None,
-                        help="the port's checkpoint or a reference-keyed "
-                             "state_dict (.pth)")
+                        help="the port's checkpoint, the reference's .pth "
+                             "or a reference-keyed state_dict")
     parser.add_argument("-b", "--batch_size", type=int, default=64)
     parser.add_argument("--conf", type=float, default=None)
     parser.add_argument("--nms", type=float, default=None)
@@ -59,16 +60,22 @@ def make_parser():
 
 def eval_weights(path: str):
     """The state_dict to evaluate from ``path``: a port checkpoint's model
-    with its EMA parameters and statistics laid over it, or the file's own
-    state_dict."""
+    with its EMA parameters and statistics laid over it; the state_dict
+    under ``"model"`` of the reference's ``.pth`` (``{"model": sd,
+    "optimizer": ..., "start_epoch": ...}``, as ``eop_tpu``'s
+    ``load_torch_checkpoint`` unwraps it); or the file itself, a bare
+    state_dict.  Loaded with ``weights_only=True``."""
     import torch
 
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    state = payload.get("state") if isinstance(payload, dict) else None
-    if not isinstance(state, dict) or "model" not in state:
+    if not isinstance(payload, dict):
         return payload
-    return {**state["model"], **(state.get("ema_params") or {}),
-            **(state.get("ema_batch_stats") or {})}
+    state = payload.get("state")
+    if isinstance(state, dict) and "model" in state:
+        return {**state["model"], **(state.get("ema_params") or {}),
+                **(state.get("ema_batch_stats") or {})}
+    model = payload.get("model")
+    return model if isinstance(model, dict) else payload
 
 
 def main(argv=None):

@@ -1,7 +1,7 @@
 """Detection server: dynamic batching over the fused serving function.
 
     python -m eop_tpu_torch.tools.serve [-n yolox_24p_s | -n yolox-l | \
-        -f exp.py] [-w model.pth] [--device cuda] [--batch 8] \
+        -f exp.py] [-w model.pth] [--device cuda] [--batch 16] \
         [--src-hw 720,1280] [--port 8000] [--frontend async|threaded] \
         [key value ...]
 
@@ -10,10 +10,11 @@
 exp file of either family (e.g. ``load_eval/yolox_24p_eval.py``) without
 importing it (``exp/build.py``) and takes precedence over ``-n``.  The exp's
 family decides the answer: a bbox exp's detections carry ``bbox``, a 24p
-exp's ``center``, ``radii`` and ``points``.  ``-w`` takes the port's
-checkpoint (its EMA weights where it has them) or a PyTorch state_dict in
-the reference's key names, loaded strictly; without it the model serves
-seeded random weights.  Trailing ``key value``
+exp's ``center``, ``radii`` and ``points``.  ``--batch`` (16, as the JAX
+package's) is the largest batch the batcher forms.  ``-w`` takes the port's
+checkpoint (its EMA weights where it has them), the reference's ``.pth``
+or a bare state_dict in the reference's key names, loaded strictly;
+without it the model serves seeded random weights.  Trailing ``key value``
 pairs override exp attributes (e.g. ``test_conf 0.3``, ``compute_dtype
 bfloat16``).  ``--frontend async`` (the default, as the JAX package's
 ``tools/serve.py``) serves every connection from one event-loop thread
@@ -38,10 +39,10 @@ def make_parser():
     p.add_argument("-f", "--exp_file", type=str, default=None,
                    help="exp file (takes precedence over -n)")
     p.add_argument("-w", "--weights", type=str, default=None,
-                   help="the port's checkpoint or a reference-keyed "
-                        "state_dict (.pth)")
+                   help="the port's checkpoint, the reference's .pth or "
+                        "a reference-keyed state_dict")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=16)
     p.add_argument("--src-hw", type=str, default=None,
                    help="H,W of the serving canvas (default: test_size); "
                         "pick the camera's native size for no host resize")

@@ -17,7 +17,9 @@ bbox ``Exp`` (``exp/build.py``); trailing ``key value`` pairs override exp attri
 and come after every flag.  Runs on the card; ``--device cpu`` runs on the
 CPU.  Checkpoints and the log go to ``output_dir/<experiment name>``; each
 evaluation prints ``AP50:95=x AP50=y``.  The options of ``tools/train.py``
-that need a mesh or several hosts are accepted and raise.
+that need a mesh, several hosts or JAX's profiler are accepted and raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 7); ``--no-prewarm`` is
+accepted and does nothing.
 """
 
 from __future__ import annotations
@@ -44,15 +46,35 @@ def make_parser():
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--accum", type=int, default=1,
                         help="micro-batches a step (the batch must split)")
-    # eop_tpu's parallel and profiling options: not ported, they raise
-    parser.add_argument("--spatial", type=int, default=1)
-    parser.add_argument("--tensor", type=int, default=1)
-    parser.add_argument("--fsdp", action="store_true")
-    parser.add_argument("--profile-port", type=int, default=None)
-    parser.add_argument("--multi-host", action="store_true")
+    add_unported_args(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                         help="exp overrides: key value ...")
     return parser
+
+
+def add_unported_args(parser) -> None:
+    """``eop_tpu``'s train options the port does not have, with its
+    defaults: ``--no-prewarm`` does nothing; the parallel and profiling
+    options raise ``NotImplementedError`` when set
+    (``train/trainer.py::reject_unported``)."""
+    parser.add_argument("--no-prewarm", dest="prewarm", action="store_false",
+                        help="accepted and ignored: PyTorch compiles nothing "
+                             "per shape, so the port has no prewarm "
+                             "(ROADMAP.md queue 1, not ported on purpose)")
+    unported = "not ported: raises (ROADMAP.md queue 1 item 7)"
+    parser.add_argument("--spatial", type=int, default=1, help=unported)
+    parser.add_argument("--tensor", type=int, default=1, help=unported)
+    parser.add_argument("--fsdp", action="store_true", help=unported)
+    parser.add_argument("--profile-port", type=int, default=None,
+                        help=unported)
+    parser.add_argument("--multi-host", action="store_true", help=unported)
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help=unported)
+    parser.add_argument("--num-processes", type=int, default=None,
+                        help=unported)
+    parser.add_argument("--process-id", type=int, default=None,
+                        help=unported)
+    parser.add_argument("--platform", type=str, default=None, help=unported)
 
 
 def build_exp(args):

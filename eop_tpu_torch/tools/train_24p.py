@@ -9,11 +9,17 @@
 importing it (``exp/build.py``).  Trailing ``key value`` pairs override exp
 attributes and come after every flag.  Runs on the card; ``--device cpu``
 runs on the CPU.  Checkpoints and the log go to ``output_dir/exp_name``.
+The options of ``tools/train_24p.py`` that need a mesh, several hosts or
+JAX's profiler are accepted and raise ``NotImplementedError`` before any
+data is read (ROADMAP.md queue 1 item 7); ``--no-prewarm`` is accepted and
+does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+
+from .train import add_unported_args
 
 
 def make_parser():
@@ -40,6 +46,7 @@ def make_parser():
                         help="gradient accumulation micro-steps per "
                              "optimizer step")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    add_unported_args(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                         help="exp overrides: key value ...")
     return parser

@@ -51,9 +51,23 @@ from ..utils.weights import train_state_from_jax
 from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
 from .steps import create_train_state, eval_weights, make_train_step_bbox
 
-# args that ask for what the port does not have, and their defaults
+# the parallel and profiling args of eop_tpu's train command lines, which
+# ask for what the port does not have, and their defaults
 _UNPORTED_ARGS = {"spatial": 1, "tensor": 1, "fsdp": False,
-                  "profile_port": None, "multi_host": False}
+                  "profile_port": None, "multi_host": False,
+                  "coordinator": None, "num_processes": None,
+                  "process_id": None, "platform": None}
+
+
+def reject_unported(args) -> None:
+    """Raise ``NotImplementedError`` naming the first of ``args``' parallel
+    or profiling options set off its default: the port trains on one
+    device (multi-GPU is ROADMAP.md queue 1 item 7)."""
+    for name, default in _UNPORTED_ARGS.items():
+        if getattr(args, name, default) != default:
+            raise NotImplementedError(
+                f"{name}={getattr(args, name)!r}: the port trains on one "
+                "device without it (ROADMAP.md queue 1 item 7)")
 
 
 class Trainer:
@@ -69,11 +83,7 @@ class Trainer:
     """
 
     def __init__(self, exp, args):
-        for name, default in _UNPORTED_ARGS.items():
-            if getattr(args, name, default) != default:
-                raise NotImplementedError(
-                    f"{name}={getattr(args, name)!r}: the port trains on one "
-                    "device without it (ROADMAP.md queue 1)")
+        reject_unported(args)
         self.exp = exp
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))

@@ -29,6 +29,7 @@ from ..utils.logger import logger, setup_logger
 from ..utils.metric import CandidateDropMonitor, fetch_metrics
 from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
 from .steps import create_train_state, eval_weights, make_train_step_24p
+from .trainer import reject_unported
 
 
 class Trainer24P:
@@ -41,6 +42,7 @@ class Trainer24P:
     """
 
     def __init__(self, exp, args):
+        reject_unported(args)
         self.exp = exp
         self.args = args
         self.device = resolve_device(getattr(args, "device", None))
@@ -217,3 +219,28 @@ class Trainer24P:
         tb.add_scalar("dwa_weight/cls", float(metrics["dwa_cls_w"]), step)
         tb.add_scalar("train/cand_dropped", float(metrics["cand_dropped"]),
                       step)
+
+    def render_train_sample(self, image, pred_rows, gt_rows, out_path):
+        """Ground truth against predictions on one image, written to
+        ``out_path`` (``.png``, ``.jpg`` / ``.jpeg`` or ``.bmp``): a green
+        circle of each label's mean radius (label rows ``[cls, cx, cy, 24 x
+        (x, y)]``, all-zero rows skipped) and a red one of each detection's
+        (rows ``[x, y, r1..r24, ...]``), thickness 1, drawn in numpy."""
+        from ..ops.polygon import radii_from_points
+        from ..utils.synth import write_image
+        from ..utils.visualize import circle
+
+        img = np.ascontiguousarray(image).astype(np.uint8)
+        for row in np.asarray(gt_rows):
+            if row.sum() == 0:
+                continue
+            cx, cy = row[1], row[2]
+            radii = radii_from_points(torch.as_tensor(
+                row[None, 1:], dtype=torch.float32)).numpy()[0]
+            circle(img, (int(cx), int(cy)), int(radii.mean()), (0, 255, 0), 1)
+        for row in np.asarray(pred_rows):
+            cx, cy = row[0], row[1]
+            circle(img, (int(cx), int(cy)), int(np.mean(row[2:26])),
+                   (0, 0, 255), 1)
+        write_image(out_path, img)
+        return out_path

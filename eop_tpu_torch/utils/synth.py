@@ -379,6 +379,39 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 _WRITERS = {"bmp": write_bmp, "jpeg": write_jpeg, "png": write_png}
+_BY_EXTENSION = {".bmp": "bmp", ".jpg": "jpeg", ".jpeg": "jpeg",
+                 ".png": "png"}
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """A BGR uint8 ``[H, W, 3]`` image to ``path`` in the format its
+    extension names: ``.png`` (:func:`write_png`), ``.jpg`` / ``.jpeg``
+    (:func:`write_jpeg`, quality 95, 4:2:0, as ``cv2.imwrite``'s default
+    quality) or ``.bmp`` (:func:`write_bmp`)."""
+    fmt = _BY_EXTENSION.get(os.path.splitext(path)[1].lower())
+    if fmt is None:
+        raise ValueError(f"{path}: write .png, .jpg, .jpeg or .bmp")
+    _WRITERS[fmt](path, img)
+
+
+def _write_job(job) -> None:
+    fmt, path, img = job
+    _WRITERS[fmt](path, img)
+
+
+def _write_all(jobs, workers: int) -> None:
+    """Encode and write ``(fmt, path, image)`` jobs, in ``workers`` spawned
+    processes where more than one (the files are the same either way)."""
+    if workers <= 1:
+        for job in jobs:
+            _write_job(job)
+        return
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(workers, multiprocessing.get_context(
+            "spawn")) as pool:
+        list(pool.map(_write_job, jobs))
 
 
 def synthetic_24p_image(rng: np.random.RandomState, hw):
@@ -404,21 +437,24 @@ def synthetic_24p_image(rng: np.random.RandomState, hw):
 
 
 def write_24p_dataset(root: str, n: int, hw, seed: int = 0,
-                      fmt: str = "bmp"):
+                      fmt: str = "bmp", workers: int = 1):
     """``n`` seeded images of ``hw`` (:func:`synthetic_24p_image`) with
     their labels: images ``root/imgs/{i:012}.jpg`` of ``fmt`` content
-    (``"bmp"``, ``"jpeg"``: quality 95, 4:2:0, or ``"png"``), labels
-    ``root/labels/{i:012}.txt``.  Returns (image dir, label dir)."""
+    (``"bmp"``, ``"jpeg"``: quality 95, 4:2:0, or ``"png"``), encoded in
+    ``workers`` processes, labels ``root/labels/{i:012}.txt``.  Returns
+    (image dir, label dir)."""
     if fmt not in _WRITERS:
         raise ValueError(f"fmt {fmt!r}: one of {sorted(_WRITERS)}")
     rng = np.random.RandomState(seed)
     img_dir, lab_dir = os.path.join(root, "imgs"), os.path.join(root, "labels")
     os.makedirs(img_dir)
     os.makedirs(lab_dir)
+    jobs = []
     for i in range(n):
         img, rows = synthetic_24p_image(rng, hw)
-        _WRITERS[fmt](os.path.join(img_dir, f"{i:012}.jpg"), img)
+        jobs.append((fmt, os.path.join(img_dir, f"{i:012}.jpg"), img))
         np.savetxt(os.path.join(lab_dir, f"{i:012}.txt"), rows, fmt="%.6f")
+    _write_all(jobs, workers)
     return img_dir, lab_dir
 
 
@@ -433,11 +469,12 @@ def class_colours(num_classes: int, seed: int = 0) -> np.ndarray:
 
 def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
                        num_classes: int = 80, seed: int = 0,
-                       fmt: str = "jpeg"):
+                       fmt: str = "jpeg", workers: int = 1):
     """A seeded COCO-format dataset under ``root``: ``train2017/`` and
     ``val2017/`` images of ``hw`` (``{id:012}.jpg`` names, ``fmt`` content:
-    ``"jpeg"`` quality 95 4:2:0, ``"png"`` or ``"bmp"``), each 1 to 4 filled
-    rectangles on dark noise whose colour is the class, and
+    ``"jpeg"`` quality 95 4:2:0, ``"png"`` or ``"bmp"``; encoded in
+    ``workers`` processes), each 1 to 4 filled rectangles on dark noise
+    whose colour is the class, and
     ``annotations/instances_{train,val}2017.json`` with category ids 1 ..
     ``num_classes``.  Returns ``root``."""
     if fmt not in _WRITERS:
@@ -450,6 +487,7 @@ def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
     os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
     cats = [{"id": c + 1, "name": f"class{c}", "supercategory": "synthetic"}
             for c in range(num_classes)]
+    jobs = []
     for split, n, split_seed in (("train2017", n_train, seed),
                                  ("val2017", n_val, seed + 1)):
         rng = np.random.RandomState(split_seed)
@@ -473,13 +511,14 @@ def write_coco_dataset(root: str, n_train: int, n_val: int, hw,
                                       float(x), float(y + bh)]],
                 })
             name = f"{img_id:012}.jpg"
-            _WRITERS[fmt](os.path.join(root, split, name), img)
+            jobs.append((fmt, os.path.join(root, split, name), img))
             images.append({"id": img_id, "width": w, "height": h,
                            "file_name": name})
         with open(os.path.join(root, "annotations",
                                f"instances_{split}.json"), "w") as f:
             json.dump({"images": images, "annotations": annotations,
                        "categories": cats}, f)
+    _write_all(jobs, workers)
     return root
 
 
@@ -615,6 +654,59 @@ def write_featuremap_fixture(root: str, hw=(480, 640), objects: int = 2,
                    "categories": [{"id": 1, "name": "person"},
                                   {"id": 3, "name": "car"}]}, f)
     return path
+
+
+# published COCO ids (none retired) the polygon dataset draws from
+POLYGON_CATEGORIES = (1, 3, 18, 44, 62)
+
+
+def write_polygon_dataset(root: str, n: int, hw, objects: int = 3,
+                          seed: int = 0, fmt: str = "jpeg"):
+    """A seeded COCO json of polygon segmentations, the 24-point label
+    generator's input: ``n`` images ``root/images/{id:012}.jpg`` of ``hw``
+    (``fmt`` content, ``"jpeg"`` quality 95 4:2:0 by default), each with
+    ``objects`` convex blobs and stars (:func:`_fixture_polygon`) of
+    :data:`POLYGON_CATEGORIES` filled with colour on gray noise, and
+    ``root/instances.json`` (``area`` the mask's pixel count).  Returns
+    (image dir, json path)."""
+    from ..data.coco_api import polygons_to_mask
+
+    if fmt not in _WRITERS:
+        raise ValueError(f"fmt {fmt!r}: one of {sorted(_WRITERS)}")
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, annotations = [], []
+    for img_id in range(1, n + 1):
+        img = rng.randint(90, 140, (h, w, 3)).astype(np.uint8)
+        for _ in range(objects):
+            radius = min(h, w) * rng.uniform(0.08, 0.2)
+            cx, cy = rng.uniform(0.1, 0.9) * w, rng.uniform(0.1, 0.9) * h
+            poly = _fixture_polygon(rng, cx, cy, radius,
+                                    concave=bool(rng.randint(2)))
+            flat = [float(v) for v in poly.reshape(-1)]
+            mask = polygons_to_mask([flat], h, w).astype(bool)
+            img[mask] = rng.randint(0, 256, 3)
+            x0, y0 = np.clip(poly.min(0), 0, None)
+            x1, y1 = np.minimum(poly.max(0), (w, h))
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": img_id,
+                "category_id": int(rng.choice(POLYGON_CATEGORIES)),
+                "bbox": [float(x0), float(y0), float(x1 - x0),
+                         float(y1 - y0)],
+                "area": float(mask.sum()), "iscrowd": 0,
+                "segmentation": [flat]})
+        name = f"{img_id:012}.jpg"
+        _WRITERS[fmt](os.path.join(img_dir, name), img)
+        images.append({"id": img_id, "width": w, "height": h,
+                       "file_name": name})
+    path = os.path.join(root, "instances.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": c, "name": str(c)}
+                                  for c in POLYGON_CATEGORIES]}, f)
+    return img_dir, path
 
 
 def label_detections(targets, max_det: int = 10):

@@ -1444,3 +1444,118 @@ def test_voc_accum_step_on_card_matches_cpu(cuda):
     assert m_gpu["num_fg"].item() == m_cpu["num_fg"].item() > 0
     assert abs(m_gpu["total_loss"].item() - m_cpu["total_loss"].item()) <= \
         1e-3 * abs(m_cpu["total_loss"].item())
+
+
+# ---- the 24p family's drawing tool ----
+
+@pytest.mark.gpu
+def test_show_24p_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``tools.show_24p`` on 2 seeded PNGs at 128 px on the card, from a
+    reference-form ``.pth``, with cv2 unimportable: 8 fused launches an
+    image on the tensor-core variants, both files written and decoded, and
+    each image's detections against the CPU run's at the serve phase's
+    tolerance (the same count, each polygon's enclosing box matched by IoU,
+    median 0.5 or more)."""
+    import sys
+
+    from eop_tpu_torch.data.image_io import imread
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops.boxes import bboxes_iou
+    from eop_tpu_torch.ops.polygon import polygon_points_from_radii
+    from eop_tpu_torch.tools import show_24p
+    from eop_tpu_torch.utils.synth import write_png
+
+    img_dir = tmp_path / "imgs"
+    img_dir.mkdir()
+    rng = np.random.RandomState(7)
+    for name, hw in (("a.png", (96, 128)), ("b.png", (128, 100))):
+        write_png(str(img_dir / name),
+                  rng.randint(0, 256, (*hw, 3)).astype(np.uint8))
+    exp = get_exp(exp_name="yolox_24p_s")
+    pth = tmp_path / "ref.pth"
+    torch.save({"model": exp.get_model("cpu", seed=2).state_dict(),
+                "start_epoch": 1}, pth)
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        before = (pc.phase_conv.launches, pc.phase_conv.fused_launches,
+                  dict(pc.phase_conv.variant_launches))
+        ev = show_24p.main(["-n", "yolox_24p_s", "-w", str(pth), "-p",
+                            str(img_dir), "--device", dev, "test_conf",
+                            "1e-5", "test_size", "(128, 128)", "output_dir",
+                            str(tmp_path / dev)])
+        runs[dev] = ev.results
+        variants = {k: v - before[2].get(k, 0)
+                    for k, v in pc.phase_conv.variant_launches.items()}
+        if dev == "cuda":
+            assert pc.phase_conv.launches - before[0] == 16
+            assert pc.phase_conv.fused_launches - before[1] == 16
+            assert variants.get("wgmma_rows", 0) == 2
+            assert variants.get("wgmma_taps", 0) == 14
+            assert variants.get("direct", 0) == 0
+
+    def boxes(rows):
+        pts = polygon_points_from_radii(rows[:, :2], rows[:, 2:26])
+        return torch.cat([pts.amin(dim=-2), pts.amax(dim=-2)], dim=-1)
+
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert imread(got["path"]).shape == imread(want["path"]).shape
+        g, w = torch.from_numpy(got["rows"]), torch.from_numpy(want["rows"])
+        assert len(g) == len(w) > 0
+        best = bboxes_iou(boxes(g), boxes(w)).amax(dim=1)
+        assert float(best.median()) >= 0.5
+
+
+# ---- fp32 accuracy of the tensor-core kernels against float64 ----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 2, 1, 40, 40, 128, 256),
+                                   (3, 1, 1, 40, 40, 64, 64),
+                                   (1, 1, 0, 40, 40, 128, 128),
+                                   (6, 2, 2, 40, 40, 3, 64),
+                                   (3, 1, 1, 40, 40, 3, 32)])
+def test_fp32_kernels_match_cudnn_against_float64(cuda, shape):
+    """The fp32 forward and data gradient over their longest K chains (3x3
+    over 64 and 128 channels; stride 2 through the parity classes, stride 1
+    through the flipped forward) and the two stems' forward on
+    ``wgmma_rows`` (6x6/s2 and 3x3/s1 over 3 channels; their input takes
+    no gradient) against float64 convolutions: each kernel's mean error
+    (over the output's largest value) at most 2.2x cuDNN fp32's.  The
+    tensor cores add into their accumulator rounding toward zero.  On an
+    H100, at these inputs (``chip_smoke.py --kernel-accuracy``, which
+    reads them): kernels that sum a whole K chain in one accumulator give
+    2.91-25.6x (the 3x3 stem 2.91, the others at least 4.76); short runs
+    of K summed apart into an fp32 total give 0.49-1.63x."""
+    import torch.nn.functional as F
+
+    k, s, p, h, w, c, co = shape
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, h, w, c, generator=g).to(cuda)
+    wt = (torch.randn(k, k, c, co, generator=g)
+          / (k * k * c) ** 0.5).to(cuda)
+    xn, wn = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1)
+    y64 = F.conv2d(xn.double(), wn.double(), stride=s, padding=p)
+    dy = torch.randn(y64.shape, generator=g).to(cuda)
+    back = torch.ops.aten.convolution_backward
+    dx64 = back(dy.double(), xn.double(), wn.double(), None, [s, s], [p, p],
+                [1, 1], False, [0, 0], 1, [True, False, False])[0]
+    dx32 = back(dy, xn, wn, None, [s, s], [p, p], [1, 1], False, [0, 0], 1,
+                [True, False, False])[0]
+
+    def mean_err(got, ref):
+        return ((got.double() - ref).abs().mean()
+                / ref.abs().max()).item()
+
+    assert pc.kernel_variant(tuple(x.shape), tuple(wt.shape), s, p,
+                             x.dtype) == ("wgmma_taps" if c % 8 == 0
+                                          else "wgmma_rows")
+    hand = pc.phase_conv(x, wt, s, p).permute(0, 3, 1, 2)
+    lib = F.conv2d(xn, wn, stride=s, padding=p)
+    fwd = (mean_err(hand, y64), mean_err(lib, y64))
+    assert fwd[0] <= 2.2 * fwd[1], fwd
+    if c % 8:
+        return
+    dx = pc.phase_conv_dgrad(dy.permute(0, 2, 3, 1).contiguous(), wt,
+                             tuple(x.shape), s, p).permute(0, 3, 1, 2)
+    bwd = (mean_err(dx, dx64), mean_err(dx32, dx64))
+    assert bwd[0] <= 2.2 * bwd[1], bwd

@@ -63,7 +63,10 @@ def test_every_module_imports_without_jax():
                  "utils.model_utils",
                  # PASCAL VOC
                  "data.voc", "data.voc_classes", "eval.voc_eval",
-                 "eval.voc_evaluator"):
+                 "eval.voc_evaluator",
+                 # the 24p family's label generator and drawing tools
+                 "data.geometry", "tools.labels_create_24p",
+                 "tools.show_24p", "tools.show_mask"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
