@@ -106,13 +106,14 @@
     the CPU) and one YOLOv3 request (10 unfused launches); then the load
     phase: ``python -m eop_tpu_torch.tools.load_test_serving --url`` against
     ``python -m eop_tpu_torch.tools.serve``, a process of its own on the
-    card started once a configuration (2 s steps), for 24p-s behind each front
-    end (closed loop at 1, 16 and 64 clients, and 720x1280 JPEG bodies at
-    16; on async also open-loop steps at 50 % and 90 % of its closed-loop
-    throughput at 16) and YOLOX-L behind each (16 clients), each table on a
-    line of its own; trains each with
-    ``python -m eop_tpu_torch.tools.train -n NAME -b 8`` as a subprocess for
-    an epoch (launches every step as the model gives them), evaluates each
+    card started once a configuration, all at once (1 s steps), for 24p-s
+    behind each front end (closed loop at 1, 16 and 64 clients, and
+    720x1280 JPEG bodies at 16; on async also open-loop steps at 50 % and 90
+    % of its closed-loop throughput at 16) and YOLOX-L behind each (16
+    clients), each table on a line of its own; trains each with ``python -m
+    eop_tpu_torch.tools.train -n NAME -b 8`` as a subprocess for an epoch,
+    the three at once (launches every step as the model gives them),
+    evaluates each
     checkpoint with ``tools.eval -n NAME`` (the AP line) and a label oracle
     at Tiny's 416 px (AP 1); one YOLOv3, Nano, Tiny and X step on the card
     against the CPU (YOLOv3 and X also against float64 as YOLOX-L; Nano's
@@ -151,6 +152,25 @@
     draw and encode ms of each image; ``python -m
     eop_tpu_torch.tools.labels_create_24p`` on the images' json: 51-column
     rows ``COCO24PDataset`` reads, a label or more an image;
+16e. the deployment path, its command lines started at once: ``python -m
+    eop_tpu_torch.tools.export_serving -n yolox_24p_s --batch 8 --src-hw
+    720,1280 --smoke`` (the artifact's MB, the export's seconds), the same
+    with ``--int8 --calib`` phase 10's JPEGs (the convs quantized), YOLOX-L
+    exported at batch 8, and ``python -m eop_tpu_torch.tools.eval --int8``
+    on phase 10's files (its PTQ and AP lines); each 24p-s artifact served
+    in this process (``DetectionService.from_artifact``) on 32 seeded
+    frames against the live serving function of the same seeded weights
+    (fp32, and int8 calibrated here on the same images): masks equal, rows
+    bit-equal or within the serve phase's tolerance, saying which; the
+    launch counters of one artifact call, counted inside its registered
+    operators (fp32: 8 fused, 1 ``wgmma_rows`` and 7 ``wgmma_taps``; int8:
+    6 fused and the int8 convs, 2 of them off ``phase_conv``); ``python -m
+    eop_tpu_torch.tools.serve --artifact`` for each answering 4 raw requests
+    over HTTP as this process's service does; YOLOX-L's artifact answering
+    one request (12 launches); the forward at B=8 in int8 beside fp32 and
+    bf16 (CUDA events), int8 against fp32 on the decoded outputs (``geo_rel``
+    of ``tests/test_quant.py``) and one int8 conv's int32 accumulator on
+    the card equal to the CPU's;
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
@@ -194,6 +214,7 @@ non-zero, printing no result, where there is no card or no ``eop_tpu_torch``.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -974,16 +995,14 @@ LOAD_RUNS = (
 )
 
 
-@contextlib.contextmanager
-def spawned_server(serve_args: list):
-    """``python -m eop_tpu_torch.tools.serve SERVE_ARGS test_conf 1e-5`` as
-    a process of its own on a free port (seeded weights; ``test_conf
-    1e-5`` so that answers carry detections, as in the in-process phases):
-    yields (its URL, its banner) once it listens, stops it after."""
+def _launch_server(serve_args: list, overrides=("test_conf", "1e-5")):
+    """Start ``python -m eop_tpu_torch.tools.serve SERVE_ARGS OVERRIDES`` on
+    a free port; returns (process, port, its output lines, an event set once
+    it listens or ends, the start time).  The pipe is drained meanwhile."""
     port = free_port()
     cmd = [sys.executable, "-m", "eop_tpu_torch.tools.serve", "--port",
-           str(port), "--host", "127.0.0.1", *serve_args, "test_conf",
-           "1e-5"]
+           str(port), "--host", "127.0.0.1", *serve_args, *overrides]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     lines, listening = [], threading.Event()
@@ -996,27 +1015,35 @@ def spawned_server(serve_args: list):
         listening.set()
 
     threading.Thread(target=drain, daemon=True).start()
+    return proc, port, lines, listening, t0
+
+
+def _await_server(server):
+    """(URL, banner, seconds to listen) of a :func:`_launch_server` server,
+    once it listens; raises where it ended instead."""
+    proc, port, lines, listening, t0 = server
+    listening.wait(300)
+    banner = next((ln.strip() for ln in lines
+                   if ln.startswith("serving on")), "")
+    if not banner or proc.poll() is not None:
+        raise AssertionError(f"serve {proc.args[3:]} did not start: "
+                             f"{''.join(lines)[-3000:]}")
+    return f"http://127.0.0.1:{port}", banner, time.perf_counter() - t0
+
+
+def _stop_server(proc) -> None:
+    proc.terminate()
     try:
-        listening.wait(300)
-        banner = next((ln.strip() for ln in lines
-                       if ln.startswith("serving on")), "")
-        if not banner or proc.poll() is not None:
-            raise AssertionError(f"serve {serve_args} did not start: "
-                                 f"{''.join(lines)[-3000:]}")
-        yield f"http://127.0.0.1:{port}", banner
-    finally:
-        proc.terminate()
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=60)
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=60)
 
 
 def load_run(smi: str, name: str, tool_args: list, url: str = "",
-             banner: str = "", spawn=None, duration: float = 2.0) -> dict:
+             banner: str = "", spawn=None, duration: float = 1.0) -> dict:
     """``python -m eop_tpu_torch.tools.load_test_serving --url URL ...``
-    against a server of :func:`spawned_server` (its discarded warm pass,
+    against a server of :func:`_launch_server` (its discarded warm pass,
     then its steps), or, given ``spawn`` (serve arguments), with the tool's
     own ``--spawn``: it starts the server, waits for its health and stops
     it.  Fails where the server does not report ``device=cuda``, or a row
@@ -1059,15 +1086,21 @@ def load_phase(smi: str) -> list:
     ``--spawn``, the others of one server configuration against one
     spawned server (each run its own warm pass and steps; the batch
     occupancy is each step's own); open-loop rates set from the first
-    run's throughput at 16 clients."""
+    run's throughput at 16 clients.  The spawned servers all start at
+    once after the first run, and the runs begin once every one listens:
+    no run shares the host with a server starting."""
     (first, first_serve, first_tool), *rest = LOAD_RUNS
     reports = [load_run(smi, first, first_tool, spawn=first_serve)]
     emit(reports[-1])
     groups = {}
     for name, serve_args, tool_args in rest:
         groups.setdefault(tuple(serve_args), []).append((name, tool_args))
-    for serve_args, runs in groups.items():
-        with spawned_server(list(serve_args)) as (url, banner):
+    servers = {args: _launch_server(list(args)) for args in groups}
+    try:
+        listening = {args: _await_server(server)[:2]
+                     for args, server in servers.items()}
+        for serve_args, runs in groups.items():
+            url, banner = listening[serve_args]
             for name, tool_args in runs:
                 if isinstance(tool_args[-1], tuple):
                     rps = next(row["throughput_rps"]
@@ -1077,6 +1110,10 @@ def load_phase(smi: str) -> list:
                         f"{f * rps:.1f}" for f in tool_args[-1])]
                 reports.append(load_run(smi, name, tool_args, url, banner))
                 emit(reports[-1])
+            _stop_server(servers[serve_args][0])
+    finally:
+        for server in servers.values():
+            _stop_server(server[0])
     return reports
 
 
@@ -2798,25 +2835,32 @@ def eval_bbox(smi: str, data_dir: str, ckpt: str):
            "--per-class-ap", "test_conf", "1e-5", "data_num_workers", "4"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=600)
+    # the command line runs while this process scores the oracle
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        exp = get_exp(exp_name="yolox-l")
+        exp.data_dir, exp.num_classes, exp.data_num_workers = (
+            data_dir, BBOX_CLASSES, 0)
+        evaluator = exp.get_evaluator(EVAL_BATCH)
+        fast_cocoeval.match_image.native_calls = 0
+        o5095, o50, _ = evaluator.evaluate(
+            LabelOracle(evaluator.dataloader.dataset, "cuda"))
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
     wall = time.perf_counter() - t0
-    aps = re.findall(AP_LINE, r.stdout)
-    if r.returncode != 0 or not aps:
-        raise AssertionError(f"eval_bbox: rc {r.returncode}\n"
-                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    exp = get_exp(exp_name="yolox-l")
-    exp.data_dir, exp.num_classes, exp.data_num_workers = (
-        data_dir, BBOX_CLASSES, 0)
-    evaluator = exp.get_evaluator(EVAL_BATCH)
-    fast_cocoeval.match_image.native_calls = 0
-    o5095, o50, _ = evaluator.evaluate(
-        LabelOracle(evaluator.dataloader.dataset, "cuda"))
+    aps = re.findall(AP_LINE, stdout)
+    if proc.returncode != 0 or not aps:
+        raise AssertionError(f"eval_bbox: rc {proc.returncode}\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
     report = {"phase": "eval_bbox", "card": smi, "command": " ".join(cmd[2:]),
-              "rc": r.returncode, "wall_s": wall,
+              "rc": proc.returncode, "wall_s": wall,
               "ap50_95": float(aps[-1][0]), "ap50": float(aps[-1][1]),
-              "per_class_table": "| class" in r.stdout,
-              "worker_aborts": r.stderr.count("killed by signal"),
+              "per_class_table": "| class" in stdout,
+              "worker_aborts": stderr.count("killed by signal"),
               "oracle_ap50_95": float(o5095), "oracle_ap50": float(o50),
               "oracle_native_matcher_calls":
                   fast_cocoeval.match_image.native_calls,
@@ -3266,23 +3310,39 @@ def train_zoo(smi: str, data_dir: str, out_dir: str):
     model; step ms by CUDA events, peak memory.  Returns the report, the
     launches by path and each run's checkpoint."""
     report, by_path, ckpts = {"phase": "train_zoo", "card": smi}, {}, {}
-    for name in ZOO_NAMES:
+    runs = {}
+    os.makedirs(out_dir, exist_ok=True)
+    try:
+        for name in ZOO_NAMES:
+            # the three run at once: each one's step times and loader waits
+            # are measured beside the others' (the checks are per process)
+            record = os.path.join(out_dir, f"{name}.json")
+            cmd = [sys.executable, os.path.abspath(__file__),
+                   "--train-bbox-child", record, "--", "-n", name, "-b",
+                   str(ZOO_BATCH), "--data-dir", data_dir, "max_epoch", "1",
+                   "no_aug_epochs", "0", "eval_interval", "10",
+                   "data_num_workers", "2", "seed", "0", "print_interval",
+                   "4", "output_dir", os.path.join(out_dir, name)]
+            log = os.path.join(out_dir, f"{name}.log")
+            with open(log, "w") as f:
+                proc = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                        stderr=subprocess.STDOUT)
+            runs[name] = (proc, cmd, record, log, time.time())
+        for proc, *_ in runs.values():
+            proc.wait(timeout=600)
+    finally:
+        for proc, *_ in runs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    for name, (proc, cmd, record, log, t0) in runs.items():
         out = os.path.join(out_dir, name)
-        record = os.path.join(out_dir, f"{name}.json")
-        cmd = [sys.executable, os.path.abspath(__file__),
-               "--train-bbox-child", record, "--", "-n", name, "-b",
-               str(ZOO_BATCH), "--data-dir", data_dir, "max_epoch", "1",
-               "no_aug_epochs", "0", "eval_interval", "10",
-               "data_num_workers", "2", "seed", "0", "print_interval", "4",
-               "output_dir", out]
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
-        wall = time.perf_counter() - t0
-        if r.returncode != 0:
-            raise AssertionError(f"train_zoo {name}: rc {r.returncode}\n"
-                                 f"{(r.stdout + r.stderr)[-6000:]}")
+        with open(log) as f:
+            text = f.read()
+        if proc.returncode != 0:
+            raise AssertionError(f"train_zoo {name}: rc {proc.returncode}\n"
+                                 f"{text[-6000:]}")
+        wall = os.path.getmtime(record) - t0  # start to the record written
         with open(record) as f:
             rec = json.load(f)
         want = step_launches(name)
@@ -3302,7 +3362,7 @@ def train_zoo(smi: str, data_dir: str, out_dir: str):
                "first_batch_wait_s": rec["data_wait_s"][0],
                "max_memory_allocated_bytes":
                    rec["max_memory_allocated_bytes"],
-               "worker_aborts": r.stderr.count("killed by signal")}
+               "worker_aborts": text.count("killed by signal")}
         report[name] = row
         by_path[f"train_{name}"] = {k: rec["totals"][k] for k in want}
         if (bad or len(losses) != rec["iters_per_epoch"]
@@ -3629,6 +3689,315 @@ def show_24p_phase(smi: str, root: str):
     if not ok:
         raise AssertionError(f"show_24p: {report}\n{lr.stderr[-2000:]}")
     return report, counts
+
+
+# 16e: the deployment path
+DEPLOY_SRC_HW = (720, 1280)
+DEPLOY_FRAMES = 32
+DEPLOY_REQUESTS = 4
+# the 24p-s forward's phase_conv launches by variant: all 8 early convs in
+# fp32; under int8 at the default gate (64) dark2's CSP conv3 (64 -> 64) and
+# dark3's down conv (64 -> 128) are int8 convs instead
+DEPLOY_FORWARD = {"wgmma_rows": 1, "wgmma_taps": 7}
+DEPLOY_FORWARD_INT8 = {"wgmma_rows": 1, "wgmma_taps": 5}
+ARTIFACT_LINE = r"exported \S+: ([0-9.]+) MB in ([0-9.]+) s"
+# int8 against fp32 before NMS: tests/test_quant.py's bounds on eop_tpu's
+# int8 path (geometry relative to its largest magnitude; sigmoided scores)
+INT8_GEO_REL, INT8_SCORE_ATOL = 0.15, 0.05
+PTQ_LINE = r"int8 PTQ: (\d+) convs quantized \(min_channels=(\d+)\)"
+
+
+def _child(cmd: list, log: str):
+    """``python -m CMD`` in the repository, its output in the file ``log``."""
+    out = open(log, "w")
+    try:
+        return subprocess.Popen([sys.executable, "-m", *cmd], cwd=ROOT,
+                                stdout=out, stderr=subprocess.STDOUT)
+    finally:
+        out.close()
+
+
+def _child_output(proc, log: str, what: str, timeout: float = 600) -> str:
+    proc.wait(timeout=timeout)
+    with open(log) as f:
+        text = f.read()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{text[-3000:]}")
+    return text
+
+
+def post_raw(url: str, img: np.ndarray) -> list:
+    """One raw-body ``POST /v1/detect``: the answer's detections."""
+    req = urllib.request.Request(
+        f"{url}/v1/detect", data=img.tobytes(), method="POST",
+        headers={"X-Raw-Shape": ",".join(map(str, img.shape))})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            raise AssertionError(f"HTTP {r.status}")
+        return json.loads(r.read())["detections"]
+
+
+def _same_detections(got, want) -> dict:
+    """Artifact ``Detections`` against the live serving function's: bit-equal
+    rows and masks, or (where cuDNN's choice differs between the two) equal
+    masks and rows within the serve phase's tolerance."""
+    bit = bool(torch.equal(got.valid, want.valid)
+               and torch.equal(got.rows, want.rows))
+    v = want.valid
+    diff = (float((got.rows[v] - want.rows[v]).abs().max()) if v.any()
+            else 0.0)
+    scale = max(1.0, float(want.rows[v].abs().max())) if v.any() else 1.0
+    return {"bit_equal": bit, "valid_equal": bool(torch.equal(got.valid, v)),
+            "rows_max_abs_diff": diff,
+            "ok": bit or (bool(torch.equal(got.valid, v))
+                          and diff <= FP32_TOL * scale)}
+
+
+def _counters() -> dict:
+    """:func:`_launch_counts` with the fused launches and the int8 convs."""
+    from eop_tpu_torch.ops import quant
+    from eop_tpu_torch.ops.phase_conv import phase_conv
+
+    return {**_launch_counts(), "fused": phase_conv.fused_launches,
+            "int8_conv": quant.int8_conv.calls,
+            "int8_off_phase_conv": quant.int8_conv.off_phase_conv}
+
+
+def _artifact_launches(svc, raw) -> dict:
+    """One call of the served artifact: what the registered operators
+    counted inside the program (the counters' change over the call)."""
+    before = _counters()
+    svc._serve_fn(raw)
+    torch.cuda.synchronize()
+    after = _counters()
+    delta = {k: v - before[k] for k, v in after.items()}
+    return {"phase_conv": delta["forward"], "fused": delta["fused"],
+            "by_variant": {k.split(":")[1]: v for k, v in delta.items()
+                           if k.startswith("forward:") and v},
+            "int8_conv": delta["int8_conv"],
+            "int8_off_phase_conv": delta["int8_off_phase_conv"]}
+
+
+def _geo_rel(model, qmodel, imgs) -> dict:
+    """int8 against fp32 on the decoded head outputs before NMS, as
+    ``tests/test_quant.py`` measures: the geometry (centres and radii) by
+    its largest error over its largest magnitude (``geo_rel``), the
+    sigmoided scores by their largest error."""
+    from eop_tpu_torch.models.yolox import inference_outputs
+
+    with torch.inference_mode():
+        x = imgs.permute(0, 3, 1, 2)
+        ref = inference_outputs(model(x)[0], reg_dim=26).float()
+        out = inference_outputs(qmodel(x)[0], reg_dim=26).float()
+    geo = (out[..., :26] - ref[..., :26]).abs().max() / ref[..., :26].abs(
+        ).max()
+    return {"geo_rel": float(geo),
+            "score_max_abs_diff": float((out[..., 26:] - ref[..., 26:]).abs(
+                ).max())}
+
+
+def deploy_children(img_dir: str, lab_dir: str, root: str) -> dict:
+    """Start 16e's command lines at once, in ``root``: the three exports
+    (the seeded weights of ``get_model``, ``test_conf 1e-5`` as in the serve
+    phases) and the int8 evaluation of phase 10's files.  Returns their
+    artifacts', logs' and processes' dicts (:func:`deploy_phase` reads
+    them; :func:`stop_children` ends any still running)."""
+    art = {k: os.path.join(root, f"{k}.pt2") for k in ("fp32", "int8", "l")}
+    logs = {k: os.path.join(root, f"{k}.log")
+            for k in ("fp32", "int8", "l", "eval")}
+    base = ["eop_tpu_torch.tools.export_serving", "--batch",
+            str(SERVE_BATCH), "--src-hw", ",".join(map(str, DEPLOY_SRC_HW))]
+    cmds = {"fp32": [*base, "-n", "yolox_24p_s", "--out", art["fp32"],
+                     "--smoke", "test_conf", "1e-5"],
+            "int8": [*base, "-n", "yolox_24p_s", "--out", art["int8"],
+                     "--int8", "--calib", img_dir, "test_conf", "1e-5"],
+            "l": [*base, "-n", "yolox-l", "--out", art["l"], "test_conf",
+                  "1e-5"],
+            "eval": ["eop_tpu_torch.tools.eval", "-f",
+                     "load_eval/yolox_24p_eval.py", "-b", str(EVAL_BATCH),
+                     "--data-dir", img_dir, "--label-dir", lab_dir,
+                     "--int8"]}
+    return {"art": art, "logs": logs, "img_dir": img_dir,
+            "procs": {k: _child(cmd, logs[k]) for k, cmd in cmds.items()}}
+
+
+def stop_children(children) -> None:
+    for p in (children or {}).get("procs", {}).values():
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+
+
+def deploy_phase(smi: str, children: dict):
+    """The deployment path (docstring item 16e), after
+    :func:`deploy_children`'s command lines.  Returns the report and the
+    phase's launch counts (from 0 at its start)."""
+    import re
+
+    from eop_tpu_torch.ops import quant
+    from eop_tpu_torch.serving.service import DetectionService
+    from eop_tpu_torch.utils.serving_export import calibration_batch
+
+    t_phase = time.perf_counter()
+    art, logs, procs = children["art"], children["logs"], children["procs"]
+    img_dir = children["img_dir"]
+    report = {"phase": "deploy", "card": smi, "src_hw": list(DEPLOY_SRC_HW),
+              "batch": SERVE_BATCH}
+    servers, printed = [], {}
+    try:
+        _reset_counts()
+        for k in ("fp32", "int8", "l"):
+            text = _child_output(procs[k], logs[k], f"export_serving {k}")
+            mb, export_s = (float(v) for v in
+                            re.search(ARTIFACT_LINE, text).groups())
+            report[f"export_{k}"] = {
+                "mb": os.path.getsize(art[k]) / 1e6, "printed_mb": mb,
+                "export_s": export_s}
+            printed[k] = text
+        if "smoke: rows(8, 300, 29) valid(8, 300)" not in printed["fp32"]:
+            raise AssertionError(f"export --smoke: {printed['fp32'][-2000:]}")
+        # serve --artifact for fp32 and int8, both started at once, while
+        # this process builds the live fp32 and int8 programs
+        for k in ("fp32", "int8"):
+            servers.append(_launch_server(["--artifact", art[k]], ()))
+        exp = serving_exp()
+        model = exp.get_model("cuda")
+        live = exp.get_serving_fn(model, DEPLOY_SRC_HW, "cuda")
+        calib = calibration_batch(img_dir, DEPLOY_SRC_HW, exp.test_size,
+                                  device="cuda")
+        deploy, scales = exp.quantize_for_inference(model, [calib])
+        n_quant = len(quant.quantized_keys(deploy, scales, 64))
+        live8 = exp.get_serving_fn(deploy, DEPLOY_SRC_HW, "cuda", scales)
+        n, gate = (int(v) for v in
+                   re.search(PTQ_LINE, printed["int8"]).groups())
+        report["export_int8"]["convs_quantized"] = n
+        if (n, gate) != (n_quant, 64):
+            raise AssertionError(f"export --int8 quantized {n} convs at "
+                                 f"{gate}, this process {n_quant}")
+        svc = {k: DetectionService.from_artifact(art[k], device="cuda",
+                                                 max_wait_ms=20.0)
+               for k in ("fp32", "int8")}
+        try:
+            # 32 seeded frames through the artifact and the live function
+            rng = np.random.RandomState(7)
+            frames = rng.randint(0, 256, (DEPLOY_FRAMES, *DEPLOY_SRC_HW, 3),
+                                 np.uint8)
+            for k, fn in (("fp32", live), ("int8", live8)):
+                checks = [_same_detections(
+                    svc[k]._serve_fn(frames[i:i + SERVE_BATCH]),
+                    fn(frames[i:i + SERVE_BATCH]))
+                    for i in range(0, DEPLOY_FRAMES, SERVE_BATCH)]
+                report[f"artifact_{k}_vs_live"] = {
+                    "batches": len(checks),
+                    "bit_equal": all(c["bit_equal"] for c in checks),
+                    "valid_equal": all(c["valid_equal"] for c in checks),
+                    "rows_max_abs_diff": max(c["rows_max_abs_diff"]
+                                             for c in checks)}
+                if not all(c["ok"] for c in checks):
+                    raise AssertionError(f"{k} artifact vs live: {checks}")
+                report[f"artifact_{k}_launches"] = _artifact_launches(
+                    svc[k], frames[:SERVE_BATCH])
+            report["valid_detections_fp32"] = int(live(frames[:8]).valid.sum())
+            # HTTP: each server's answers equal this process's artifact's
+            reqs = [np.random.RandomState(4 + i).randint(
+                0, 256, (640, 640, 3), np.uint8)
+                for i in range(DEPLOY_REQUESTS)]
+            for k, server in zip(("fp32", "int8"), servers):
+                url, banner, start_s = _await_server(server)
+                t = time.perf_counter()
+                answers = [post_raw(url, img) for img in reqs]
+                http_ms = 1e3 * (time.perf_counter() - t) / len(reqs)
+                local = [json.loads(json.dumps(svc[k].detect(img)))
+                         for img in reqs]
+                report[f"serve_artifact_{k}"] = {
+                    "start_s": start_s, "banner": banner,
+                    "request_ms_mean": http_ms,
+                    "detections": [len(a) for a in answers],
+                    "equal_in_process": answers == local}
+                if answers != local or min(map(len, answers)) <= 0:
+                    raise AssertionError(f"serve --artifact {k}: answers "
+                                         "differ from the in-process ones")
+        finally:
+            for v in svc.values():
+                v.close()
+            for server in servers:  # idle servers off before the timings
+                _stop_server(server[0])
+        # YOLOX-L's artifact answering one request
+        lsvc = DetectionService.from_artifact(art["l"], device="cuda")
+        try:
+            before = _counters()["forward"]
+            dets = lsvc.detect(reqs[0])
+            l_launches = _counters()["forward"] - before
+        finally:
+            lsvc.close()
+        report["artifact_l"] = {"detections": len(dets),
+                                "class_names": bool(lsvc.class_names),
+                                "phase_conv_launches": l_launches}
+        if not dets or "bbox" not in dets[0] or l_launches != 12:
+            raise AssertionError(f"YOLOX-L artifact: {report['artifact_l']}")
+        # the int8 evaluation's lines
+        text = _child_output(procs["eval"], logs["eval"], "eval --int8")
+        n, _ = (int(v) for v in re.search(PTQ_LINE, text).groups())
+        ap = re.findall(AP_LINE, text)
+        report["eval_int8"] = {"convs_quantized": n, "ap50_95": float(
+            ap[-1][0]) if ap else None, "ap50": float(ap[-1][1]) if ap
+            else None, "worker_aborts": text.count("killed by signal")}
+        if not ap or n != n_quant:
+            raise AssertionError(f"eval --int8: {text[-3000:]}")
+        # int8 on this card, with no child running: forward ms at B=8 beside
+        # fp32 and bf16, the decoded outputs against fp32, one int32
+        # accumulator against the CPU
+        qmodel = quant.quantize_model(deploy, scales)
+        exp16 = serving_exp()
+        exp16.compute_dtype = "bfloat16"
+        model16 = exp16.get_model("cuda")
+        x = calib[:SERVE_BATCH].permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        with torch.inference_mode():
+            report["forward_ms"] = {
+                name: cuda_ms(lambda m=m: m(x), iters=10)
+                for name, m in (("fp32", deploy), ("int8", qmodel),
+                                ("bf16", model16), ("fp32_unfused", model))}
+        report["int8_vs_fp32"] = _geo_rel(deploy, qmodel, calib[:SERVE_BATCH])
+        conv = qmodel.get_submodule("backbone.backbone.dark3.0.conv")
+        seen = []
+        h = conv.register_forward_pre_hook(lambda _m, a: seen.append(a[0]))
+        with torch.inference_mode():
+            qmodel(x)
+            acc = conv.accumulate(seen[0])
+            cpu = copy.deepcopy(conv).cpu().accumulate(seen[0].cpu())
+        h.remove()
+        report["int32_accumulator"] = {
+            "conv": "backbone.backbone.dark3.0.conv",
+            "shape": list(acc.shape),
+            "card_equals_cpu": bool(torch.equal(acc.cpu(), cpu))}
+        if not report["int32_accumulator"]["card_equals_cpu"]:
+            raise AssertionError("int8 accumulator: card != CPU")
+        counts = _launch_counts()
+    finally:
+        for server in servers:
+            _stop_server(server[0])
+        stop_children(children)
+    art_fp32, art_int8 = (report[f"artifact_{k}_launches"]
+                          for k in ("fp32", "int8"))
+    report["convs_quantized"] = n_quant
+    report["phase_s"] = time.perf_counter() - t_phase
+    ok = (art_fp32["fused"] == art_fp32["phase_conv"] == 8
+          and art_fp32["by_variant"] == DEPLOY_FORWARD
+          and art_fp32["int8_conv"] == 0
+          and art_int8["fused"] == art_int8["phase_conv"] == 6
+          and art_int8["by_variant"] == DEPLOY_FORWARD_INT8
+          and art_int8["int8_conv"] == n_quant
+          and art_int8["int8_off_phase_conv"] == 2
+          and report["valid_detections_fp32"] > 0
+          and all(np.isfinite(v) for v in report["forward_ms"].values())
+          # tests/test_quant.py's bounds on eop_tpu's int8 path
+          and report["int8_vs_fp32"]["geo_rel"] < INT8_GEO_REL
+          and report["int8_vs_fp32"]["score_max_abs_diff"] < INT8_SCORE_ATOL)
+    if not ok:
+        raise AssertionError(f"deploy: {report}")
+    return report, counts
+
 
 
 def voc_phase(smi: str, root: str, bbox_dir: str):
@@ -4505,6 +4874,7 @@ def main() -> int:
 
     data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     sys.unraisablehook = count_unraisable
+    deploy_started = None
     try:
         img_dir, lab_dir, data_report = write_dataset(data_root)
         emit({**data_report, "card": smi})
@@ -4513,9 +4883,13 @@ def main() -> int:
         emit(files_report)
         eval_report, eval_launches = eval_files(smi, img_dir, lab_dir)
         emit(eval_report)
+        # 16e's command lines run beside the cli phase's (both phases'
+        # wall times count the other's processes)
+        deploy_started = deploy_children(
+            img_dir, lab_dir, tempfile.mkdtemp(dir=data_root))
         cli_report = run_cli(smi, img_dir, lab_dir)
         emit(cli_report)
-        drops = drop_loaders(img_dir, lab_dir, drops=2)
+        drops = drop_loaders(img_dir, lab_dir, drops=1)
         # the bbox family: YOLOX-L from COCO files
         bbox_dir = os.path.join(data_root, "coco")
         emit({**write_bbox_dataset(bbox_dir), "card": smi})
@@ -4563,12 +4937,16 @@ def main() -> int:
         show_report, show_launches = show_24p_phase(
             smi, os.path.join(data_root, "show_24p"))
         emit(show_report)
+        # the deployment path: torch.export artifacts served, int8 PTQ
+        deploy_report, deploy_launches = deploy_phase(smi, deploy_started)
+        emit(deploy_report)
         for name in ("yolov3", "yolox-nano", "yolox-tiny", "yolox-x"):
             emit(bbox_card_vs_cpu(name))
         drops.update(drop_bbox_loaders(bbox_dir, drops=1))
         gc.collect()
     finally:
         sys.unraisablehook = default_hook
+        stop_children(deploy_started)
         shutil.rmtree(data_root, ignore_errors=True)
     died = [u for u in unraisable if "killed by signal" in u]
     emit({"phase": "loader_shutdown", "card": smi, **drops,
@@ -4613,7 +4991,10 @@ def main() -> int:
                "train_voc": voc_launches["forward"],
                **{k: n for k, (n, _) in voc_evals.items()},
                # show_24p's child: 24p-s at batch 1 over 4 files
-               "show_24p": show_launches["forward"]}
+               "show_24p": show_launches["forward"],
+               # the deployment phase: 24p-s's fp32 and int8 artifacts and
+               # live functions in this process, YOLOX-L's artifact
+               "serve_artifact": deploy_launches["forward"]}
     train_paths = {"train": repeat_launches, "train_files": files_launches,
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
@@ -4630,6 +5011,7 @@ def main() -> int:
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
         "show_24p": _variants(show_launches),
+        "serve_artifact": _variants(deploy_launches),
         **{k: v for k, (_, v) in voc_evals.items()},
         **{k: _variants(c) for k, c in train_paths.items()}})
     cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()

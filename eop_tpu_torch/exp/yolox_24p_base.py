@@ -13,7 +13,7 @@ import torch.nn.functional as F
 
 from ..eval.postprocess import postprocess_24p_heads
 from ..models.yolox import YOLOX, init_weights
-from ..utils.device import resolve_device, set_fp32_precision
+from ..utils.device import resolve_device
 from .base_exp import BaseExp
 
 # compute_dtype -> the model's compute dtype (the kernels take these two)
@@ -86,36 +86,18 @@ class Exp24P(BaseExp):
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 
-    def get_infer_fn(self, model, device=None):
-        """One call, a letterboxed NHWC batch ``[B, *test_size, 3]`` (float
-        or uint8, on the host or the card) -> ``Detections`` on ``device``:
-        forward, decode, NMS.
-
-        It enters ``torch.inference_mode`` itself, because the batcher calls
-        it from its own thread and grad mode is thread-local.  The batch
-        goes in as fp32 and the model casts it to its compute dtype, as
-        ``eop_tpu`` does.  On the card it turns TF32 off: the fp32 path is
-        full fp32.
-        """
-        device = resolve_device(device)
-        set_fp32_precision(device)
-        nms_iters = self._nms_iters()
-
-        def infer(imgs):
-            with torch.inference_mode():
-                x = torch.as_tensor(imgs).to(device, non_blocking=True)
-                # NHWC storage viewed as NCHW: channels_last for the model
-                head_outs, _ = model(x.float().permute(0, 3, 1, 2))
-                return postprocess_24p_heads(
-                    head_outs,
-                    num_classes=self.num_classes,
-                    conf_thre=self.test_conf,
-                    nms_thre=self.nmsthre,
-                    reference_parity=self.reference_parity,
-                    nms_fixpoint_iters=nms_iters,
-                )
-
-        return infer
+    def _postprocess(self, head_outs):
+        """Raw head maps -> ``Detections`` rows ``[B, 300, 29]``: decode,
+        polygon NMS (``get_infer_fn`` / ``get_serving_fn`` run it after the
+        forward)."""
+        return postprocess_24p_heads(
+            head_outs,
+            num_classes=self.num_classes,
+            conf_thre=self.test_conf,
+            nms_thre=self.nmsthre,
+            reference_parity=self.reference_parity,
+            nms_fixpoint_iters=self._nms_iters(),
+        )
 
     def get_data_input(self, img_path: str):
         """Letterbox one image file for inference: (float32 ``[1,
@@ -158,11 +140,15 @@ class Exp24P(BaseExp):
             num_classes=self.num_classes,
         )
 
-    def eval(self, model, evaluator):
+    def eval(self, model, evaluator, quant_scales=None,
+             quant_min_channels: int = 64):
         """``evaluator.evaluate`` over ``model`` (in eval mode) on the
-        device its weights are on: (AP50:95, AP50, summary)."""
+        device its weights are on: (AP50:95, AP50, summary); the int8 path
+        where ``quant_scales`` is given (with the deploy model of
+        ``quantize_for_inference``)."""
         device = next(model.parameters()).device
-        return evaluator.evaluate(self.get_infer_fn(model, device))
+        return evaluator.evaluate(self.get_infer_fn(
+            model, device, quant_scales, quant_min_channels))
 
     # ------------------------------------------------------------------
     # training

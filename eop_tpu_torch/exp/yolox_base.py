@@ -147,25 +147,14 @@ class Exp(BaseExp):
         init_weights(model, seed)
         return model.to(device, memory_format=torch.channels_last).eval()
 
-    def get_infer_fn(self, model, device=None):
-        """One call, a letterboxed NHWC batch ``[B, *test_size, 3]`` (float
-        or uint8, on the host or the card) -> ``Detections`` rows ``[B, 300,
-        7]`` on ``device``: forward, decode, NMS, under
-        ``torch.inference_mode``; TF32 off on the card."""
-        device = resolve_device(device)
-        set_fp32_precision(device)
-        nms_iters = self._nms_iters()
-
-        def infer(imgs):
-            with torch.inference_mode():
-                x = torch.as_tensor(imgs).to(device, non_blocking=True)
-                head_outs, _ = model(x.float().permute(0, 3, 1, 2))
-                return postprocess_bbox_heads(
-                    head_outs, num_classes=self.num_classes,
-                    conf_thre=self.test_conf, nms_thre=self.nmsthre,
-                    nms_fixpoint_iters=nms_iters)
-
-        return infer
+    def _postprocess(self, head_outs):
+        """Raw head maps -> ``Detections`` rows ``[B, 300, 7]``: decode and
+        per-class NMS (``get_infer_fn`` / ``get_serving_fn`` run it after
+        the forward)."""
+        return postprocess_bbox_heads(
+            head_outs, num_classes=self.num_classes,
+            conf_thre=self.test_conf, nms_thre=self.nmsthre,
+            nms_fixpoint_iters=self._nms_iters())
 
     # ------------------------------------------------------------------
     # training data
@@ -363,14 +352,19 @@ class Exp(BaseExp):
 
         return decode_only
 
-    def eval(self, model, evaluator, time_split: bool = False):
+    def eval(self, model, evaluator, time_split: bool = False,
+             quant_scales=None, quant_min_channels: int = 64):
         """``evaluator.evaluate`` over ``model`` (in eval mode) on the
         device its weights are on: (AP50:95, AP50, summary).
         ``time_split`` also hands it :meth:`get_decode_fn`, whose extra
         forwards estimate the NMS time (the evaluation command line's
-        diagnostic; training leaves it off)."""
+        diagnostic; training leaves it off).  ``quant_scales`` (with the
+        deploy model of ``quantize_for_inference``) evaluates the int8
+        path; the split is off there, as in ``eop_tpu``: the decode-only
+        probe runs in fp and would put the difference on NMS."""
         device = next(model.parameters()).device
         return evaluator.evaluate(
-            self.get_infer_fn(model, device),
-            decode_fn=(self.get_decode_fn(model, device) if time_split
-                       else None))
+            self.get_infer_fn(model, device, quant_scales,
+                              quant_min_channels),
+            decode_fn=(self.get_decode_fn(model, device)
+                       if time_split and not quant_scales else None))

@@ -211,35 +211,42 @@ class BaseConv(nn.Module):
 
     def _hwio_args(self):
         """(HWIO weight in ``dtype``, stride, padding) for the kernel."""
+        # the cached tensor carries no graph: only for eval without autograd,
+        # and never while torch.export traces (no data pointers there)
+        cacheable = (not self.training and not torch.is_grad_enabled()
+                     and not torch.compiler.is_compiling())
+        if not cacheable:
+            w, stride, pad = self.conv_args()
+            return w.permute(2, 3, 1, 0).contiguous(), stride, pad
         p = self.conv.weight
         # the parameter stays fp32: key on the dtype the cache holds
         key = (p.data_ptr(), p._version, self.dtype)
-        # the cached tensor carries no graph: only for eval without autograd
-        cacheable = not self.training and not torch.is_grad_enabled()
         cached_key, cached = self._hwio_cache
-        if cacheable and cached_key == key:
+        if cached_key == key:
             return cached
         w, stride, pad = self.conv_args()
         args = (w.permute(2, 3, 1, 0).contiguous(), stride, pad)
-        if cacheable:
-            self._hwio_cache = (key, args)
+        self._hwio_cache = (key, args)
         return args
 
     def _folded_bn(self):
         """Eval-mode BatchNorm as fp32 (scale, shift):
         ``scale = gamma / sqrt(running_var + eps)``,
-        ``shift = beta - running_mean * scale``."""
+        ``shift = beta - running_mean * scale``; cached, except while
+        ``torch.export`` traces."""
         bn = self.bn
-        key = tuple((t.data_ptr(), t._version) for t in (
+        tracing = torch.compiler.is_compiling()
+        key = None if tracing else tuple((t.data_ptr(), t._version) for t in (
             bn.weight, bn.bias, bn.running_mean, bn.running_var))
         cached_key, cached = self._bn_cache
-        if cached_key == key:
+        if key is not None and cached_key == key:
             return cached
         scale = bn.weight.float() * torch.rsqrt(
             bn.running_var.float() + bn.eps)
         shift = bn.bias.float() - bn.running_mean.float() * scale
         folded = (scale.contiguous(), shift.contiguous())
-        self._bn_cache = (key, folded)
+        if key is not None:
+            self._bn_cache = (key, folded)
         return folded
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,8 @@ def _suppress(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
     """Keep mask ``[..., K]`` of candidates sorted by descending score.
 
     ``fixpoint_iters`` ``"exact"`` (or None): iterate until no image of the
-    batch changes, capped at K: greedy-exact for any suppression chain.
+    batch changes, capped at K: greedy-exact for any suppression chain (a
+    ``while_loop`` while ``torch.export`` traces).
     An int fixes the number of iterations (exact only when it reaches the
     realized chain depth).
     """
@@ -37,6 +38,8 @@ def _suppress(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
         return valid & ~suppressed
 
     if fixpoint_iters is None or fixpoint_iters == "exact":
+        if torch.compiler.is_compiling():
+            return _fixpoint_traced(apply_f, valid, k)
         cur = valid
         for _ in range(k):
             new = apply_f(cur)
@@ -48,6 +51,26 @@ def _suppress(iou: torch.Tensor, valid: torch.Tensor, iou_threshold: float,
     for _ in range(min(int(fixpoint_iters), k)):
         cur = apply_f(cur)
     return cur
+
+
+def _fixpoint_traced(apply_f, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """The exact fixpoint as a traced loop (``eop_tpu``'s
+    ``lax.while_loop``): ``torch.export`` cannot trace the eager loop's
+    data-dependent break, so the stationarity test is the condition of a
+    ``while_loop``, capped at K, never a fixed budget."""
+    from torch._higher_order_ops import while_loop
+
+    def cond(cur, changed, i):
+        return changed & (i < k)
+
+    def body(cur, changed, i):
+        new = apply_f(cur)
+        return new, torch.any(new != cur), i + 1
+
+    keep, _, _ = while_loop(cond, body, (
+        valid, torch.ones((), dtype=torch.bool, device=valid.device),
+        torch.zeros((), dtype=torch.int64, device=valid.device)))
+    return keep
 
 
 def nms_on_candidates(boxes: torch.Tensor, valid: torch.Tensor,

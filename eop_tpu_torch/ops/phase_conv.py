@@ -907,6 +907,45 @@ def _count(counts: Dict[str, int], variant: str) -> None:
     counts[variant] = counts.get(variant, 0) + 1
 
 
+@torch.library.custom_op("eop_tpu_torch::phase_conv", mutates_args=())
+def phase_conv_op(x: torch.Tensor, w: torch.Tensor, stride: int,
+                  padding: int, scale: Optional[torch.Tensor],
+                  shift: Optional[torch.Tensor], act: Optional[str],
+                  force_direct: bool) -> torch.Tensor:
+    """The no-grad forward as a registered operator, so that
+    ``torch.export`` keeps it as one node of the graph and a loaded artifact
+    runs the same code: on a CPU tensor :func:`phase_conv_reference`, on a
+    CUDA tensor the kernel (:func:`_phase_conv_cuda`), counted there."""
+    return phase_conv_reference(x, w, stride, padding, scale, shift, act)
+
+
+@phase_conv_op.register_kernel("cuda")
+def _phase_conv_cuda(x, w, stride, padding, scale, shift, act, force_direct):
+    """Launch the forward kernel on checked CUDA arguments and count it:
+    ``phase_conv.launches``, ``.fused_launches`` (with ``scale``),
+    ``.variant_launches``, ``.last_variant``.  A launch from inside an
+    exported program is counted here too."""
+    _check_args(x, w, stride, padding)
+    _check_cuda_pair(x, w, "x and w")
+    _check_epilogue(w.shape[3], scale, shift, act, x.device)
+    y, variant = _launch_forward(x, w, stride, padding, scale, shift, act,
+                                 variant="direct" if force_direct else None)
+    if y.numel():
+        phase_conv.launches += 1
+        phase_conv.fused_launches += scale is not None
+        _count(phase_conv.variant_launches, variant)
+        phase_conv.last_variant = variant
+    return y
+
+
+@phase_conv_op.register_fake
+def _phase_conv_fake(x, w, stride, padding, scale, shift, act, force_direct):
+    """Shape, type and (contiguous NHWC) strides of the output."""
+    _check_args(x, w, stride, padding)
+    ho, wo = out_hw(x.shape[1], x.shape[2], w.shape[0], stride, padding)
+    return x.new_empty((x.shape[0], ho, wo, w.shape[3]))
+
+
 def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None,
@@ -919,6 +958,9 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     p=(k-1)//2 or even k and p=k/2-1, on even H and W.  Anything else
     raises.  Differentiable in ``x`` and ``w`` without the epilogue
     (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
+    Without autograd, under ``torch.export``, the call is the operator
+    ``eop_tpu_torch::phase_conv`` (:func:`phase_conv_op`), one node of the
+    graph; eagerly it runs that operator's implementation directly.
 
     ``_direct`` sends a CUDA call without autograd to the CUDA-core
     ``direct`` kernel whatever the shape, for comparisons.
@@ -936,27 +978,29 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     wants_grad = torch.is_grad_enabled() and (x.requires_grad
                                               or w.requires_grad)
     no_epilogue = scale is None and shift is None and act is None
-    if cpu and not (wants_grad and no_epilogue):
-        return phase_conv_reference(x, w, stride, padding, scale, shift, act)
     _check_args(x, w, stride, padding)
     if not cpu:
         _check_cuda_pair(x, w, "x and w")
     if wants_grad:
-        if not no_epilogue:
-            raise NotImplementedError(
-                "the fused scale, shift and act have no backward kernel: "
-                "under autograd call phase_conv without them and apply "
-                "BatchNorm and SiLU as modules")
-        return PhaseConvFunction.apply(x, w, stride, padding)
-    _check_epilogue(w.shape[3], scale, shift, act, x.device)
-    y, variant = _launch_forward(x, w, stride, padding, scale, shift, act,
-                                 variant="direct" if _direct else None)
-    if y.numel():
-        phase_conv.launches += 1
-        phase_conv.fused_launches += scale is not None
-        _count(phase_conv.variant_launches, variant)
-        phase_conv.last_variant = variant
-    return y
+        if no_epilogue:
+            return PhaseConvFunction.apply(x, w, stride, padding)
+        if cpu:  # the plain version, which autograd differentiates
+            return phase_conv_reference(x, w, stride, padding, scale, shift,
+                                        act)
+        raise NotImplementedError(
+            "the fused scale, shift and act have no backward kernel: under "
+            "autograd call phase_conv without them and apply BatchNorm and "
+            "SiLU as modules")
+    _check_epilogue(w.shape[3], scale, shift, act)
+    if torch.compiler.is_compiling():
+        # torch.export: one node of the graph
+        return phase_conv_op(x, w, stride, padding, scale, shift, act,
+                             _direct)
+    # eagerly, the operator's implementations themselves: a custom op's
+    # first call imports torch._dynamo (seconds in every process)
+    if cpu:
+        return phase_conv_reference(x, w, stride, padding, scale, shift, act)
+    return _phase_conv_cuda(x, w, stride, padding, scale, shift, act, _direct)
 
 
 phase_conv.launches = 0

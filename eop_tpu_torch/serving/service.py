@@ -3,9 +3,11 @@
 exp's rows become ``bbox`` dicts, a 24p exp's polygons.
 
 Wraps the fused serving function (``exp.get_serving_fn``: uint8 letterbox
-+ forward + decode + NMS) behind a ``DynamicBatcher``:
++ forward + decode + NMS, or a ``torch.export`` artifact of it from
+``tools/export_serving.py``) behind a ``DynamicBatcher``:
 
     svc = DetectionService.from_exp(exp, model, batch=8, src_hw=(720, 1280))
+    svc = DetectionService.from_artifact("serving.pt2")  # export_serving
     dets = svc.detect(frame_bgr)     # any HxW uint8 image, thread-safe
     svc.detect_async(frame_bgr, callback)  # callback(dets, error) later
 
@@ -27,6 +29,7 @@ import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..data.transforms import PAD_VALUE as _PAD_F
 from ..data.transforms import letterbox_host
@@ -56,7 +59,8 @@ class DetectionService:
     def __init__(self, serve_fn, batch: int, src_hw: Tuple[int, int],
                  test_size: Tuple[int, int],
                  class_names: Optional[Sequence[str]] = None,
-                 max_wait_ms: float = 5.0, max_queue: int = 256):
+                 max_wait_ms: float = 5.0, max_queue: int = 256,
+                 buckets: Optional[Sequence[int]] = None):
         self._serve_fn = serve_fn
         self.batch = int(batch)
         self.src_hw = tuple(int(v) for v in src_hw)
@@ -64,8 +68,13 @@ class DetectionService:
         self.class_names = list(class_names) if class_names else None
         # padding waste (host->device bytes and device FLOPs) tracks the
         # load: a partial batch pads only to the smallest bucket that fits
-        self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256)
-                        if b < self.batch] + [self.batch]
+        # (an artifact has one shape: its batch is the one bucket)
+        self.buckets = (sorted(int(b) for b in buckets) if buckets else
+                        [b for b in (1, 2, 4, 8, 16, 32, 64, 128, 256)
+                         if b < self.batch] + [self.batch])
+        if self.buckets[-1] != self.batch:
+            raise ValueError(f"the largest bucket {self.buckets[-1]} is not "
+                             f"the batch {self.batch}")
         # the device letterbox ratio (static: both shapes fixed)
         self.dev_ratio = min(self.test_size[0] / self.src_hw[0],
                              self.test_size[1] / self.src_hw[1])
@@ -86,11 +95,53 @@ class DetectionService:
     @classmethod
     def from_exp(cls, exp, model, batch: int,
                  src_hw: Optional[Tuple[int, int]] = None, device=None,
-                 class_names=None, **kw) -> "DetectionService":
+                 class_names=None, quant_scales=None,
+                 quant_min_channels: int = 64, **kw) -> "DetectionService":
+        """Serve ``exp.get_serving_fn`` over ``model``: int8 where
+        ``quant_scales`` is given (with the deploy model of
+        ``exp.quantize_for_inference``)."""
         src_hw = tuple(src_hw or exp.test_size)
-        serve = exp.get_serving_fn(model, src_hw, device)
+        serve = exp.get_serving_fn(model, src_hw, device, quant_scales,
+                                   quant_min_channels)
         return cls(serve, batch, src_hw, tuple(exp.test_size),
                    class_names=class_names, **kw)
+
+    @classmethod
+    def from_artifact(cls, path: str,
+                      test_size: Optional[Tuple[int, int]] = None,
+                      class_names=None, device=None,
+                      **kw) -> "DetectionService":
+        """Serve a ``torch.export`` artifact
+        (``tools/export_serving.py``) on ``device`` (the card unless
+        ``"cpu"``): no model code, checkpoint or exp.  Batch and ``src_hw``
+        come from the program's input; ``test_size`` and class names from
+        its metadata (pass ``test_size`` only for an artifact without it: a
+        wrong one mis-scales every coordinate).  The program has one shape,
+        so its batch is the one bucket and every call pads to it."""
+        from ..eval.postprocess import Detections
+        from ..utils.device import resolve_device
+        from ..utils.serving_export import (artifact_input_shape,
+                                            load_serving_artifact)
+
+        device = resolve_device(device)
+        exported, meta = load_serving_artifact(path, device, with_meta=True)
+        if test_size is None:
+            if "test_size" not in meta:
+                raise ValueError(f"{path} carries no test_size metadata: "
+                                 "pass test_size")
+            test_size = tuple(meta["test_size"])
+        if class_names is None:
+            class_names = meta.get("class_names")
+        b, h, w, _ = artifact_input_shape(exported)
+        program = exported.module()
+
+        def serve(raw_uint8):
+            with torch.no_grad():
+                x = torch.as_tensor(np.asarray(raw_uint8)).to(device)
+                return Detections(*program(x))
+
+        return cls(serve, b, (h, w), test_size, class_names=class_names,
+                   buckets=[b], **kw)
 
     def detect(self, img: np.ndarray,
                timeout: Optional[float] = 30.0) -> List[dict]:

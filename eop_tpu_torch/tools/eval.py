@@ -4,7 +4,7 @@ family over image and label files (COCO-24p AP).
 
     python -m eop_tpu_torch.tools.eval -n yolox-l -c CKPT -b 8 \
         --data-dir COCO_DIR [--per-class-ap] [--testdev] [--legacy] \
-        [--device cuda] [key value ...]
+        [--int8 [--quant-min-channels 64]] [--device cuda] [key value ...]
     python -m eop_tpu_torch.tools.eval \
         -f exps/example/yolox_voc/yolox_voc_s.py -c CKPT -b 8 \
         --data-dir ROOT_OF_VOCDEVKIT
@@ -20,10 +20,14 @@ seeded random weights.  ``--testdev`` scores ``test_ann`` (``test2017/``)
 through ``./yolox_testdev_2017.json``, ``--legacy`` feeds the model RGB in
 0..1 with ImageNet normalisation; both reach only an exp whose
 ``get_evaluator`` takes them (the bbox family's; the 24p family's takes
-neither, and they are dropped).  Prints the summary (its first line the
-average forward, NMS and inference times: the NMS time is estimated from
-extra forward-and-decode calls on the first batch), then ``AP50:95 = x
-AP50 = y``.  Runs on the card; ``--device cpu`` runs on the CPU.
+neither, and they are dropped).  ``--int8`` folds the BatchNorms,
+calibrates the activation scales on the first two batches of the eval
+loader and evaluates the int8 program (``ops/quant.py``), printing
+``int8 PTQ: N convs quantized (min_channels=M)`` first.  Prints the
+summary (its first line the average forward, NMS and inference times: the
+NMS time is estimated from extra forward-and-decode calls on the first
+batch, except under ``--int8``), then ``AP50:95 = x AP50 = y``.  Runs on
+the card; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -54,6 +58,11 @@ def make_parser():
     parser.add_argument("--legacy", action="store_true",
                         help="RGB in 0..1, ImageNet-normalised input")
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 PTQ: fold BatchNorm, calibrate on the "
+                             "first two batches of the eval loader, run the "
+                             "eligible convs in int8")
+    parser.add_argument("--quant-min-channels", type=int, default=64)
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[])
     return parser
 
@@ -117,9 +126,23 @@ def main(argv=None):
                                ("per_class_AP", args.per_class_ap))
              if k in accepted}
     evaluator = exp.get_evaluator(batch_size=args.batch_size, **extra)
-    # the diagnostic command line splits forward and NMS time
-    ap50_95, ap50, summary = (exp.eval(model, evaluator, time_split=True)
-                              if bbox else exp.eval(model, evaluator))
+    quant = {}
+    if args.int8:
+        from ..ops.quant import quantized_keys
+
+        calib = [batch[0] for batch, _ in zip(evaluator.dataloader, range(2))]
+        model, scales = exp.quantize_for_inference(model, calib,
+                                                   args.quant_min_channels)
+        quant = dict(quant_scales=scales,
+                     quant_min_channels=args.quant_min_channels)
+        n = len(quantized_keys(model, scales, args.quant_min_channels))
+        print(f"int8 PTQ: {n} convs quantized "
+              f"(min_channels={args.quant_min_channels})", flush=True)
+    # the diagnostic command line splits forward and NMS time (not under
+    # int8: the decode-only probe runs in fp)
+    ap50_95, ap50, summary = (
+        exp.eval(model, evaluator, time_split=True, **quant) if bbox
+        else exp.eval(model, evaluator, **quant))
     print(summary)
     print(f"AP50:95 = {ap50_95:.4f}  AP50 = {ap50:.4f}", flush=True)
     return ap50_95, ap50

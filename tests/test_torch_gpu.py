@@ -1559,3 +1559,95 @@ def test_fp32_kernels_match_cudnn_against_float64(cuda, shape):
                              tuple(x.shape), s, p).permute(0, 3, 1, 2)
     bwd = (mean_err(dx, dx64), mean_err(dx32, dx64))
     assert bwd[0] <= 2.2 * bwd[1], bwd
+
+
+def _eligible_shapes(device, batch=2):
+    """(k, stride, C, Co, B, H, W) of every conv 24p-s (full width, 640
+    px) computes in int8 at the default gate, read by forward pre-hooks."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops import quant
+
+    exp = get_exp(None, "yolox_24p_s")
+    model = exp.get_model(device)
+    sites = quant.conv_sites(model)
+    shapes, handles = set(), []
+    for key, m in sites.items():
+        if quant.eligible(m, 64):
+            conv = quant._conv(m)
+
+            def hook(_m, args, conv=conv):
+                b, c, h, w = args[0].shape
+                shapes.add((conv.kernel_size[0], conv.stride[0], c,
+                            conv.out_channels, b, h, w))
+            handles.append(m.register_forward_pre_hook(hook))
+    with torch.inference_mode():
+        model(torch.zeros((batch, 3, 640, 640), device=device))
+    for h in handles:
+        h.remove()
+    return sorted(shapes)
+
+
+@pytest.mark.gpu
+def test_int8_conv_on_card_bit_equal_to_cpu(cuda):
+    """The int32 accumulator of every int8 conv of 24p-s (B=2, 640 px):
+    patches and ``torch._int_mm`` (cuBLASLt) on the card, the same on the
+    CPU, equal bit for bit; the codes from one fp32 input quantized on each
+    device are equal too (a true division on both)."""
+    from eop_tpu_torch.ops import quant
+
+    shapes = _eligible_shapes(cuda)
+    assert len(shapes) >= 10
+    g = torch.Generator().manual_seed(0)
+    for k, s, c, co, b, h, w in shapes:
+        x = torch.randn((b, h, w, c), generator=g) * 3
+        s_x = torch.tensor(float(x.abs().max()) / 127.0)
+        q_x = quant.quantize_act(x, s_x)
+        assert torch.equal(quant.quantize_act(x.to(cuda), s_x.to(cuda)).cpu(),
+                           q_x)
+        q_w = torch.randint(-127, 128, (co, k * k * c), generator=g,
+                            dtype=torch.int8).t()
+        want = quant.int8_conv(q_x, q_w, k, s, (k - 1) // 2)
+        got = quant.int8_conv(q_x.to(cuda), q_w.to(cuda), k, s, (k - 1) // 2)
+        assert torch.equal(got.cpu(), want), (k, s, c, co, h, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_artifact_exported_on_card_equals_live_serving(cuda, tmp_path, int8):
+    """24p-s at full width, 720x1280 frames at B=2: the artifact exported
+    and loaded on the card gives the live serving function's rows and
+    valid mask, and its graph launches phase_conv's kernels, counted from
+    inside the registered operator."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops import quant
+    from eop_tpu_torch.utils.serving_export import (
+        calibration_batch, export_serving, load_serving_artifact,
+        save_serving_artifact)
+
+    exp = get_exp(None, "yolox_24p_s")
+    exp.test_conf = 1e-5
+    model = exp.get_model(cuda)
+    src_hw = (720, 1280)
+    scales = None
+    if int8:
+        model, scales = exp.quantize_for_inference(
+            model, [calibration_batch(None, src_hw, exp.test_size,
+                                      device=cuda)])
+    raw = np.random.RandomState(0).randint(0, 256, (2, *src_hw, 3), np.uint8)
+    live = exp.get_serving_fn(model, src_hw, cuda, scales)(raw)
+    path = str(tmp_path / "a.pt2")
+    save_serving_artifact(export_serving(exp, model, 2, src_hw, cuda, scales),
+                          path, {"test_size": list(exp.test_size)})
+    prog = load_serving_artifact(path, cuda)
+    before = (pc.phase_conv.launches, pc.phase_conv.fused_launches,
+              quant.int8_conv.calls)
+    with torch.no_grad():
+        rows, valid = prog.module()(torch.from_numpy(raw).to(cuda))
+    torch.cuda.synchronize()
+    launched = (pc.phase_conv.launches - before[0],
+                pc.phase_conv.fused_launches - before[1],
+                quant.int8_conv.calls - before[2])
+    assert launched[:2] == ((6, 6) if int8 else (8, 8))
+    assert (launched[2] > 0) == int8
+    assert valid.sum() > 0
+    assert torch.equal(valid, live.valid) and torch.equal(rows, live.rows)

@@ -66,7 +66,10 @@ def test_every_module_imports_without_jax():
                  "eval.voc_evaluator",
                  # the 24p family's label generator and drawing tools
                  "data.geometry", "tools.labels_create_24p",
-                 "tools.show_24p", "tools.show_mask"):
+                 "tools.show_24p", "tools.show_mask",
+                 # the deployment path: export, int8 PTQ
+                 "ops.quant", "utils.serving_export",
+                 "tools.export_serving"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
