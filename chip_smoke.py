@@ -171,6 +171,30 @@
     bf16 (CUDA events), int8 against fp32 on the decoded outputs (``geo_rel``
     of ``tests/test_quant.py``) and one int8 conv's int32 accumulator on
     the card equal to the CPU's;
+16f. data parallelism on the one card: two ranks on ``cuda:0`` (gloo
+    over CUDA tensors; NCCL, tried beside them for two ranks on one device,
+    refuses: its outcome recorded), started beside YOLOX-L's training
+    child, each run three data-parallel steps
+    of 24p-s at full width (640 px, B=16 a rank, seeded weights, EMA; fp32,
+    then bf16) against one process's B=32 steps from the same state: the
+    first fp32 step's loss within 1e-4 and ``num_fg`` equal, the fp32
+    gradients within ``train_card_vs_cpu``'s 1e-3 as the whole tree's
+    relative L2 distance (each tensor's largest gap and those over 1e-3
+    reported: the SPP's max pools turn fp32 rounding into rerouted
+    gradients); bf16 within ``train_card_vs_cpu``'s bf16 bounds (the loss
+    within 5e-2, ``num_fg`` within a quarter, finite gradients) and its
+    gradients' median cosine with the fp32 step no lower than the
+    one-process bf16 step's less 0.1 (bf16 gradients are noise-dominated);
+    the ranks' parameters, BatchNorm buffers and EMA bit-equal
+    after the steps, each rank's step launching what the one-process step
+    does by variant (8 / 8 / 7), each rank's step ms (two ranks on one
+    card: not a scaling figure); then ``python -m
+    eop_tpu_torch.tools.train_24p --multi-host --coordinator
+    127.0.0.1:PORT --num-processes 1 --process-id 0`` over NCCL on phase
+    10's files, without and with ``--fsdp`` (at once, beside the cli
+    phase), each checkpoint
+    scored by ``tools.eval`` (an AP line), the per-rank state bytes that
+    ``place_state`` logs;
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
@@ -178,6 +202,9 @@
 ``python3 chip_smoke.py --show-24p-child OUT -- ARGS`` is 16d's child:
 ``tools.show_24p``'s ``main(ARGS)`` without cv2, its rows, times and
 launch counts written to OUT.
+
+``python3 chip_smoke.py --dp-child RANK PORT OUT BACKEND`` is one of
+16f's ranks; ``--nccl-probe-child RANK PORT`` one of its NCCL probe's.
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
 phase, N times in one process, one line a run.  ``python3 chip_smoke.py
@@ -316,7 +343,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_EXP_FILE = os.path.join(ROOT, "load_train", "yolox_24p_train.py")
 # the file dataset: raw fisheye-camera frames as baseline JPEG (quality 95,
 # 4:2:0, utils/synth.py's encoder) under .jpg names
-DATASET_IMAGES, DATASET_HW = 64, (720, 1280)
+# (32 images, not 64: room for 16f, every check kept)
+DATASET_IMAGES, DATASET_HW = 32, (720, 1280)
 # processes that encode the seeded datasets' JPEGs (the same bytes as one)
 WRITERS = min(8, os.cpu_count() or 1)
 # the decode phase: one seeded 720x1280 frame (utils/synth.py) as JPEG and
@@ -2284,7 +2312,7 @@ def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
 
 def run_cli(smi: str, img_dir: str, lab_dir: str):
     """The two command lines as users run them: train 24p-s for one epoch
-    (2 iterations) in bf16 (``compute_dtype bfloat16``) with an evaluation,
+    (one iteration) in bf16 (``compute_dtype bfloat16``) with an evaluation,
     then evaluate its checkpoint (fp32 weights) in fp32."""
     import re
 
@@ -2330,9 +2358,373 @@ def run_cli(smi: str, img_dir: str, lab_dir: str):
     return report
 
 # ---------------------------------------------------------------------------
+# 16f: data parallelism on the one card
+
+# two ranks of B=16 against one process of B=32; 3 steps each
+DP_WORLD, DP_BATCH, DP_STEPS = 2, 16, 3
+DP_SEED, DP_LR, DP_EMA = 7, 1e-3, 0.9998
+# launches of one 24p-s training step by variant (the main path's 8 convs)
+DP_STEP_VARIANTS = variant_counts(
+    [("wgmma_rows", "wgmma", None)]
+    + [("wgmma_taps", "wgmma", "wgmma_classes")]
+    + [("wgmma_taps", "wgmma", "flipped:wgmma_taps")] * 5
+    + [("wgmma_taps", "wgmma", "wgmma_classes")])
+
+
+def dp_batches():
+    """The global batches (CPU generator: the same in every process)."""
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    g = torch.Generator().manual_seed(DP_SEED)
+    return [synthetic_24p_batch(g, DP_WORLD * DP_BATCH, size=640,
+                                ngt=TRAIN_GTS) for _ in range(DP_STEPS)]
+
+
+def dp_steps(compute_dtype: str, group=None) -> dict:
+    """``DP_STEPS`` steps of 24p-s (seeded weights, EMA) on the card: with
+    a ``group``, this rank's rows of each global batch through the
+    data-parallel step (``convert_global_bn``, the loss with the group,
+    ``shard_train_step``); without, the whole batch in one process.  The
+    first step's metrics and gradients, every step's launches by variant
+    and CUDA-event ms, the state after the steps."""
+    import torch.distributed as dist
+
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.parallel import (
+        convert_global_bn,
+        shard_batch,
+        shard_train_step,
+    )
+    from eop_tpu_torch.train.steps import create_train_state, make_train_step_24p
+
+    exp = get_exp(exp_name="yolox_24p_s")
+    exp.compute_dtype = compute_dtype
+    model = exp.get_model("cuda", seed=0).train()
+    if group is not None:
+        convert_global_bn(model, group)
+    rank = dist.get_rank(group) if group is not None else 0
+    world = dist.get_world_size(group) if group is not None else 1
+    state = create_train_state(
+        model, exp.get_optimizer(model, DP_WORLD * DP_BATCH, lr=DP_LR),
+        use_ema=True, with_dwa=True)
+    step = shard_train_step(make_train_step_24p(
+        Loss24PConfig(num_classes=exp.num_classes), ema_decay=DP_EMA,
+        group=group), group)
+    out = {"rank": rank, "world": world, "steps": []}
+    for i, (imgs, labels) in enumerate(dp_batches()):
+        imgs, labels = shard_batch((imgs, labels), rank, world)
+        imgs, labels = imgs.cuda(), labels.cuda()
+        torch.cuda.synchronize()
+        _reset_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, m = step(state, imgs, labels)
+        ev[1].record()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        out["steps"].append({
+            "ms": ev[0].elapsed_time(ev[1]),
+            "launches": {k: counts[k] for k in ("forward", "wgrad", "dgrad",
+                                                "pack")},
+            "variants": _variants(counts),
+            "metrics": {k: v.float().cpu() for k, v in m.items()}})
+        if i == 0:
+            out["grads"] = {n: p.grad.float().cpu()
+                            for n, p in model.named_parameters()}
+    out["state"] = {k: v.cpu() for k, v in model.state_dict().items()}
+    out["ema"] = {k: v.cpu() for k, v in {**state.ema_params,
+                                           **state.ema_batch_stats}.items()}
+    return out
+
+
+def dp_child(rank: int, port: int, out_path: str, backend: str) -> int:
+    """One of 16f's ranks on ``cuda:0``: the process group over
+    ``backend``, then :func:`dp_steps` in fp32 and bf16, saved to
+    ``out_path``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eop_tpu_torch.parallel.dist import init_distributed
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    init_distributed("cuda:0", f"127.0.0.1:{port}", DP_WORLD, rank,
+                     timeout=datetime.timedelta(seconds=120),
+                     backend=backend)
+    try:
+        t0 = time.perf_counter()
+        res = {d: dp_steps(d, dist.group.WORLD)
+               for d in ("float32", "bfloat16")}
+        res["wall_s"] = time.perf_counter() - t0
+        res["backend"] = dist.get_backend()
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def nccl_probe_child(rank: int, port: int) -> int:
+    """Two ranks on ``cuda:0`` over NCCL: one all_reduce (16f's record of
+    whether NCCL takes two ranks on one device)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eop_tpu_torch.parallel.dist import init_distributed
+
+    init_distributed("cuda:0", f"127.0.0.1:{port}", DP_WORLD, rank,
+                     timeout=datetime.timedelta(seconds=30))
+    try:
+        t = torch.full((4,), float(rank + 1), device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print(f"NCCL_PROBE_OK {t.tolist()}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def nccl_probe_start() -> tuple:
+    """Start the NCCL probe's two children (two ranks on ``cuda:0``)."""
+    port = free_port()
+    logs = [tempfile.mktemp(prefix=f"chip_smoke_nccl{r}_") for r in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--nccl-probe-child",
+         str(r), str(port)], cwd=ROOT, stdout=open(logs[r], "w"),
+        stderr=subprocess.STDOUT) for r in (0, 1)]
+    return procs, logs
+
+
+def nccl_two_ranks_one_card(started: tuple) -> dict:
+    """Whether NCCL accepted two ranks on one device: the probe's two
+    children's exit codes and last lines (a refusal is the expected
+    outcome)."""
+    procs, logs = started
+    out = {}
+    for r, p in enumerate(procs):
+        try:
+            p.wait(timeout=90)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        with open(logs[r]) as f:
+            text = f.read()
+        os.unlink(logs[r])
+        lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+        out[f"rank{r}"] = {"rc": p.returncode,
+                           "ok": "NCCL_PROBE_OK" in text,
+                           "last": " | ".join(lines[-3:])[-600:]}
+    out["accepted"] = all(v["ok"] for v in out.values())
+    return out
+
+
+def dp_ranks_start() -> dict:
+    """16f (a), started: the NCCL probe's two children and the two ranks
+    (gloo: NCCL refused two ranks on one device, "Duplicate GPU detected",
+    in every run), as processes beside whatever runs next."""
+    backend, port = "gloo", free_port()
+    outs = [tempfile.mktemp(prefix=f"chip_smoke_dp{r}_", suffix=".pt")
+            for r in range(DP_WORLD)]
+    logs = [o + ".log" for o in outs]
+    probe = nccl_probe_start()
+    ranks = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-child", str(r),
+         str(port), outs[r], backend], cwd=ROOT, stdout=open(logs[r], "w"),
+        stderr=subprocess.STDOUT) for r in range(DP_WORLD)]
+    return {"t0": time.perf_counter(), "backend": backend, "probe": probe,
+            "ranks": ranks, "outs": outs, "logs": logs,
+            # every child, for stop_children
+            "procs": {f"p{i}": p for i, p in enumerate([*ranks, *probe[0]])}}
+
+
+def dp_ranks_phase(smi: str, started: dict) -> tuple:
+    """16f (a), after :func:`dp_ranks_start`: two ranks on ``cuda:0``
+    (gloo over CUDA tensors; NCCL tried beside them for two ranks on one
+    device and its outcome recorded) against one process's B=32 step from
+    the same state, fp32 then bf16: the first
+    fp32 step's loss within 1e-4 and num_fg equal, the fp32 gradients
+    within train_card_vs_cpu's 1e-3 as the whole tree's relative L2
+    distance, each tensor's largest gap reported with the tensors over
+    1e-3; bf16 within train_card_vs_cpu's bf16 bounds, its gradients'
+    median cosine with the fp32 step no lower than the one-process bf16
+    step's less 0.1 (two draws of bf16 rounding); the ranks' parameters,
+    BN buffers and EMA bit-equal after the steps, every rank's step
+    launching what the one-process step does, by variant (8 / 8 / 7).  The
+    ranks share one card, so their step ms are no scaling figure."""
+    t0 = started["t0"]
+    report = {"phase": "data_parallel_ranks", "card": smi,
+              "world": DP_WORLD, "batch_per_rank": DP_BATCH,
+              "steps": DP_STEPS, "backend": started["backend"],
+              "note": "two ranks share one H100: step ms are not a scaling "
+                      "figure"}
+    probe, procs = started["probe"], started["ranks"]
+    outs, logs = started["outs"], started["logs"]
+    try:
+        one = {d: dp_steps(d) for d in ("float32", "bfloat16")}
+        for r, p in enumerate(procs):
+            p.wait(timeout=300)
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    raise AssertionError(f"rank {r}: exit {p.returncode}\n"
+                                         f"{f.read()[-3000:]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+        report["nccl_two_ranks_one_card"] = nccl_two_ranks_one_card(probe)
+    finally:
+        for p in [*procs, *probe[0]]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in outs + logs:
+            if os.path.exists(f):
+                os.unlink(f)
+    if ranks[0]["backend"] != started["backend"]:
+        raise AssertionError(f"the ranks ran {ranks[0]['backend']}")
+    report["rank_wall_s"] = [r["wall_s"] for r in ranks]
+    launches = {k: 0 for k in STEP_LAUNCHES}
+    variants, failed = {}, []
+    fp32_grads = one["float32"]["grads"]
+    for dtype in ("float32", "bfloat16"):
+        ref = one[dtype]
+        m0 = ref["steps"][0]["metrics"]
+        loss0, fg0 = float(m0["total_loss"]), float(m0["num_fg"])
+        row = {"one_process_step_ms": [s["ms"] for s in ref["steps"]],
+               "one_process_launches": ref["steps"][0]["launches"],
+               "loss_one_process": loss0, "num_fg_one_process": fg0}
+        if dtype == "bfloat16":
+            # bf16 gradients are noise-dominated (tests/test_torch_bf16.py):
+            # each side is held by its distance from the fp32 step
+            row["one_process_cosine_to_fp32"] = grad_distance(
+                ref["grads"], fp32_grads)["cosine_median"]
+        for r, res in enumerate(ranks):
+            mine = res[dtype]
+            m = mine["steps"][0]["metrics"]
+            rel = abs(float(m["total_loss"]) - loss0) / abs(loss0)
+            mrow = row[f"rank{r}"] = {
+                "step_ms": [s["ms"] for s in mine["steps"]],
+                "loss": float(m["total_loss"]), "loss_rel_err": rel,
+                "num_fg": float(m["num_fg"]),
+                "grads": grad_distance(mine["grads"], ref["grads"]),
+                "launches_per_step": [s["launches"] for s in mine["steps"]]}
+            bad = [i for i, s in enumerate(mine["steps"])
+                   if s["variants"] != ref["steps"][0]["variants"]
+                   or {k: s["variants"][k] for k in DP_STEP_VARIANTS}
+                   != DP_STEP_VARIANTS
+                   or s["launches"] != STEP_LAUNCHES]
+            if bad:
+                failed.append(f"{dtype} rank {r}: steps {bad} launched "
+                              f"{[mine['steps'][i]['variants'] for i in bad]}")
+            for s in mine["steps"]:
+                for k in launches:
+                    launches[k] += s["launches"][k]
+                for k, v in s["variants"].items():
+                    variants[k] = variants.get(k, 0) + v
+            finite = all(torch.isfinite(g).all()
+                         for g in mine["grads"].values())
+            if dtype == "float32":
+                ok = (rel <= 1e-4 and mrow["num_fg"] == fg0 and finite
+                      and mrow["grads"]["rel_l2"] <= 1e-3)
+            else:
+                # train_card_vs_cpu's bf16 bounds, and a distance from the
+                # fp32 step no larger than the one-process bf16 step's
+                mrow["cosine_to_fp32"] = grad_distance(
+                    mine["grads"], fp32_grads)["cosine_median"]
+                ok = (rel <= 5e-2 and abs(mrow["num_fg"] - fg0) <= 0.25 * fg0
+                      and finite and mrow["cosine_to_fp32"]
+                      >= row["one_process_cosine_to_fp32"] - 0.1)
+            if not ok:
+                failed.append(f"{dtype} rank {r} against one process")
+        a, b = ranks[0][dtype], ranks[1][dtype]
+        unequal = [k for part in ("state", "ema") for k, v in a[part].items()
+                   if not torch.equal(v, b[part][k])]
+        row["ranks_bit_equal"] = not unequal
+        if unequal:
+            failed.append(f"{dtype}: the ranks differ after {DP_STEPS} "
+                          f"steps in {unequal[:5]}")
+        report[dtype] = row
+    report["phase_s"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"16f: {failed}\n{json.dumps(report, default=str)}")
+    return report, {**launches, **variants}
+
+
+def dp_cli_start(img_dir: str, lab_dir: str, root: str) -> dict:
+    """16f (b), started: ``tools.train_24p --multi-host --coordinator
+    127.0.0.1:PORT --num-processes 1 --process-id 0`` over NCCL, without
+    and with ``--fsdp`` (at once, each a port of its own, beside the cli
+    phase),
+    two epochs of phase 10's files at B=32 (2 steps)."""
+    runs = {}
+    for name, extra in (("replicated", []), ("fsdp", ["--fsdp"])):
+        out = os.path.join(root, name)
+        log = os.path.join(root, f"{name}.log")
+        runs[name] = (out, log, _child([
+            "eop_tpu_torch.tools.train_24p", "-b", str(TRAIN_BATCH),
+            "--data-dir", img_dir, "--label-dir", lab_dir,
+            "--max-epoch", "2", "--multi-host", "--coordinator",
+            f"127.0.0.1:{free_port()}", "--num-processes", "1",
+            "--process-id", "0", *extra, "data_num_workers", "2",
+            "print_interval", "1", "output_dir", out], log))
+    return {"root": root, "runs": runs, "t0": time.perf_counter(),
+            "img_dir": img_dir, "lab_dir": lab_dir,
+            # every child, for stop_children
+            "procs": {name: proc for name, (_, _, proc) in runs.items()}}
+
+
+def dp_cli_evals(started: dict) -> None:
+    """16f (b), once its trainings end: each training's losses and the
+    per-rank state bytes ``place_state`` logs, then each checkpoint's
+    ``tools.eval`` started (a strict load, an AP line)."""
+    import re
+
+    started["report"] = {}
+    started["evals"] = {}
+    for name, (out, log, proc) in started["runs"].items():
+        text = _child_output(proc, log, f"train_24p {name}", 600)
+        placed = re.findall(r"place_state: (.*)", text)
+        losses = [float(v) for v in re.findall(
+            r"iter \d+/\d+ loss ([-0-9.naif]+)", text)]
+        if (not placed or "world 1" not in placed[-1] or len(losses) < 2
+                or not all(np.isfinite(losses))):
+            raise AssertionError(f"{name}: place_state {placed}, losses "
+                                 f"{losses}\n{text[-2000:]}")
+        started["report"][name] = {"place_state": placed[-1],
+                                   "losses": losses}
+        ckpt = os.path.join(out, "yolox_24p", "last_epoch_ckpt.pth")
+        elog = os.path.join(started["root"], f"{name}_eval.log")
+        proc = _child([
+            "eop_tpu_torch.tools.eval", "-f", "load_eval/yolox_24p_eval.py",
+            "-c", ckpt, "-b", str(EVAL_BATCH), "--data-dir",
+            started["img_dir"], "--label-dir", started["lab_dir"],
+            "data_num_workers", "2"], elog)
+        started["evals"][name] = (elog, proc)
+        started["procs"][f"{name}_eval"] = proc
+
+
+def dp_cli_phase(smi: str, started: dict) -> dict:
+    """16f (b), finished: the evaluations' AP lines beside the trainings'
+    report (:func:`dp_cli_evals`)."""
+    import re
+
+    report = {"phase": "data_parallel_cli", "card": smi, **started["report"]}
+    for name, (elog, proc) in started["evals"].items():
+        text = _child_output(proc, elog, f"eval {name}", 600)
+        hits = re.findall(AP_LINE, text)
+        if not hits:
+            raise AssertionError(f"eval {name}: no AP line\n{text[-2000:]}")
+        report[name]["eval_ap50_95"], report[name]["eval_ap50"] = (
+            float(v) for v in hits[-1])
+    report["phase_s"] = time.perf_counter() - started["t0"]
+    return report
+
+
+# ---------------------------------------------------------------------------
 # the bbox family: YOLOX-L at full width from COCO files
 
-BBOX_TRAIN_IMAGES, BBOX_VAL_IMAGES, BBOX_CLASSES = 64, 16, 80
+# (32 training and 8 validation images, not 64 and 16: four steps an
+# epoch, every check kept, room for 16f)
+BBOX_TRAIN_IMAGES, BBOX_VAL_IMAGES, BBOX_CLASSES = 32, 8, 80
 BBOX_BATCH = 8
 # launches of one YOLOX-L training step: 12 forward convs, 12 weight
 # gradients, 11 data gradients (not the stem's), each packing its weights
@@ -2442,7 +2834,7 @@ def train_bbox_child(out_path: str, argv) -> int:
 
 def train_bbox(smi: str, data_dir: str, out_dir: str):
     """``python -m eop_tpu_torch.tools.train -n yolox-l -b 8`` over the
-    dataset for two epochs of 8 steps, as a subprocess (through
+    dataset for two epochs of 4 steps, as a subprocess (through
     :func:`train_bbox_child`): one mosaic + mixup epoch, then the no-aug
     switch (``no_aug_epochs 0`` puts it at the start of the second epoch,
     where the reference places it), one epoch with the L1 loss; each epoch
@@ -2673,19 +3065,25 @@ def to_float64(model):
 def grad_distance(grads, ref) -> dict:
     """``grads`` against ``ref`` (name -> tensor): each tensor's largest
     difference relative to its largest value in ``ref``; the worst of them
-    and its name, their median, and the median and least cosine."""
-    errs, cosines = {}, []
+    and its name, their median, the tensors over 1e-3, the median and least
+    cosine, and the whole tree's relative L2 distance."""
+    errs, cosines, diff2, norm2 = {}, [], 0.0, 0.0
     for name, g in ref.items():
         got = grads[name].double()
         g = g.double()
         errs[name] = ((got - g).abs().max()
                       / g.abs().max().clamp(min=1e-30)).item()
+        diff2 += (got - g).square().sum().item()
+        norm2 += g.square().sum().item()
         a, b = got.flatten(), g.flatten()
         if b.norm() > 0:
             cosines.append((a @ b / (a.norm() * b.norm())).item())
     worst = max(errs, key=errs.get)
     return {"worst_rel_to_max": errs[worst], "worst_tensor": worst,
             "median_rel_to_max": float(np.median(list(errs.values()))),
+            "tensors_over_1e-3": sorted((n for n in errs if errs[n] > 1e-3),
+                                        key=errs.get, reverse=True),
+            "rel_l2": (diff2 / max(norm2, 1e-300)) ** 0.5,
             "cosine_median": float(np.median(cosines)),
             "cosine_min": min(cosines)}
 
@@ -3303,7 +3701,7 @@ def serve_bbox(smi: str):
 def train_zoo(smi: str, data_dir: str, out_dir: str):
     """``python -m eop_tpu_torch.tools.train -n NAME -b 8`` for YOLOX-Nano,
     YOLOX-Tiny and YOLOv3 over the bbox dataset, each as a subprocess
-    through :func:`train_bbox_child`: one epoch of 8 steps after the no-aug
+    through :func:`train_bbox_child`: one epoch of 4 steps after the no-aug
     switch (``max_epoch 1 no_aug_epochs 0``: L1 on; the mosaic path is
     train_bbox's), multiscale from each exp's own ``random_size``.  Every
     step's launches must be what :func:`step_launches` computes from the
@@ -3463,7 +3861,8 @@ def eval_zoo(smi: str, data_dir: str, ckpts: dict):
 
 VOC_EXP_FILE = os.path.join(ROOT, "exps", "example", "yolox_voc",
                             "yolox_voc_s.py")
-VOC_TRAINVAL, VOC_TEST, VOC_HW = 16, 8, (375, 500)
+# (8 trainval images a year, not 16: two steps an epoch, room for 16f)
+VOC_TRAINVAL, VOC_TEST, VOC_HW = 8, 8, (375, 500)
 VOC_ACCUM = 2
 # the (forward, weight-gradient, data-gradient) variants of its 8 convs,
 # in MAIN_PATH's order (None: the stem has no data gradient)
@@ -4874,7 +5273,7 @@ def main() -> int:
 
     data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     sys.unraisablehook = count_unraisable
-    deploy_started = None
+    deploy_started = dp_cli = dp_ranks = None
     try:
         img_dir, lab_dir, data_report = write_dataset(data_root)
         emit({**data_report, "card": smi})
@@ -4887,14 +5286,25 @@ def main() -> int:
         # wall times count the other's processes)
         deploy_started = deploy_children(
             img_dir, lab_dir, tempfile.mkdtemp(dir=data_root))
+        # 16f's world-1 command lines run beside the cli phase's too
+        dp_cli = dp_cli_start(img_dir, lab_dir,
+                              tempfile.mkdtemp(dir=data_root))
         cli_report = run_cli(smi, img_dir, lab_dir)
         emit(cli_report)
+        # 16f: the world-1 command lines' evaluations
+        dp_cli_evals(dp_cli)
         drops = drop_loaders(img_dir, lab_dir, drops=1)
         # the bbox family: YOLOX-L from COCO files
         bbox_dir = os.path.join(data_root, "coco")
         emit({**write_bbox_dataset(bbox_dir), "card": smi})
         bbox_out = os.path.join(data_root, "bbox_out")
+        # 16f's two ranks run beside YOLOX-L's training child; then the
+        # one-process reference and the comparison
+        dp_ranks = dp_ranks_start()
         bbox_report, bbox_launches, _ = train_bbox(smi, bbox_dir, bbox_out)
+        dp_report, dp_launches = dp_ranks_phase(smi, dp_ranks)
+        emit(dp_report)
+        emit(dp_cli_phase(smi, dp_cli))
         bf16_report, bbox16_launches = train_bbox_steps(smi)
         bbox_report["bf16_step"] = bf16_report
         emit(bbox_report)
@@ -4947,6 +5357,8 @@ def main() -> int:
     finally:
         sys.unraisablehook = default_hook
         stop_children(deploy_started)
+        stop_children(dp_cli)
+        stop_children(dp_ranks)
         shutil.rmtree(data_root, ignore_errors=True)
     died = [u for u in unraisable if "killed by signal" in u]
     emit({"phase": "loader_shutdown", "card": smi, **drops,
@@ -4976,6 +5388,8 @@ def main() -> int:
                "train_files": files_launches["forward"],
                "train_bf16": train16_launches["forward"],
                "train_remat": remat_launches["forward"],
+               # 16f: the two ranks' steps on the card (fp32 and bf16)
+               "train_dp": dp_launches["forward"],
                # YOLOX-L: the training child's total (its steps and the
                # EMA evaluations, which launch the fused forward), and the
                # in-process bf16 steps
@@ -4999,8 +5413,10 @@ def main() -> int:
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
                    "train_bbox": bbox_launches,
-                   "train_bbox_bf16": bbox16_launches, **x_launches,
-                   **zoo_launches, "train_voc": voc_launches}
+                       "train_bbox_bf16": bbox16_launches, **x_launches,
+                   **zoo_launches, "train_voc": voc_launches,
+                   # 16f's two ranks (fp32 and bf16 steps, both ranks)
+                   "train_dp": dp_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
     # launches by variant on every path: none launches the CUDA-core direct
@@ -5295,6 +5711,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-bbox-child"]:
         sys.exit(train_bbox_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--dp-child"]:
+        sys.exit(dp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                          sys.argv[5]))
+    if sys.argv[1:2] == ["--nccl-probe-child"]:
+        sys.exit(nccl_probe_child(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] == ["--show-24p-child"]:
         sys.exit(show_24p_child(sys.argv[2], sys.argv[4:]))
     if sys.argv[1:2] == ["--repeat-serve-bbox"]:

@@ -73,17 +73,18 @@ class WorkerInit:
 
 def data_loader(dataset, batch_size: int = 1, batch_sampler=None,
                 num_workers: int = 0,
-                worker_init_fn: Optional[Callable] = None
-                ) -> torch.utils.data.DataLoader:
-    """A ``DataLoader`` in order over ``dataset`` (or over
-    ``batch_sampler``'s batches) with ``default_collate``, spawned workers,
-    and pinned batches where there is a card."""
+                worker_init_fn: Optional[Callable] = None,
+                sampler=None) -> torch.utils.data.DataLoader:
+    """A ``DataLoader`` in order over ``dataset`` (or over ``sampler``'s
+    indices, or over ``batch_sampler``'s batches) with ``default_collate``,
+    spawned workers, and pinned batches where there is a card."""
     if num_workers:
         load_decoder()
     return torch.utils.data.DataLoader(
         dataset,
         batch_size=1 if batch_sampler is not None else batch_size,
         batch_sampler=batch_sampler,
+        sampler=sampler,
         num_workers=num_workers,
         pin_memory=torch.cuda.is_available(),
         worker_init_fn=WorkerInit(worker_init_fn) if num_workers else None,

@@ -183,21 +183,38 @@ class COCOEvaluator:
         self.timings: dict = {}
 
     def evaluate(self, infer_fn: Callable,
-                 decode_fn: Optional[Callable] = None):
+                 decode_fn: Optional[Callable] = None,
+                 distributed: bool = False):
         """Returns (ap50_95, ap50, summary).
 
         ``infer_fn`` maps a letterboxed batch to ``Detections`` and must be
         pure (:func:`run_batches`).  ``decode_fn`` (forward and decode, no
         NMS) splits the summary's time into forward and NMS; without it
-        the NMS time is 0."""
+        the NMS time is 0.  ``distributed``: the loader holds this rank's
+        share of the set; every rank's detections are gathered
+        (``parallel.dist.all_gather``) and every rank scores them all, one
+        rank at a time (``--testdev`` writes a file in the working
+        directory)."""
         parts, timings = run_batches(self.dataloader, infer_fn,
                                      self.convert_to_coco_format, decode_fn)
         data_list = [d for part in parts for d in part]
+        if distributed:
+            from ..parallel.dist import all_gather
+
+            data_list = [d for part in all_gather(data_list) for d in part]
         self.timings = {**timings, "detections": len(data_list),
                         "cocoeval_s": 0.0}
-        return self.evaluate_prediction(
-            data_list, (timings["inference_s"], timings["nms_s"],
-                        max(timings["batches"], 1)))
+
+        def score():
+            return self.evaluate_prediction(
+                data_list, (timings["inference_s"], timings["nms_s"],
+                            max(timings["batches"], 1)))
+
+        if distributed:
+            from ..parallel.dist import in_rank_order
+
+            return in_rank_order(score)
+        return score()
 
     def convert_to_coco_format(self, rows: np.ndarray, valid: np.ndarray,
                                info_imgs, ids) -> List[dict]:

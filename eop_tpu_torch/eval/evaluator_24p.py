@@ -90,7 +90,7 @@ class Evaluator24P:
         gt.createIndex()
         return gt
 
-    def evaluate(self, infer_fn: Callable):
+    def evaluate(self, infer_fn: Callable, distributed: bool = False):
         """Returns (ap50_95, ap50, summary).
 
         ``infer_fn`` maps a letterboxed batch to ``Detections`` and must be
@@ -98,6 +98,10 @@ class Evaluator24P:
         call, which keeps first launches and library autotuning out of the
         timer.  Each timed call ends in the host copy of its detections,
         which waits for the device.
+
+        ``distributed`` is accepted and ignored, as ``eop_tpu``'s
+        ``Evaluator24P`` ignores it: under data parallelism every rank
+        scores the whole set.
         """
         dets_json = []
         inference_time = data_wait = first_wait = 0.0

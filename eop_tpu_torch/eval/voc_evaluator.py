@@ -34,14 +34,16 @@ class VOCEvaluator:
                  decode_fn: Optional[Callable] = None,
                  distributed: bool = False):
         """Returns (mAP50:95, mAP50, summary); the summary's times are per
-        batch.  ``infer_fn`` and ``decode_fn`` as in
+        batch.  ``infer_fn``, ``decode_fn`` and ``distributed`` (every
+        rank's detections gathered, every rank scores) as in
         ``COCOEvaluator.evaluate``."""
-        if distributed:
-            raise NotImplementedError(
-                "distributed=True: the port evaluates on one device "
-                "(ROADMAP.md queue 1 item 7)")
         parts, timings = run_batches(self.dataloader, infer_fn,
                                      self.convert_to_voc_format, decode_fn)
+        if distributed:
+            from ..parallel.dist import all_gather
+
+            parts = [p for rank_parts in all_gather(parts)
+                     for p in rank_parts]
         data_dict = {k: v for part in parts for k, v in part.items()}
         self.timings = timings
         empty = (np.empty((0, 4)), np.empty((0,)), np.empty((0,)))
@@ -57,8 +59,17 @@ class VOCEvaluator:
                 all_boxes[j][img_num] = np.hstack(
                     (bboxes[mask_c], scores[mask_c][:, None])).astype(
                         np.float32)
-        mean_ap_5095, mean_ap_50 = (
-            self.dataloader.dataset.evaluate_detections(all_boxes))
+        if distributed:
+            # every rank scores, one at a time: the devkit's results and
+            # annotation cache files are shared
+            from ..parallel.dist import in_rank_order
+
+            mean_ap_5095, mean_ap_50 = in_rank_order(
+                lambda: self.dataloader.dataset.evaluate_detections(
+                    all_boxes))
+        else:
+            mean_ap_5095, mean_ap_50 = (
+                self.dataloader.dataset.evaluate_detections(all_boxes))
         summary = time_summary(timings["inference_s"], timings["nms_s"],
                                max(timings["batches"], 1), " per batch")
         return mean_ap_5095, mean_ap_50, summary

@@ -92,6 +92,24 @@ class BaseExp:
 
         return infer
 
+    def get_sharded_infer_fn(self, model, device=None, group=None,
+                             quant_scales=None, quant_min_channels=64):
+        """:meth:`get_infer_fn` run data-parallel over ``group`` (the
+        default process group where ``None``): every rank calls it with
+        the same batch, computes its ``B / world`` rows and gets every
+        row's detections back (``parallel.shard_inference``).  The
+        counterpart of ``eop_tpu``'s ``get_sharded_infer_fn`` over a
+        mesh's data axis."""
+        from ..parallel.mesh import shard_inference
+
+        if group is None:
+            import torch.distributed as dist
+
+            group = dist.group.WORLD if dist.is_initialized() else None
+        return shard_inference(
+            self.get_infer_fn(model, device, quant_scales,
+                              quant_min_channels), group)
+
     def get_serving_module(self, model, src_hw, device=None,
                            quant_scales=None, quant_min_channels=64):
         """The :class:`ServingModule` of ``model`` (its int8 copy where

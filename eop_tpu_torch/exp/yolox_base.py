@@ -16,9 +16,11 @@ the YOLOX backbone, as the feature-map study does.
 ``exps/example/yolox_voc/yolox_voc_s.py`` (``exp/build.py`` recognises
 them): the training set is ``voc_train_sets`` of ``<data_dir>/VOCdevkit``
 in mosaic, the test set ``voc_test_sets``, scored by ``VOCEvaluator``.
-Otherwise the data are COCO-format under ``data_dir``.  Not ported yet (it
-raises where asked for): the sharded multi-chip inference function and
-the distributed evaluation loader."""
+Otherwise the data are COCO-format under ``data_dir``.
+
+Under data parallelism (``parallel``) the evaluation loader takes a rank's
+strided rows of the set, the evaluators gather the detections, and
+:meth:`get_sharded_infer_fn` splits one batch over the ranks."""
 
 from __future__ import annotations
 
@@ -289,14 +291,12 @@ class Exp(BaseExp):
         (``legacy``: RGB in 0..1, ImageNet-normalised), in batches of
         ``batch_size`` (the last may be short): ``data_dir``'s ``val_ann``
         (``val2017/``), with ``testdev`` its ``test_ann`` (``test2017/``);
-        VOC: ``voc_test_sets`` of the devkit."""
+        VOC: ``voc_test_sets`` of the devkit.  ``is_distributed``: this
+        rank's rows ``range(rank, N, world)`` of the set (the evaluator
+        gathers every rank's detections)."""
         from ..data.augment import ValTransform
         from ..data.dataloading import data_loader
 
-        if is_distributed:
-            raise NotImplementedError(
-                "is_distributed=True: the port evaluates on one device "
-                "(ROADMAP.md queue 1 item 7)")
         if self.data_kind == "voc":
             from ..data.voc import VOCDetection
 
@@ -311,8 +311,15 @@ class Exp(BaseExp):
                 json_file=self.test_ann if testdev else self.val_ann,
                 name="test2017" if testdev else "val2017",
                 img_size=self.test_size, preproc=ValTransform(legacy=legacy))
+        sampler = None
+        if is_distributed:
+            from ..parallel import dist
+
+            sampler = list(range(dist.get_rank(), len(dataset),
+                                 dist.get_world_size()))
         return data_loader(dataset, batch_size=batch_size,
-                           num_workers=self.data_num_workers)
+                           num_workers=self.data_num_workers,
+                           sampler=sampler)
 
     def get_evaluator(self, batch_size, is_distributed=False, testdev=False,
                       legacy=False, per_class_AP: bool = False,
@@ -353,9 +360,12 @@ class Exp(BaseExp):
         return decode_only
 
     def eval(self, model, evaluator, time_split: bool = False,
-             quant_scales=None, quant_min_channels: int = 64):
+             quant_scales=None, quant_min_channels: int = 64,
+             is_distributed: bool = False):
         """``evaluator.evaluate`` over ``model`` (in eval mode) on the
-        device its weights are on: (AP50:95, AP50, summary).
+        device its weights are on: (AP50:95, AP50, summary); with
+        ``is_distributed`` on every rank, over its share of the loader
+        (``get_evaluator(is_distributed=True)``), the detections gathered.
         ``time_split`` also hands it :meth:`get_decode_fn`, whose extra
         forwards estimate the NMS time (the evaluation command line's
         diagnostic; training leaves it off).  ``quant_scales`` (with the
@@ -367,4 +377,5 @@ class Exp(BaseExp):
             self.get_infer_fn(model, device, quant_scales,
                               quant_min_channels),
             decode_fn=(self.get_decode_fn(model, device)
-                       if time_split and not quant_scales else None))
+                       if time_split and not quant_scales else None),
+            distributed=is_distributed)

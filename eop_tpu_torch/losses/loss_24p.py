@@ -39,6 +39,7 @@ from .simota import (
     gather_anchor_geometry,
     gather_anchors,
     gather_foreground,
+    normalised_losses,
     pairwise_cls_cost,
     scatter_assignment,
     simota_match,
@@ -186,12 +187,20 @@ def _match_core_24p(pair_sim, in_poly, in_centers, is_candidate, obj_logits,
 
 
 def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
-             config: Loss24PConfig):
+             config: Loss24PConfig, group=None):
     """decoded [B, A, 26+1+C] (decoded cx, cy, radii; logit obj and cls),
     origin_reg [B, A, 26] raw regression (for L1), labels [B, M, 51]
     zero-padded, grids [A, 2], strides [A].
 
     Returns (total loss, :class:`Loss24PAux`, the new :class:`DWAState`).
+
+    With a process ``group`` (this rank's rows of a global batch), the loss
+    is the global batch's, as in ``eop_tpu``'s sharded step: ``num_fg`` and
+    ``num_gts`` are summed over the ranks, and so are the component sums
+    that the DWA weights, the metrics, the new DWA state and the returned
+    value see; the returned tensor backpropagates this rank's share times
+    the world size, so that averaging the gradients over the ranks gives
+    the global batch's gradient (:func:`normalised_losses`).
     """
     decoded = decoded.float()
     labels = labels.float()
@@ -209,8 +218,6 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
                                    strides, config)
 
     fgf = assign.fg_mask.float()
-    num_fg = assign.num_fg.sum().clamp(min=1.0)
-    num_gts = assign.num_gt.sum().clamp(min=1.0)
 
     # foreground compaction: the matched losses run on at most
     # max_labels * max_k anchors per image
@@ -225,15 +232,15 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
     gt_radii = radii_from_points(gt_rows)
     per_ray = matched_circle_giou_loss(gt_centers, gt_radii, poly_k[..., 0:2],
                                        poly_k[..., 2:26])  # [B, K, 24]
-    loss_iou = (per_ray * w_fg[..., None]).sum(dim=(0, 1)) / num_fg
+    sum_iou = (per_ray * w_fg[..., None]).sum(dim=(0, 1))
 
-    loss_obj = bce_with_logits(obj_logits, fgf).sum() / num_fg
+    sum_obj = bce_with_logits(obj_logits, fgf).sum()
     cls_logits_k = gather_anchors(cls_logits, fg_idx)
     classes = torch.arange(config.num_classes, device=decoded.device)
     cls_target = ((gt_cls.long()[..., None] == classes).float()
                   * pred_iou_k[..., None])
-    loss_cls = (bce_with_logits(cls_logits_k, cls_target)
-                * w_fg[..., None]).sum() / num_fg
+    sum_cls = (bce_with_logits(cls_logits_k, cls_target)
+               * w_fg[..., None]).sum()
 
     if config.use_l1:
         grids_k, strides_k = gather_anchor_geometry(grids, strides, fg_idx)
@@ -249,13 +256,17 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
             r_src = gt_radii
         tr = torch.log(r_src / strides_k[..., None] + 1e-8)
         l1_t = torch.cat([tx[..., None], ty[..., None], tr], dim=-1)
-        loss_l1 = ((origin_k - l1_t).abs() * w_fg[..., None]).sum() / num_fg
+        sum_l1 = ((origin_k - l1_t).abs() * w_fg[..., None]).sum()
     else:
-        loss_l1 = decoded.new_zeros(())
+        sum_l1 = decoded.new_zeros(())
+
+    sums = (sum_iou, sum_obj, sum_cls, sum_l1)
+    norm = normalised_losses(sums, assign, group)
+    loss_iou, loss_obj, loss_cls, loss_l1 = norm.losses
+    li, lo, lc, l1 = norm.values
 
     # --- DWA weighting ---
     t = config.dwa_temperature
-    li, lo, lc = loss_iou.detach(), loss_obj.detach(), loss_cls.detach()
     e_iou = torch.exp(torch.clamp(li / (dwa.last_iou + 1e-8), 0.0, 2.0) / t)
     e_obj = torch.exp(torch.clamp(lo / (dwa.last_obj + 1e-8), 0.0, 2.0) / t)
     e_cls = torch.exp(torch.clamp(lc / (dwa.last_cls + 1e-8), 0.0, 2.0) / t)
@@ -266,15 +277,20 @@ def loss_24p(decoded, origin_reg, labels, grids, strides, dwa: DWAState,
 
     total = ((reg_w * loss_iou).sum() + obj_w * loss_obj + cls_w * loss_cls
              + loss_l1)
+    if group is not None:
+        # the global batch's loss, with this rank's gradient
+        value = (reg_w * li).sum() + obj_w * lo + cls_w * lc + l1
+        total = total + (value - total).detach()
+        loss_obj, loss_cls, loss_l1 = lo, lc, l1
     aux = Loss24PAux(
-        loss_iou=reg_w * loss_iou,
+        loss_iou=reg_w * li,
         loss_obj=loss_obj,
         loss_cls=loss_cls,
         loss_l1=loss_l1,
-        num_fg_per_gt=num_fg / num_gts,
+        num_fg_per_gt=norm.num_fg / norm.num_gts,
         reg_w=reg_w,
         obj_w=obj_w,
         cls_w=cls_w,
-        cand_dropped=assign.num_dropped.sum(),
+        cand_dropped=norm.cand_dropped,
     )
     return total, aux, DWAState(last_iou=li, last_obj=lo, last_cls=lc)

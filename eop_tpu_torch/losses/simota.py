@@ -52,6 +52,47 @@ class Assignment(NamedTuple):
     num_dropped: Optional[torch.Tensor] = None  # int64 [B], shed candidates
 
 
+class NormalisedLosses(NamedTuple):
+    """A loss's component sums over the foreground divided by ``num_fg``
+    (:func:`normalised_losses`)."""
+
+    losses: tuple            # differentiable, for the backward
+    values: tuple            # detached: the batch's losses
+    num_fg: torch.Tensor     # clamped at 1
+    num_gts: torch.Tensor    # clamped at 1
+    cand_dropped: torch.Tensor
+
+
+def normalised_losses(sums, assign: Assignment,
+                      group=None) -> NormalisedLosses:
+    """Each of ``sums`` (a loss's sums over this batch's anchors) divided by
+    the batch's foreground count.  With a process ``group`` the batch is the
+    global one of every rank's rows, as under ``eop_tpu``'s sharded step:
+    ``num_fg``, ``num_gts``, the dropped candidates and the sums are summed
+    over the ranks (one ``all_reduce``) and ``values`` are the global
+    losses, while ``losses`` are this rank's sums times the world size over
+    the global ``num_fg``: their gradients, averaged over the ranks, are
+    the global losses' gradients."""
+    if group is None:
+        num_fg = assign.num_fg.sum().clamp(min=1.0)
+        num_gts = assign.num_gt.sum().clamp(min=1.0)
+        losses = tuple(s / num_fg for s in sums)
+        return NormalisedLosses(losses, tuple(v.detach() for v in losses),
+                                num_fg, num_gts, assign.num_dropped.sum())
+    from ..parallel.dist import all_reduce_sum
+
+    dropped = assign.num_dropped.sum()
+    fg, gts, dropped_all, *totals = all_reduce_sum(
+        [assign.num_fg.sum(), assign.num_gt.sum(), dropped, *sums], group)
+    world = torch.distributed.get_world_size(group)
+    num_fg = fg.to(assign.num_fg.dtype).clamp(min=1.0)
+    num_gts = gts.to(assign.num_gt.dtype).clamp(min=1.0)
+    losses = tuple(s * world / num_fg for s in sums)
+    values = tuple((t / num_fg).to(s.dtype) for t, s in zip(totals, sums))
+    return NormalisedLosses(losses, values, num_fg, num_gts,
+                            dropped_all.round().to(dropped.dtype))
+
+
 def _first_index(hit: torch.Tensor, dim: int) -> torch.Tensor:
     """Index of the first True along ``dim`` (size of ``dim`` where none)."""
     n = hit.shape[dim]

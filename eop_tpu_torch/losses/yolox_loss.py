@@ -1,8 +1,8 @@
 """The bbox family's training loss (counterpart of
 ``eop_tpu/losses/yolox_loss.py``): ``5 * IoU + obj + cls (+ L1)``, each term
 summed over the foreground anchors SimOTA picks and divided by the batch's
-``num_fg``.  Static shapes, batched, no host synchronisation; all math in
-fp32."""
+``num_fg`` (the global batch's, with a process group).  Static shapes,
+batched, no host synchronisation; all math in fp32."""
 
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from .simota import (
     gather_anchor_geometry,
     gather_anchors,
     gather_foreground,
+    normalised_losses,
     simota_assign,
 )
 
@@ -48,11 +49,14 @@ def _l1_target(gt_boxes, grids, strides, eps: float = 1e-8):
 
 
 def yolox_losses(decoded, origin_reg, labels, grids, strides,
-                 config: YoloxLossConfig):
+                 config: YoloxLossConfig, group=None):
     """decoded [B, A, 4+1+C] (decoded cxcywh, logit obj and cls), origin_reg
     [B, A, 4] raw regression (for L1), labels [B, M, 5] (cls, cx, cy, w, h)
     zero-padded, grids [A, 2], strides [A].  Returns (total loss,
-    :class:`YoloxLossAux`)."""
+    :class:`YoloxLossAux`).  With a process ``group`` the loss is the
+    global batch's over every rank's rows, and the returned tensor
+    backpropagates this rank's share times the world size, as
+    ``loss_24p``'s."""
     c = config.num_classes
     # fp32 for fp32 and bf16 inputs; float64 stays float64 (a referee step)
     dtype = torch.promote_types(decoded.dtype, torch.float32)
@@ -68,8 +72,6 @@ def yolox_losses(decoded, origin_reg, labels, grids, strides,
                                grids, strides, c, config.simota)
 
     fgf = assign.fg_mask.float()
-    num_fg = assign.num_fg.sum().clamp(min=1.0)
-    num_gts = assign.num_gt.sum().clamp(min=1.0)
 
     w_fg, fg_idx, matched, pred_iou_k = gather_foreground(
         assign, labels.shape[1], config.simota.max_k)
@@ -81,25 +83,33 @@ def yolox_losses(decoded, origin_reg, labels, grids, strides,
     cls_target = ((gt_cls.long()[..., None] == classes).float()
                   * pred_iou_k[..., None])
 
-    loss_iou = (iou_loss(bbox_k, gt_boxes) * w_fg).sum() / num_fg
-    loss_obj = bce_with_logits(obj_logits, fgf).sum() / num_fg
-    loss_cls = (bce_with_logits(cls_logits_k, cls_target)
-                * w_fg[..., None]).sum() / num_fg
+    sum_iou = (iou_loss(bbox_k, gt_boxes) * w_fg).sum()
+    sum_obj = bce_with_logits(obj_logits, fgf).sum()
+    sum_cls = (bce_with_logits(cls_logits_k, cls_target)
+               * w_fg[..., None]).sum()
     if config.use_l1:
         grids_k, strides_k = gather_anchor_geometry(grids, strides, fg_idx)
         origin_k = gather_anchors(origin_reg.to(dtype), fg_idx)
         l1_t = _l1_target(gt_boxes, grids_k, strides_k)
-        loss_l1 = ((origin_k - l1_t).abs() * w_fg[..., None]).sum() / num_fg
+        sum_l1 = ((origin_k - l1_t).abs() * w_fg[..., None]).sum()
     else:
-        loss_l1 = decoded.new_zeros(())
+        sum_l1 = decoded.new_zeros(())
 
+    norm = normalised_losses((sum_iou, sum_obj, sum_cls, sum_l1), assign,
+                             group)
+    loss_iou, loss_obj, loss_cls, loss_l1 = norm.losses
     total = config.reg_weight * loss_iou + loss_obj + loss_cls + loss_l1
+    if group is not None:
+        # the global batch's loss, with this rank's gradient
+        loss_iou, loss_obj, loss_cls, loss_l1 = norm.values
+        value = config.reg_weight * loss_iou + loss_obj + loss_cls + loss_l1
+        total = total + (value - total).detach()
     aux = YoloxLossAux(
         loss_iou=config.reg_weight * loss_iou,
         loss_obj=loss_obj,
         loss_cls=loss_cls,
         loss_l1=loss_l1,
-        num_fg_per_gt=num_fg / num_gts,
-        cand_dropped=assign.num_dropped.sum(),
+        num_fg_per_gt=norm.num_fg / norm.num_gts,
+        cand_dropped=norm.cand_dropped,
     )
     return total, aux

@@ -51,6 +51,10 @@ class ChannelDropout:
         self.p = float(p)
         self.seed = int(seed)
         self._gen: Optional[torch.Generator] = None
+        # (rank, world): under data parallelism each rank draws the global
+        # batch's masks and keeps its rows, so the ranks' masks are the ones
+        # one process draws for the global batch
+        self.shard = (0, 1)
 
     def generator(self, device: torch.device) -> torch.Generator:
         """The generator on ``device``, made from ``seed`` on first use
@@ -77,9 +81,13 @@ class ChannelDropout:
             self._gen.set_state(state)
 
     def keep_mask(self, shape, device) -> torch.Tensor:
-        """The next draw: True where a channel is kept."""
-        return torch.rand(shape, device=device,
-                          generator=self.generator(device)) < 1.0 - self.p
+        """The next draw: True where a channel is kept (this rank's rows of
+        the global batch's draw under ``shard``)."""
+        rank, world = self.shard
+        b = shape[0]
+        draw = torch.rand((b * world, *shape[1:]), device=device,
+                          generator=self.generator(device))
+        return draw[rank * b:(rank + 1) * b] < 1.0 - self.p
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         mask = self.keep_mask((x.shape[0], x.shape[1], 1, 1), x.device)

@@ -72,6 +72,11 @@ def batch_stats_frozen():
         _frozen.on = before
 
 
+def stats_frozen() -> bool:
+    """Whether this thread runs inside :func:`batch_stats_frozen`."""
+    return getattr(_frozen, "on", False)
+
+
 def get_activation(name: str = "silu") -> nn.Module:
     """Activation by name, the registry of ``eop_tpu/ops/blocks.py``:
     ``silu``, ``relu``, ``lrelu`` (slope 0.1); any other name raises."""
@@ -100,7 +105,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         if n <= 1:
             raise ValueError("batch statistics need more than one value per "
                              f"channel, got input {tuple(x.shape)}")
-        frozen = getattr(_frozen, "on", False)
+        frozen = stats_frozen()
         # F.batch_norm blends momentum * var * n / (n - 1) into a variance
         # buffer; hand it a scratch one and blend the biased variance (and,
         # frozen, a scratch mean too: the same kernel, no update)

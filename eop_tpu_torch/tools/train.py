@@ -16,15 +16,25 @@ of ``-b / N`` images before each optimizer step.  ``-n`` names an exp of
 bbox ``Exp`` (``exp/build.py``); trailing ``key value`` pairs override exp attributes
 and come after every flag.  Runs on the card; ``--device cpu`` runs on the
 CPU.  Checkpoints and the log go to ``output_dir/<experiment name>``; each
-evaluation prints ``AP50:95=x AP50=y``.  The options of ``tools/train.py``
-that need a mesh, several hosts or JAX's profiler are accepted and raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 7); ``--no-prewarm`` is
-accepted and does nothing.
+evaluation prints ``AP50:95=x AP50=y``.
+
+Several processes, one per GPU (``-b`` is the global batch):
+
+    torchrun --nproc-per-node 8 -m eop_tpu_torch.tools.train -n yolox-l \
+        -b 64 --data-dir DIR [--fsdp]
+    python -m eop_tpu_torch.tools.train ... --multi-host \
+        --coordinator HOST:PORT --num-processes N --process-id I
+
+(``--platform cpu|gpu`` picks the device as ``--device`` does.)
+``--spatial``, ``--tensor`` and ``--profile-port`` are accepted and raise
+``NotImplementedError`` (ROADMAP.md queue 1 items 7 and 8);
+``--no-prewarm`` is accepted and does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 
 def make_parser():
@@ -43,38 +53,101 @@ def make_parser():
     parser.add_argument("--cache", action="store_true",
                         help="cache resized images in a np.memmap file")
     parser.add_argument("--data-dir", type=str, default=None)
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--accum", type=int, default=1,
                         help="micro-batches a step (the batch must split)")
-    add_unported_args(parser)
+    add_parallel_args(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                         help="exp overrides: key value ...")
     return parser
 
 
-def add_unported_args(parser) -> None:
-    """``eop_tpu``'s train options the port does not have, with its
-    defaults: ``--no-prewarm`` does nothing; the parallel and profiling
-    options raise ``NotImplementedError`` when set
-    (``train/trainer.py::reject_unported``)."""
+def add_parallel_args(parser) -> None:
+    """``eop_tpu``'s parallel, platform and profiling options of both train
+    command lines: ``--fsdp``, ``--multi-host`` with ``--coordinator``,
+    ``--num-processes`` and ``--process-id``, and ``--platform`` work
+    (:func:`launched`); ``--spatial``, ``--tensor`` and ``--profile-port``
+    raise ``NotImplementedError`` when set
+    (``train/trainer.py::reject_unported``); ``--no-prewarm`` does
+    nothing."""
+    parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
+                        help="cuda (default; cuda:LOCAL_RANK under several "
+                             "processes) or cpu")
     parser.add_argument("--no-prewarm", dest="prewarm", action="store_false",
                         help="accepted and ignored: PyTorch compiles nothing "
                              "per shape, so the port has no prewarm "
                              "(ROADMAP.md queue 1, not ported on purpose)")
-    unported = "not ported: raises (ROADMAP.md queue 1 item 7)"
-    parser.add_argument("--spatial", type=int, default=1, help=unported)
-    parser.add_argument("--tensor", type=int, default=1, help=unported)
-    parser.add_argument("--fsdp", action="store_true", help=unported)
+    parser.add_argument("--spatial", type=int, default=1,
+                        help="not ported: raises (ROADMAP.md queue 1 item 7)")
+    parser.add_argument("--tensor", type=int, default=1,
+                        help="not ported: raises (ROADMAP.md queue 1 item 7)")
     parser.add_argument("--profile-port", type=int, default=None,
-                        help=unported)
-    parser.add_argument("--multi-host", action="store_true", help=unported)
+                        help="not ported: raises (ROADMAP.md queue 1 item 8)")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="shard the parameters, the momentum and the EMA "
+                             "over the ranks (fully_shard): gathered for "
+                             "each forward and backward, gradients "
+                             "reduce-scattered")
+    parser.add_argument("--multi-host", action="store_true",
+                        help="one of several processes: start the process "
+                             "group from --coordinator/--num-processes/"
+                             "--process-id, or from torchrun's environment "
+                             "(under torchrun it starts without this flag)")
     parser.add_argument("--coordinator", type=str, default=None,
-                        help=unported)
+                        help="HOST:PORT of rank 0 (with --multi-host)")
     parser.add_argument("--num-processes", type=int, default=None,
-                        help=unported)
+                        help="the world size (with --multi-host)")
     parser.add_argument("--process-id", type=int, default=None,
-                        help=unported)
-    parser.add_argument("--platform", type=str, default=None, help=unported)
+                        help="this process's rank (with --multi-host)")
+    parser.add_argument("--platform", type=str, default=None,
+                        help="cpu or gpu: the device, as eop_tpu's pins the "
+                             "platform (--device cpu / cuda)")
+
+
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda"}
+
+
+@contextlib.contextmanager
+def launched(args):
+    """The process set up as the command line asks, for the length of the
+    ``with``: ``--platform`` sets ``args.device`` (any value other than
+    ``cpu`` or ``gpu`` raises ``ValueError``); with ``--multi-host``, or
+    under torchrun, the default process group starts
+    (``parallel.dist.init_distributed``: NCCL on the card, gloo on the CPU)
+    and is destroyed at the end.  ``--coordinator``, ``--num-processes``
+    and ``--process-id`` without ``--multi-host`` raise ``SystemExit``.
+    The options that are not ported raise first, before any data is
+    read."""
+    import torch.distributed as dist
+
+    from ..parallel.dist import init_distributed, under_torchrun
+    from ..train.trainer import reject_unported
+    from ..utils.device import resolve_device
+
+    reject_unported(args)
+    if args.platform is not None:
+        if args.platform not in PLATFORMS:
+            raise ValueError(f"--platform {args.platform!r}: the port runs on "
+                             f"{' or '.join(PLATFORMS)}")
+        device = PLATFORMS[args.platform]
+        if args.device not in (None, device):
+            raise SystemExit(f"--platform {args.platform} and --device "
+                             f"{args.device} disagree")
+        args.device = device
+    mh = ("coordinator", "num_processes", "process_id")
+    given = [f"--{n.replace('_', '-')}" for n in mh
+             if getattr(args, n) is not None]
+    if given and not args.multi_host:
+        raise SystemExit(f"{', '.join(given)} needs --multi-host")
+    made = False
+    if args.multi_host or under_torchrun():
+        made = init_distributed(resolve_device(args.device),
+                                args.coordinator, args.num_processes,
+                                args.process_id)
+    try:
+        yield args
+    finally:
+        if made:
+            dist.destroy_process_group()
 
 
 def build_exp(args):
@@ -100,7 +173,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     from ..train.trainer import Trainer
 
-    Trainer(build_exp(args), args).train()
+    with launched(args):
+        Trainer(build_exp(args), args).train()
 
 
 if __name__ == "__main__":

@@ -9,17 +9,19 @@
 importing it (``exp/build.py``).  Trailing ``key value`` pairs override exp
 attributes and come after every flag.  Runs on the card; ``--device cpu``
 runs on the CPU.  Checkpoints and the log go to ``output_dir/exp_name``.
-The options of ``tools/train_24p.py`` that need a mesh, several hosts or
-JAX's profiler are accepted and raise ``NotImplementedError`` before any
-data is read (ROADMAP.md queue 1 item 7); ``--no-prewarm`` is accepted and
-does nothing.
+Several processes, one per GPU, under torchrun or with ``--multi-host
+--coordinator HOST:PORT --num-processes N --process-id I`` (``-b`` is the
+global batch; ``--fsdp`` shards the state), as ``tools/train.py`` says.
+``--spatial``, ``--tensor`` and ``--profile-port`` are accepted and raise
+``NotImplementedError`` before any data is read (ROADMAP.md queue 1 items
+7 and 8); ``--no-prewarm`` is accepted and does nothing.
 """
 
 from __future__ import annotations
 
 import argparse
 
-from .train import add_unported_args
+from .train import add_parallel_args, launched
 
 
 def make_parser():
@@ -45,8 +47,7 @@ def make_parser():
     parser.add_argument("--accum", type=int, default=1,
                         help="gradient accumulation micro-steps per "
                              "optimizer step")
-    parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    add_unported_args(parser)
+    add_parallel_args(parser)
     parser.add_argument("opts", nargs=argparse.REMAINDER, default=[],
                         help="exp overrides: key value ...")
     return parser
@@ -76,7 +77,8 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     from ..train.trainer_24p import Trainer24P
 
-    Trainer24P(build_exp(args), args).train()
+    with launched(args):
+        Trainer24P(build_exp(args), args).train()
 
 
 if __name__ == "__main__":

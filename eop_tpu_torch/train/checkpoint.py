@@ -14,34 +14,41 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..losses import DWAState
+from ..parallel.mesh import state_to_host
 from .steps import TrainState
 
 
 def state_to_payload(state: TrainState) -> Dict[str, Any]:
-    """The ``TrainState`` as plain containers of tensors and numbers."""
-    return {
+    """The ``TrainState`` as plain containers of whole tensors and numbers.
+    Under FSDP the shards are gathered (``parallel.state_to_host``), a
+    collective that every rank joins before rank 0 writes; the keys are the
+    model's attribute names either way, so the file loads strictly into a
+    model on one device."""
+    return state_to_host({
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema_params": state.ema_params,
         "ema_batch_stats": state.ema_batch_stats,
         "dwa": state.dwa._asdict() if state.dwa is not None else None,
         "step": int(state.step),
-    }
+    })
 
 
 def _ckpt_path(save_dir: str, name: str) -> str:
     return os.path.abspath(os.path.join(save_dir, f"{name}_ckpt.pth"))
 
 
-def save_checkpoint(state: TrainState, is_best: bool, save_dir: str,
+def save_checkpoint(state, is_best: bool, save_dir: str,
                     model_name: str, metadata: Optional[Dict] = None) -> str:
     """Save ``<save_dir>/<model_name>_ckpt.pth`` (and a ``best_ckpt.pth``
-    copy).  The file is written beside the live checkpoint and renamed over
-    it, so a kill during a save never leaves the run without a restorable
-    checkpoint."""
+    copy) of a ``TrainState``, or of its :func:`state_to_payload` taken on
+    every rank beforehand (several processes: rank 0 writes).  The file is
+    written beside the live checkpoint and renamed over it, so a kill
+    during a save never leaves the run without a restorable checkpoint."""
     os.makedirs(save_dir, exist_ok=True)
     path = _ckpt_path(save_dir, model_name)
-    payload = {"state": state_to_payload(state)}
+    payload = {"state": state_to_payload(state)
+               if isinstance(state, TrainState) else state}
     if metadata:
         payload["metadata"] = dict(metadata)
     tmp = path + ".saving"

@@ -121,12 +121,13 @@ def _marker(hook: Optional[Callable]) -> Callable:
 def make_train_step_bbox(config: YoloxLossConfig,
                          ema_decay: Optional[float] = 0.9998,
                          accum_steps: int = 1,
-                         hook: Optional[Callable] = None) -> Callable:
+                         hook: Optional[Callable] = None,
+                         group=None) -> Callable:
     """Train step for the bbox family: ``step(state, images, labels) ->
     (state, metrics)`` with images ``[B, H, W, 3]`` float in 0..255 and
     labels ``[B, M, 5]`` (cls, cx, cy, w, h), both on the model's device.
     ``config.use_l1`` changes what the step computes, so a trainer holds one
-    step for each value.  ``accum_steps`` and ``hook`` as in
+    step for each value.  ``accum_steps``, ``hook`` and ``group`` as in
     :func:`make_train_step_24p` (BatchNorm statistics advance per
     micro-batch)."""
     mark = _marker(hook)
@@ -138,7 +139,7 @@ def make_train_step_bbox(config: YoloxLossConfig,
         decoded, origin_reg, grids, strides = training_outputs(
             head_outs, reg_dim=4)
         total, aux = yolox_losses(decoded, origin_reg, labels, grids,
-                                  strides, config)
+                                  strides, config, group)
         mark("loss")
         (total * scale if scale != 1.0 else total).backward()
         mark("backward")
@@ -158,7 +159,8 @@ def make_train_step_bbox(config: YoloxLossConfig,
 def make_train_step_24p(config: Loss24PConfig,
                         ema_decay: Optional[float] = None,
                         accum_steps: int = 1,
-                        hook: Optional[Callable] = None) -> Callable:
+                        hook: Optional[Callable] = None,
+                        group=None) -> Callable:
     """Train step for the 24-point detector: ``step(state, images, labels)
     -> (state, metrics)`` with images ``[B, H, W, 3]`` float in 0..255 and
     labels ``[B, M, 51]``, both on the model's device.
@@ -174,6 +176,15 @@ def make_train_step_24p(config: Loss24PConfig,
     ``"loss"``, ``"backward"``), ``hook("optimizer")`` once per step, and
     last ``hook("step", metrics)`` with the metrics the step returns: device
     tensors, so a hook that only stores them costs no synchronisation.
+
+    ``group`` (a process group; ``None``: this process alone): the images
+    are this rank's rows of a global batch (``parallel.shard_batch``), and
+    the loss, ``num_fg``, the DWA state and the metrics are the global
+    batch's (``cand_dropped`` summed over the ranks), as in ``eop_tpu``'s
+    sharded step; with the model's BatchNorm global too
+    (``parallel.convert_global_bn``) and the step wrapped by
+    ``parallel.shard_train_step``, each micro-batch is the global one's
+    share, as in ``_accum_scan``.
     """
     mark = _marker(hook)
 
@@ -184,7 +195,7 @@ def make_train_step_24p(config: Loss24PConfig,
         decoded, origin_reg, grids, strides = training_outputs(
             head_outs, reg_dim=26)
         total, aux, new_dwa = loss_24p(decoded, origin_reg, labels, grids,
-                                       strides, state.dwa, config)
+                                       strides, state.dwa, config, group)
         mark("loss")
         (total * scale if scale != 1.0 else total).backward()
         mark("backward")

@@ -23,9 +23,22 @@ one transfer (``host_fetches`` counts them), and with ``tensorboardX`` each
 step writes one row.  ``--accum N`` splits each batch into N micro-batches
 before one optimizer step (``make_train_step_bbox(accum_steps=N)``;
 DenseNet's micro-batches draw their masks from the step's generator in
-order).  One device; the mesh, several hosts, ``--spatial``, ``--tensor``,
-``--fsdp``, ``--profile-port`` and the XLA bucket prewarm are not ported
-(ROADMAP.md queue 1) and raise where asked for.
+order).
+
+Data parallel over processes (one per GPU, ``cuda:LOCAL_RANK``), as
+``eop_tpu``'s trainer runs over a mesh: where a process group exists
+(``tools.train --multi-host`` or torchrun) ``args.batch_size`` is the
+global batch, each rank loads its ``1 / world`` share, the BatchNorm, the
+loss and the metrics are the global batch's and the gradients are
+averaged (``parallel``), so a step is the one-process step on the global
+batch; ``args.fsdp`` shards the parameters, the momentum and the EMA
+(``place_state``).  Rank 0 alone writes the log file, tensorboard and the
+checkpoints; the checkpoint's state is gathered on every rank first.  The
+multiscale size comes from (seed, step), the same on every rank.  Each
+rank evaluates its strided share of the validation set and the detections
+are gathered before every rank scores them.  ``--spatial``, ``--tensor``
+and ``--profile-port`` are not ported (ROADMAP.md queue 1 items 7 and 8)
+and raise where asked for; the XLA bucket prewarm is not ported.
 """
 
 from __future__ import annotations
@@ -33,8 +46,10 @@ from __future__ import annotations
 import datetime
 import os
 import time
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..losses import YoloxLossConfig
 from ..models.densenet import step_seed
@@ -47,27 +62,77 @@ from ..utils.metric import (
     device_mem_usage,
     fetch_metrics,
 )
+from ..parallel.dist import get_rank, get_world_size, rank_device
+from ..parallel.global_bn import convert_global_bn
+from ..parallel.mesh import place_state, shard_train_step, state_to_host
 from ..utils.weights import train_state_from_jax
-from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
+from .checkpoint import (
+    load_checkpoint,
+    load_ckpt_partial,
+    save_checkpoint,
+    state_to_payload,
+)
 from .steps import create_train_state, eval_weights, make_train_step_bbox
 
-# the parallel and profiling args of eop_tpu's train command lines, which
-# ask for what the port does not have, and their defaults
-_UNPORTED_ARGS = {"spatial": 1, "tensor": 1, "fsdp": False,
-                  "profile_port": None, "multi_host": False,
-                  "coordinator": None, "num_processes": None,
-                  "process_id": None, "platform": None}
+# the options of eop_tpu's train command lines that the port does not
+# have, their defaults, and the ROADMAP.md queue 1 item that holds each
+_UNPORTED_ARGS = {"spatial": (1, 7), "tensor": (1, 7),
+                  "profile_port": (None, 8)}
 
 
 def reject_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first of ``args``' parallel
-    or profiling options set off its default: the port trains on one
-    device (multi-GPU is ROADMAP.md queue 1 item 7)."""
-    for name, default in _UNPORTED_ARGS.items():
+    """Raise ``NotImplementedError`` naming the first of ``args``' spatial,
+    tensor or profiling options set off its default, and the ROADMAP.md
+    item that holds it (queue 1 item 7: spatial and tensor sharding; item
+    8: the live profiler)."""
+    for name, (default, item) in _UNPORTED_ARGS.items():
         if getattr(args, name, default) != default:
             raise NotImplementedError(
-                f"{name}={getattr(args, name)!r}: the port trains on one "
-                "device without it (ROADMAP.md queue 1 item 7)")
+                f"{name}={getattr(args, name)!r}: not ported "
+                f"(ROADMAP.md queue 1 item {item})")
+
+
+class Parallel(NamedTuple):
+    """This process's place in the run: its device (``cuda:LOCAL_RANK``
+    on a card), rank and world size, the process group (``None`` without
+    one: this process alone) and whether to shard the state (``fsdp``)."""
+
+    device: torch.device
+    rank: int
+    world: int
+    group: Optional[object]
+    fsdp: bool
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    @classmethod
+    def of(cls, args) -> "Parallel":
+        """From ``args.device`` and ``args.fsdp`` and the default process
+        group, where one has been started (``init_distributed``)."""
+        group = dist.group.WORLD if (dist.is_available()
+                                     and dist.is_initialized()) else None
+        return cls(rank_device(resolve_device(getattr(args, "device", None))),
+                   get_rank(), get_world_size(), group,
+                   bool(getattr(args, "fsdp", False)))
+
+    def check_batch(self, batch_size: int) -> None:
+        if batch_size % self.world:
+            raise ValueError(f"the global batch {batch_size} does not split "
+                             f"over {self.world} ranks")
+
+    def model(self, model):
+        """``model`` with its BatchNorm over the global batch."""
+        if self.group is not None:
+            convert_global_bn(model, self.group)
+        return model
+
+    def step(self, step_fn):
+        return shard_train_step(step_fn, self.group, self.fsdp)
+
+    def place(self, state):
+        return place_state(state, self.fsdp, self.group)
 
 
 class Trainer:
@@ -86,7 +151,9 @@ class Trainer:
         reject_unported(args)
         self.exp = exp
         self.args = args
-        self.device = resolve_device(getattr(args, "device", None))
+        self.par = Parallel.of(args)
+        self.device = self.par.device
+        self.is_main = self.par.is_main
         self.max_epoch = exp.max_epoch
         self.input_size = exp.input_size
         self.start_epoch = 0
@@ -98,18 +165,21 @@ class Trainer:
         self.file_name = os.path.join(
             exp.output_dir, getattr(args, "experiment_name", None)
             or exp.exp_name)
-        os.makedirs(self.file_name, exist_ok=True)
-        setup_logger(self.file_name, filename="train_log.txt")
+        if self.is_main:
+            os.makedirs(self.file_name, exist_ok=True)
+        setup_logger(self.file_name, filename="train_log.txt",
+                     rank=self.par.rank)
         self._eval_model = None
         self._steps = {}
         self.tblogger = None
-        try:
-            from tensorboardX import SummaryWriter
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.tblogger = SummaryWriter(
-                os.path.join(self.file_name, "tensorboard"))
-        except ImportError:
-            pass
+                self.tblogger = SummaryWriter(
+                    os.path.join(self.file_name, "tensorboard"))
+            except ImportError:
+                pass
 
     # ------------------------------------------------------------------
 
@@ -140,12 +210,19 @@ class Trainer:
                                 payload.get("metadata", {}).get(
                                     "start_epoch", 0))
         self.no_aug = self.start_epoch >= self.max_epoch - exp.no_aug_epochs
+        par = self.par
+        par.check_batch(args.batch_size)
+        # args.batch_size is the global batch: each rank loads its share
         self.train_loader = exp.get_data_loader(
-            args.batch_size, no_aug=self.no_aug,
-            cache_img=getattr(args, "cache", False))
+            args.batch_size, is_distributed=par.world > 1, no_aug=self.no_aug,
+            cache_img=getattr(args, "cache", False), rank=par.rank,
+            world_size=par.world)
         self.iters_per_epoch = len(self.train_loader)
-        model = exp.get_model(self.device, seed=exp.seed or 0).train()
+        model = par.model(exp.get_model(self.device, seed=exp.seed or 0)
+                          .train())
         self._dropouts = dropouts(model)
+        for d in self._dropouts:
+            d.shard = (par.rank, par.world)
         optimizer = exp.get_optimizer(model, args.batch_size,
                                       self.iters_per_epoch)
         jax_state = getattr(args, "jax_state", None)
@@ -168,7 +245,10 @@ class Trainer:
                     f"{report['skipped'][:3]})")
             logger.info(f"loaded {len(report['loaded'])} tensors; starting "
                         f"at epoch {self.start_epoch}")
-        self.evaluator = (exp.get_evaluator(args.batch_size)
+        self.state = par.place(self.state)
+        # each rank scores its strided share; the evaluator gathers
+        self.evaluator = (exp.get_evaluator(args.batch_size,
+                                            is_distributed=par.world > 1)
                           if exp.data_dir else None)
         self.use_l1 = False
         self._no_aug_applied = False
@@ -181,9 +261,10 @@ class Trainer:
         if self.use_l1 not in self._steps:
             cfg = YoloxLossConfig(num_classes=self.exp.num_classes,
                                   use_l1=self.use_l1)
-            self._steps[self.use_l1] = make_train_step_bbox(
+            self._steps[self.use_l1] = self.par.step(make_train_step_bbox(
                 cfg, ema_decay=self.exp.ema_decay if self.exp.ema else None,
-                accum_steps=getattr(self.args, "accum", 1), hook=self.hook)
+                accum_steps=getattr(self.args, "accum", 1), hook=self.hook,
+                group=self.par.group))
         return self._steps[self.use_l1]
 
     def before_epoch(self):
@@ -289,8 +370,9 @@ class Trainer:
     def eval_model(self):
         """A separate eval-mode model carrying the EMA parameters and batch
         statistics where ``exp.ema``, else the live ones (built at the first
-        evaluation and loaded anew at each)."""
-        weights = eval_weights(self.state, self.exp.ema)
+        evaluation and loaded anew at each; gathered on every rank under
+        FSDP)."""
+        weights = state_to_host(eval_weights(self.state, self.exp.ema))
         if self._eval_model is None:
             self._eval_model = self.exp.get_model(self.device)
         self._eval_model.load_state_dict(weights, strict=True)
@@ -300,8 +382,9 @@ class Trainer:
         if self.evaluator is None:
             self.save_ckpt("last_epoch")
             return
-        ap50_95, ap50, summary = self.exp.eval(self.eval_model(),
-                                               self.evaluator)
+        ap50_95, ap50, summary = self.exp.eval(
+            self.eval_model(), self.evaluator,
+            is_distributed=self.par.world > 1)
         logger.info(f"\n{summary}")
         logger.info(f"AP50:95={ap50_95:.4f} AP50={ap50:.4f}")
         if self.tblogger is not None:
@@ -312,6 +395,10 @@ class Trainer:
         self.best_ap = max(self.best_ap, ap50_95)
 
     def save_ckpt(self, ckpt_name: str, update_best_ckpt: bool = False):
+        # every rank joins the gather of a sharded state; rank 0 writes
+        payload = state_to_payload(self.state)
+        if not self.is_main:
+            return
         logger.info(f"Save weights to {self.file_name}")
-        save_checkpoint(self.state, update_best_ckpt, self.file_name,
+        save_checkpoint(payload, update_best_ckpt, self.file_name,
                         ckpt_name, metadata={"start_epoch": self.epoch + 1})

@@ -5,8 +5,16 @@ line every ``print_interval`` iterations, a ``last_epoch`` checkpoint per
 epoch, ``--resume`` / ``--ckpt`` / ``start_epoch``, optional EMA and LR
 scheduling, and with ``args.eval`` the COCO-24p evaluation every
 ``eval_interval`` epochs (EMA weights where ``exp.ema``) that keeps
-``best_ckpt.pth``.  One device; mesh parallelism and the GT-vs-prediction
-overlay are not ported yet.
+``best_ckpt.pth``.
+
+Data parallel over processes as the bbox ``Trainer`` is
+(``train/trainer.py``, ``Parallel``): ``args.batch_size`` is the global
+batch (the learning rate follows it), each rank loads its share, a step is
+the one-process step on the global batch, ``args.fsdp`` shards the state,
+rank 0 alone writes the log file, tensorboard and the checkpoints (the
+state gathered on every rank first).  Every rank evaluates with the
+gathered weights, and ``Evaluator24P`` scores the whole set on each, as
+``eop_tpu``'s does.
 
 Where ``tensorboardX`` is installed, every step writes one row of scalars,
 as ``eop_tpu``'s trainer does; the steps keep their metrics on the device
@@ -24,28 +32,36 @@ import numpy as np
 import torch
 
 from ..losses import Loss24PConfig
-from ..utils.device import resolve_device
+from ..parallel.mesh import state_to_host
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import CandidateDropMonitor, fetch_metrics
-from .checkpoint import load_checkpoint, load_ckpt_partial, save_checkpoint
+from .checkpoint import (
+    load_checkpoint,
+    load_ckpt_partial,
+    save_checkpoint,
+    state_to_payload,
+)
 from .steps import create_train_state, eval_weights, make_train_step_24p
-from .trainer import reject_unported
+from .trainer import Parallel, reject_unported
 
 
 class Trainer24P:
     """``Trainer24P(exp, args).train()`` returns the final ``TrainState``.
 
-    ``args`` attributes: ``batch_size``; optional ``lr``, ``accum``,
-    ``resume``, ``ckpt``, ``start_epoch``, ``eval``, ``device`` (the card
-    unless ``"cpu"``).  ``hook``, where set before ``train()``, is handed to
-    ``make_train_step_24p`` as its ``hook``.
+    ``args`` attributes: ``batch_size`` (the global batch); optional
+    ``lr``, ``accum``, ``resume``, ``ckpt``, ``start_epoch``, ``eval``,
+    ``device`` (the card unless ``"cpu"``), ``fsdp``.  ``hook``, where set
+    before ``train()``, is handed to ``make_train_step_24p`` as its
+    ``hook``.
     """
 
     def __init__(self, exp, args):
         reject_unported(args)
         self.exp = exp
         self.args = args
-        self.device = resolve_device(getattr(args, "device", None))
+        self.par = par = Parallel.of(args)
+        self.device = par.device
+        self.is_main = par.is_main
         self.max_epoch = exp.max_epoch
         self.input_size = exp.input_size
         self.start_epoch = 0
@@ -53,30 +69,37 @@ class Trainer24P:
         self._eval_model = None
         self.drop_monitor = CandidateDropMonitor(logger)
         self.file_name = os.path.join(exp.output_dir, exp.exp_name)
-        os.makedirs(self.file_name, exist_ok=True)
-        setup_logger(self.file_name, filename="train_log.txt")
+        if self.is_main:
+            os.makedirs(self.file_name, exist_ok=True)
+        setup_logger(self.file_name, filename="train_log.txt", rank=par.rank)
 
-        self.train_loader = exp.get_data_loader(args.batch_size)
+        # args.batch_size is the global batch: each rank loads its share
+        par.check_batch(args.batch_size)
+        self.train_loader = exp.get_data_loader(
+            args.batch_size, is_distributed=par.world > 1, rank=par.rank,
+            world_size=par.world)
         self.iters_per_epoch = len(self.train_loader)
 
         self.host_fetches = 0  # metric transfers to the host
         self.tblogger = None
-        try:
-            from tensorboardX import SummaryWriter
+        if self.is_main:
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.tblogger = SummaryWriter(
-                os.path.join(self.file_name, "tensorboard"))
-        except ImportError:
-            pass
+                self.tblogger = SummaryWriter(
+                    os.path.join(self.file_name, "tensorboard"))
+            except ImportError:
+                pass
 
     def train(self):
-        exp, args = self.exp, self.args
-        model = exp.get_model(self.device, seed=exp.seed or 0).train()
+        exp, args, par = self.exp, self.args, self.par
+        model = par.model(exp.get_model(self.device, seed=exp.seed or 0)
+                          .train())
         lr = getattr(args, "lr", None) or exp.basic_lr_per_img * args.batch_size
         optimizer = exp.get_optimizer(model, args.batch_size, lr=lr)
         state = create_train_state(model, optimizer, use_ema=exp.ema,
                                    with_dwa=True)
-        state = self._maybe_resume(state)
+        state = par.place(self._maybe_resume(state))
         steps = {}
 
         def get_step(use_l1: bool):
@@ -86,12 +109,13 @@ class Trainer24P:
                     use_l1=use_l1,
                     reference_parity=exp.reference_parity,
                 )
-                steps[use_l1] = make_train_step_24p(
+                steps[use_l1] = par.step(make_train_step_24p(
                     cfg,
                     ema_decay=exp.ema_decay if exp.ema else None,
                     accum_steps=getattr(args, "accum", 1),
                     hook=self.hook,
-                )
+                    group=par.group,
+                ))
             return steps[use_l1]
 
         evaluator = None
@@ -145,10 +169,15 @@ class Trainer24P:
                 f"epoch {epoch + 1} done in {time.time() - epoch_start:.1f}s")
             want_eval = (evaluator is not None
                          and (epoch + 1) % exp.eval_interval == 0)
+            payload = None
             if ((epoch + 1) % exp.ckpt_interval == 0
                     or epoch + 1 == self.max_epoch or want_eval):
-                save_checkpoint(state, False, self.file_name, "last_epoch",
-                                metadata={"start_epoch": epoch + 1})
+                # every rank joins the gather of a sharded state
+                payload = state_to_payload(state)
+                if self.is_main:
+                    save_checkpoint(payload, False, self.file_name,
+                                    "last_epoch",
+                                    metadata={"start_epoch": epoch + 1})
             if want_eval:
                 ap5095, ap50, summary = evaluator.evaluate(
                     exp.get_infer_fn(self.eval_model(state), self.device))
@@ -159,8 +188,10 @@ class Trainer24P:
                     self.tblogger.add_scalar("val/AP50_95", ap5095, epoch + 1)
                 if ap5095 > best_ap:
                     best_ap = ap5095
-                    save_checkpoint(state, True, self.file_name, "last_epoch",
-                                    metadata={"start_epoch": epoch + 1})
+                    if self.is_main:
+                        save_checkpoint(payload, True, self.file_name,
+                                        "last_epoch",
+                                        metadata={"start_epoch": epoch + 1})
         del it  # stops the loader's workers
         if hasattr(self.train_loader, "shutdown"):
             self.train_loader.shutdown()
@@ -171,8 +202,9 @@ class Trainer24P:
         statistics where ``exp.ema``, else the live ones: the training
         model's mode, autograd state and weights stay as they are.  Built at
         the first evaluation and loaded anew at each: the in-place loads
-        move the tensor versions that key its packed and folded weights."""
-        weights = eval_weights(state, self.exp.ema)
+        move the tensor versions that key its packed and folded weights.
+        Under FSDP the weights are gathered on every rank first."""
+        weights = state_to_host(eval_weights(state, self.exp.ema))
         if self._eval_model is None:
             self._eval_model = self.exp.get_model(self.device)
         self._eval_model.load_state_dict(weights, strict=True)

@@ -746,10 +746,14 @@ class LabelOracle:
     (one with ``load_anno``: COCO's, and VOC's with its difficult objects,
     which the VOC protocol neither counts nor penalises; they are in the
     letterboxed pixels at the evaluation size).  Pure in its input: a batch seen again (evaluators run
-    their first batch twice) gets the same detections."""
+    their first batch twice) gets the same detections.  ``indices``: the
+    dataset indices the loader visits, in order (a rank's strided share
+    under distributed evaluation); every index by default."""
 
-    def __init__(self, dataset, device, max_det: int = 10):
+    def __init__(self, dataset, device, max_det: int = 10, indices=None):
         self.dataset, self.device, self.max_det = dataset, device, max_det
+        self.order = (list(range(len(dataset))) if indices is None
+                      else list(indices))
         self.next, self.cache = 0, {}
 
     def __call__(self, imgs):
@@ -757,7 +761,7 @@ class LabelOracle:
 
         key = hash(np.asarray(imgs).tobytes())
         if key not in self.cache:
-            index = range(self.next, self.next + len(imgs))
+            index = self.order[self.next:self.next + len(imgs)]
             self.next += len(imgs)
             if hasattr(self.dataset, "load_anno"):
                 rows, valid = box_label_detections(

@@ -8,8 +8,10 @@ import re
 import pytest
 import torch
 
+from eop_tpu_torch.exp import get_exp
 from eop_tpu_torch.tools import eval as eval_cli
 from eop_tpu_torch.tools import train as train_cli
+from eop_tpu_torch.tools.eval import eval_weights
 from eop_tpu_torch.utils.synth import write_coco_dataset
 
 TINY = ["depth", "0.33", "width", "0.25", "num_classes", "3",
@@ -83,7 +85,23 @@ def test_train_across_the_switch_resume_and_eval(coco_dir, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--tensor", "2"], ["--fsdp"],
                                   ["--spatial", "2"], ["--multi-host"]])
 def test_unported_train_options_raise(coco_dir, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_cli.main(["-n", "yolox-s", "-b", "2", "--data-dir", coco_dir,
-                        "--device", "cpu"] + flag + TINY
-                       + ["output_dir", str(tmp_path)])
+    """``--tensor`` and ``--spatial`` raise naming ROADMAP's item;
+    ``--multi-host`` without ``--coordinator`` or torchrun's environment
+    raises naming them; ``--fsdp`` in one process trains (it shards
+    nothing without a group) and its checkpoint loads strictly."""
+    argv = (["-n", "yolox-s", "-b", "2", "--data-dir", coco_dir, "--device",
+             "cpu"] + flag + TINY + ["output_dir", str(tmp_path)])
+    if flag[0] in ("--tensor", "--spatial"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_cli.main(argv)
+    elif flag[0] == "--multi-host":
+        with pytest.raises(ValueError, match="--coordinator.*torchrun"):
+            train_cli.main(argv)
+    else:
+        train_cli.main(argv + ["max_epoch", "1", "no_aug_epochs", "0",
+                               "data_num_workers", "0", "multiscale_range",
+                               "0"])
+        exp = get_exp(exp_name="yolox-s")
+        exp.merge(TINY)
+        exp.get_model("cpu").load_state_dict(eval_weights(os.path.join(
+            str(tmp_path), "yolox_s", "latest_ckpt.pth")), strict=True)

@@ -7,8 +7,9 @@ held here on the CPU:
   built), ``demo_featuremap -c`` and ``show_24p -w``; a file of neither
   form still raises ``load_state_dict``'s error;
 * ``train`` and ``train_24p`` parse ``eop_tpu``'s ``--no-prewarm`` (it does
-  nothing) and its parallel and profiling flags, each of which raises the
-  named ``NotImplementedError`` before any data is read;
+  nothing) and its parallel and profiling flags: ``--spatial``,
+  ``--tensor`` and ``--profile-port`` raise the named
+  ``NotImplementedError`` before any data is read, the others work;
 * ``serve --batch`` defaults to 16, as ``eop_tpu``'s ``tools/serve.py``.
 """
 
@@ -18,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_dist_child import free_port
+
 from eop_tpu_torch.exp import get_exp
 from eop_tpu_torch.tools import demo_featuremap, serve, show_24p
 from eop_tpu_torch.tools import eval as eval_cli
@@ -25,6 +28,7 @@ from eop_tpu_torch.tools import train as train_cli
 from eop_tpu_torch.tools import train_24p as train_24p_cli
 from eop_tpu_torch.tools.eval import eval_weights
 from eop_tpu_torch.utils.synth import (
+    write_coco_dataset,
     write_24p_dataset,
     write_featuremap_fixture,
     write_png,
@@ -174,30 +178,92 @@ UNPORTED = [("--spatial", "2"), ("--tensor", "2"), ("--fsdp",),
             ("--profile-port", "9012"), ("--multi-host",),
             ("--coordinator", "127.0.0.1:5555"), ("--num-processes", "2"),
             ("--process-id", "1"), ("--platform", "cpu")]
+TINY_TRAIN = ["depth", "0.33", "width", "0.125", "num_classes", "3",
+              "input_size", "(64,64)", "test_size", "(64,64)",
+              "data_num_workers", "0", "max_epoch", "1"]
+
+
+@pytest.fixture(scope="module")
+def train_data(tmp_path_factory):
+    """Two training images for each family (one step of B=2)."""
+    root = tmp_path_factory.mktemp("trainflags")
+    coco = write_coco_dataset(str(root / "coco"), 2, 2, (64, 64),
+                              num_classes=3, seed=2)
+    return coco, write_24p_dataset(str(root / "d24p"), 2, (64, 64), seed=4)
+
+
+def _strict_load(cli, out):
+    """The run's checkpoint loads strictly into the exp's model."""
+    exp = (get_exp(exp_name="yolox-s") if cli == "train"
+           else get_exp("load_train/yolox_24p_train.py"))
+    exp.merge(TINY_TRAIN[:10])
+    found = [os.path.join(d, f) for d, _, fs in os.walk(out) for f in fs
+             if f.endswith("_ckpt.pth")]
+    assert found
+    model = exp.get_model("cpu")
+    model.load_state_dict(eval_weights(found[0]), strict=True)
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])
 @pytest.mark.parametrize("cli", ["train", "train_24p"])
-def test_parallel_flags_raise_by_name(cli, flag, tmp_path):
-    """Each flag parses with ``eop_tpu``'s default and raises, naming
-    itself and ROADMAP's multi-GPU item, before any data is read (the data
-    directories do not exist)."""
+def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
+    """Each flag parses with ``eop_tpu``'s default.  ``--spatial``,
+    ``--tensor`` and ``--profile-port`` raise ``NotImplementedError``
+    naming themselves and their ROADMAP item before any data is read (the
+    data directories do not exist).  The others work: ``--coordinator``,
+    ``--num-processes`` and ``--process-id`` without ``--multi-host`` stop
+    before any data is read, naming it; ``--fsdp`` (no group: it warns that
+    it shards nothing), ``--multi-host`` (a group of one over gloo,
+    destroyed at the end) and ``--platform cpu`` (no ``--device``) each
+    train one step whose checkpoint loads strictly, and ``--platform tpu``
+    raises."""
     missing = str(tmp_path / "missing")
+    coco, (img_dir, lab_dir) = train_data
     if cli == "train":
         parser, main = train_cli.make_parser(), train_cli.main
-        argv = ["-n", "yolox-s", "--device", "cpu", "--data-dir", missing]
+        argv = ["-n", "yolox-s", "--data-dir", missing]
+        real = ["-n", "yolox-s", "-b", "2", "--data-dir", coco]
+        opts = TINY_TRAIN + ["no_aug_epochs", "0", "multiscale_range", "0"]
     else:
         parser, main = train_24p_cli.make_parser(), train_24p_cli.main
-        argv = ["--device", "cpu", "--data-dir", missing, "--label-dir",
-                missing]
+        argv = ["--data-dir", missing, "--label-dir", missing]
+        real = ["-b", "2", "--data-dir", img_dir, "--label-dir", lab_dir]
+        opts = TINY_TRAIN
     name = flag[0][2:].replace("-", "_")
     default = getattr(parser.parse_args(argv), name)
     assert default == {"spatial": 1, "tensor": 1, "fsdp": False,
                        "multi_host": False}.get(name)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{name}=.*queue 1 item 7"):
-        main([*flag, *argv, "output_dir", str(tmp_path / "out")])
-    assert not os.path.exists(tmp_path / "out")
+    out = str(tmp_path / "out")
+    if name in ("spatial", "tensor", "profile_port"):
+        item = 8 if name == "profile_port" else 7
+        with pytest.raises(NotImplementedError,
+                           match=rf"{name}=.*queue 1 item {item}"):
+            main([*flag, "--device", "cpu", *argv, "output_dir", out])
+        assert not os.path.exists(out)
+        return
+    if name in ("coordinator", "num_processes", "process_id"):
+        with pytest.raises(SystemExit, match=f"{flag[0]} needs --multi-host"):
+            main([*flag, "--device", "cpu", *argv, "output_dir", out])
+        assert not os.path.exists(out)
+        return
+    given = {"fsdp": ["--fsdp", "--device", "cpu"],
+             "multi_host": ["--multi-host", "--coordinator",
+                            f"127.0.0.1:{free_port()}", "--num-processes",
+                            "1", "--process-id", "0", "--device", "cpu"],
+             "platform": ["--platform", "cpu"]}[name]
+    main([*given, *real, *opts, "output_dir", out])
+    assert not torch.distributed.is_initialized()
+    _strict_load(cli, out)
+    log = "".join(open(os.path.join(d, f)).read()
+                  for d, _, fs in os.walk(out) for f in fs
+                  if f == "train_log.txt")
+    if name == "fsdp":
+        assert "fsdp shards nothing" in log
+    if name == "multi_host":
+        assert "world 1, fsdp=False" in log
+    if name == "platform":
+        with pytest.raises(ValueError, match="cpu or gpu"):
+            main(["--platform", "tpu", *argv, "output_dir", out])
 
 
 def test_serve_batch_defaults_to_16():

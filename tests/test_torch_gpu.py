@@ -1651,3 +1651,126 @@ def test_artifact_exported_on_card_equals_live_serving(cuda, tmp_path, int8):
     assert (launched[2] > 0) == int8
     assert valid.sum() > 0
     assert torch.equal(valid, live.valid) and torch.equal(rows, live.rows)
+
+
+# --- data parallelism (eop_tpu_torch/parallel)
+
+def _launch_counts():
+    c = pc.phase_conv
+    return (dict(c.variant_launches), dict(c.wgrad_variant_launches),
+            dict(c.dgrad_variant_launches))
+
+
+def _launches_since(before):
+    return tuple({k: v - b.get(k, 0) for k, v in now.items()
+                  if v - b.get(k, 0)}
+                 for b, now in zip(before, _launch_counts()))
+
+
+@pytest.mark.gpu
+def test_world_one_nccl_step_matches_the_plain_step(cuda):
+    """A group of one over NCCL on the card: ``convert_global_bn``, the
+    loss with the group and ``shard_train_step`` (its gradient all_reduce)
+    give the plain step's loss, num_fg and update within fp32 noise, with
+    the same hand-kernel launches by variant."""
+    import socket
+
+    import torch.distributed as dist
+
+    from eop_tpu_torch.exp import Exp24P
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.parallel import convert_global_bn, shard_train_step
+    from eop_tpu_torch.parallel.dist import init_distributed
+    from eop_tpu_torch.train.steps import (
+        create_train_state,
+        make_train_step_24p,
+    )
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    imgs, labels = synthetic_24p_batch(
+        torch.Generator().manual_seed(2), 4, size=128, ngt=3, r_lo=8.0,
+        r_hi=30.0)
+    imgs, labels = imgs.to(cuda), labels.to(cuda)
+    exp = Exp24P()
+    exp.depth, exp.width, exp.num_classes = 0.33, 0.25, 3
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    made = init_distributed("cuda", f"127.0.0.1:{port}", 1, 0)
+    try:
+        out = {}
+        for mode in ("plain", "dp"):
+            model = exp.get_model(cuda, seed=3).train()
+            group = dist.group.WORLD if mode == "dp" else None
+            if group is not None:
+                convert_global_bn(model, group)
+            state = create_train_state(
+                model, exp.get_optimizer(model, 4, lr=1e-3), use_ema=False,
+                with_dwa=True)
+            step = shard_train_step(make_train_step_24p(
+                Loss24PConfig(num_classes=3), group=group), group)
+            before = _launch_counts()
+            state, m = step(state, imgs, labels)
+            torch.cuda.synchronize()
+            out[mode] = (m["total_loss"].item(), m["num_fg"].item(),
+                         _launches_since(before),
+                         {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()})
+    finally:
+        if made:
+            dist.destroy_process_group()
+    plain, dp = out["plain"], out["dp"]
+    assert abs(dp[0] - plain[0]) <= 1e-5 * abs(plain[0])
+    assert dp[1] == plain[1]
+    assert dp[2] == plain[2]
+    assert sum(dp[2][0].values()) == 8 and sum(dp[2][1].values()) == 8
+    assert sum(dp[2][2].values()) == 7
+    for k, v in plain[3].items():
+        if v.is_floating_point():
+            bound = 1e-5 * max(v.abs().max().item(), 1e-6)
+            assert (dp[3][k] - v).abs().max().item() <= bound, k
+        else:
+            assert torch.equal(dp[3][k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_global_batch_norm_on_card_matches_batchnorm(cuda, dtype, tol):
+    """The global BatchNorm's arithmetic (no group) on CUDA tensors against
+    the port's BatchNorm2d (output, input gradient, running statistics) and
+    against BatchNorm2d in float64 on the same inputs (the parameter
+    gradients: the card's bf16 BatchNorm sums them less precisely)."""
+    from eop_tpu_torch.ops.blocks import BatchNorm2d
+    from eop_tpu_torch.parallel import global_batch_norm
+
+    tdt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.randn(8, 32, 20, 20, generator=g) * 2 + 0.5).to(cuda, tdt)
+    x = x.contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=g).to(cuda, tdt)
+    ref = BatchNorm2d(32, eps=1e-3, momentum=0.03).to(cuda).train()
+    with torch.no_grad():
+        ref.weight.uniform_(0.5, 1.5)
+        ref.bias.uniform_(-0.5, 0.5)
+    w = ref.weight.detach().clone().requires_grad_()
+    b = ref.bias.detach().clone().requires_grad_()
+    rm, rv = ref.running_mean.clone(), ref.running_var.clone()
+    xa, xb = x.clone().requires_grad_(), x.clone().requires_grad_()
+    y = global_batch_norm(xa, w, b, rm, rv, 0.03, 1e-3)
+    yr = ref(xb)
+    (y.float() * dy.float()).sum().backward()
+    (yr.float() * dy.float()).sum().backward()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(xa.grad.float(), xb.grad.float(), atol=tol,
+                               rtol=tol)
+    ref64 = BatchNorm2d(32, eps=1e-3, momentum=0.03).to(cuda).double()
+    with torch.no_grad():
+        ref64.weight.copy_(w)
+        ref64.bias.copy_(b)
+    (ref64.train()(x.double()) * dy.double()).sum().backward()
+    for got, want in ((w.grad, ref64.weight.grad), (b.grad, ref64.bias.grad)):
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+    torch.testing.assert_close(rm, ref.running_mean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rv, ref.running_var, atol=1e-5, rtol=1e-5)

@@ -3,7 +3,8 @@ the eop_tpu package, so it runs where JAX is not installed; nor PIL or
 tabulate, and OpenCV, matplotlib and seaborn only inside functions (the
 decoder of other formats, ``vis``'s labels), never at module level,
 because the H100 hosts it targets may have none of them.  chip_smoke.py
-keeps to the same rules."""
+and tests/_torch_dist_child.py (the multi-process tests' ranks) keep to
+the same rules."""
 
 import ast
 import json
@@ -69,7 +70,10 @@ def test_every_module_imports_without_jax():
                  "tools.show_24p", "tools.show_mask",
                  # the deployment path: export, int8 PTQ
                  "ops.quant", "utils.serving_export",
-                 "tools.export_serving"):
+                 "tools.export_serving",
+                 # data parallelism over processes
+                 "parallel", "parallel.dist", "parallel.global_bn",
+                 "parallel.mesh"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
@@ -86,7 +90,10 @@ def _imports(nodes):
 
 def test_no_source_file_imports_jax_or_eop_tpu():
     found = []
-    for path in [*PKG_DIR.rglob("*.py"), PKG_DIR.parent / "chip_smoke.py"]:
+    # the ranks the multi-process tests start run where JAX need not be
+    children = [PKG_DIR.parent / "tests" / "_torch_dist_child.py"]
+    for path in [*PKG_DIR.rglob("*.py"), PKG_DIR.parent / "chip_smoke.py",
+                 *children]:
         tree = ast.parse(path.read_text(), str(path))
         found += [(str(path), n) for n in _imports(ast.walk(tree))
                   if _forbidden(n)]
