@@ -128,7 +128,8 @@
     answering HTTP; ``python -m eop_tpu_torch.tools.demo_featuremap -n
     yolox-l --backbone resnet --theta-range 30,95,30`` on a synthesized
     fixture in a child where cv2, matplotlib, seaborn and tabulate do not
-    import (every sweep's files, four AP blocks, a finite table); the
+    import, started first and run beside the rest of 16b (every sweep's
+    files, four AP blocks, a finite table); the
     host resizers' times on the loader's and the letterbox's shapes;
 16c. PASCAL VOC: a seeded VOCdevkit (VOC2007 and VOC2012 trainval, 16
     375x500 JPEG images each, VOC2007 test, 8), YOLOX-S at full width
@@ -195,6 +196,29 @@
     phase), each checkpoint
     scored by ``tools.eval`` (an AP line), the per-rank state bytes that
     ``place_state`` logs;
+16g. spatial and tensor sharding on the one card: two ranks on ``cuda:0``
+    (gloo over CUDA tensors, as 16f), started beside the VOC phase with a
+    third process for the one-process side, each run three steps of 24p-s
+    at full width (640 px, global B=8, seeded weights, EMA; fp32, then
+    bf16) under ``--spatial 2`` (each rank its 320 rows, halo rows
+    exchanged around every conv of the stem through dark4, gathered before
+    dark5) and under ``--tensor 2`` (each rank half of the qualifying
+    convs' output channels), against one process's B=8 steps from the same
+    state, with 16f's gates (fp32: loss within 1e-4, ``num_fg`` equal, the
+    gradients' relative L2 distance within 1e-3, or within twice the
+    distance a change of arithmetic alone gives one process's own step
+    where that is larger (at B=8 one ulp on the images moves it 1.05e-3),
+    the tensors over 1e-3 listed; bf16: ``train_card_vs_cpu``'s bf16
+    bounds and the cosine rule); the ranks' state, gathered whole,
+    bit-equal; each rank's
+    launches by variant against those predicted from the halo'd and sliced
+    shapes (``MP_STEP_VARIANTS``: ``small_1x1`` for dark2's m0.conv1 under
+    ``--tensor 2``); every shape the kernels meet checked against the
+    plain versions (forward, fused, both gradients, fp32 and bf16); the
+    state bytes a rank holds under ``--tensor 2``; a B=8 batch through
+    ``get_sharded_infer_fn`` over the space pair and ``get_tp_infer_fn``
+    over the model pair against one process's ``get_infer_fn`` (masks
+    equal, coordinates within the serve phase's 0.64 px, scores 1e-3);
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
@@ -205,6 +229,15 @@ launch counts written to OUT.
 
 ``python3 chip_smoke.py --dp-child RANK PORT OUT BACKEND`` is one of
 16f's ranks; ``--nccl-probe-child RANK PORT`` one of its NCCL probe's.
+
+``python3 chip_smoke.py --mp-child RANK PORT OUT`` is one of 16g's ranks,
+``--mp-ref-child OUT`` its one-process side; ``python3 chip_smoke.py
+--model-parallel`` runs only 16g.  ``python3 chip_smoke.py --grad-noise``
+takes 16g's fp32 gradient distance apart: one process's first B=8 step
+against itself under changes of arithmetic alone (again, the images one
+ulp up, cuDNN off, the global BatchNorm's sums) and two ranks of data
+parallelism, of --tensor 2 with m0.conv1 on ``wgmma_taps`` and of
+--spatial 2 without cuDNN (``--grad-noise-child`` is one of its ranks).
 
 ``python3 chip_smoke.py --repeat-serve-bbox N`` runs only the serve_bbox
 phase, N times in one process, one line a run.  ``python3 chip_smoke.py
@@ -442,11 +475,20 @@ def sass_summary(_build):
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     if not os.path.exists(tool):
         return None
-    out = {}
-    for name in sorted(n for n in _build.BUILD_INFO if not _build.is_host(n)):
-        sass = subprocess.run([tool, "-sass", str(_build._target(name))],
+    from concurrent.futures import ThreadPoolExecutor
+
+    names = sorted(n for n in _build.BUILD_INFO if not _build.is_host(n))
+
+    def dump(name):  # the libraries at once: cuobjdump takes seconds each
+        return subprocess.run([tool, "-sass", str(_build._target(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout.splitlines()
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        dumps = dict(zip(names, pool.map(dump, names)))
+    out = {}
+    for name in names:
+        sass = dumps[name]
         row = {}
         for op in ("HGMMA", "UTMALDG", "UBLKCP", "SYNCS", "FFMA"):
             hits = [ln for ln in sass if f" {op}" in ln]
@@ -489,12 +531,12 @@ def _small_1x1(case) -> bool:
     return small_1x1_fits(k, s, c, co)
 
 
-def check_phase_conv(cases=None):
+def check_phase_conv(cases=None, timed: bool = True):
     """Kernel vs plain version on every shape, fp32 and bf16, with and
     without the fused epilogue; times at the main-path shapes, at the
-    serving batch and at the training step's.  ``cases``: (name, case,
-    batch, expected variant or None); by default the JAX package's cases
-    and the 24p-s main path."""
+    serving batch and at the training step's (``timed``).  ``cases``:
+    (name, case, batch, expected variant or None); by default the JAX
+    package's cases and the 24p-s main path."""
     import torch.nn.functional as F
 
     from eop_tpu_torch.ops.phase_conv import (
@@ -540,7 +582,7 @@ def check_phase_conv(cases=None):
                                      f"{expect}")
         row["variant"] = row["variant_fp32"]
         del got, want
-        if batch in (SERVE_BATCH, TRAIN_BATCH):
+        if timed and batch in (SERVE_BATCH, TRAIN_BATCH):
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
             x16, wgt16 = x.bfloat16(), wgt.bfloat16()
             x_nchw = x.permute(0, 3, 1, 2)           # channels_last view
@@ -1514,7 +1556,7 @@ def conv_bound(flops: float, n_bytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_phase_conv_backward(cases=None):
+def check_phase_conv_backward(cases=None, timed: bool = True):
     """dgrad and wgrad against their plain versions on the main-path shapes
     (at the training step's batch 32, which is what the path gives them, and
     at batch 8) and ragged ones, fp32 and bf16; each twice, bit-equal; the
@@ -1526,7 +1568,7 @@ def check_phase_conv_backward(cases=None):
     through the wrappers' private ``_cuda_cores``, which nothing on the
     main path passes), the plain versions and ``aten::convolution_backward`` (TF32
     off; measured only); the data gradients' weight packing alone against
-    its plain version, bit-equal."""
+    its plain version, bit-equal (the times only where ``timed``)."""
     from eop_tpu_torch.ops.phase_conv import (
         dgrad_class_plan,
         dgrad_variant,
@@ -1591,7 +1633,7 @@ def check_phase_conv_backward(cases=None):
                         f"{max(1.0, ref)}")
                 worst[kind][key] = max(worst[kind][key], err)
         del dw, dw2, dx, dx2, got, want
-        if batch in (SERVE_BATCH, TRAIN_BATCH):
+        if timed and batch in (SERVE_BATCH, TRAIN_BATCH):
             x, wgt = conv_inputs(case, batch, torch.float32, seed)
             g = torch.Generator(device="cuda").manual_seed(500 + seed)
             dy = torch.randn((batch, ho, wo, co), generator=g, device="cuda")
@@ -2717,6 +2759,621 @@ def dp_cli_phase(smi: str, started: dict) -> dict:
             float(v) for v in hits[-1])
     report["phase_s"] = time.perf_counter() - started["t0"]
     return report
+
+
+# ---------------------------------------------------------------------------
+# 16g: spatial and tensor sharding on the one card
+
+# two ranks of one data row (--spatial 2, then --tensor 2) against one
+# process, each at the global batch of 8; 3 steps each
+MP_WORLD, MP_BATCH, MP_STEPS = 2, 8, 3
+MP_LAYOUTS = {"spatial": {"spatial": 2}, "tensor": {"tensor": 2}}
+# launches of one rank's 24p-s step by variant: under --spatial the 8 convs
+# take the one-process step's variants on their halo'd heights; under
+# --tensor dark2's CSP m0.conv1 (1x1, 32 -> 16 of its 32 channels: C x Co =
+# 512) moves to small_1x1, forward and data gradient, whose data gradient
+# packs no weights
+MP_STEP_VARIANTS = {
+    "spatial": DP_STEP_VARIANTS,
+    "tensor": variant_counts(
+        [("wgmma_rows", "wgmma", None),
+         ("wgmma_taps", "wgmma", "wgmma_classes")]
+        + [("wgmma_taps", "wgmma", "flipped:wgmma_taps")] * 2
+        + [("small_1x1", "wgmma", "small_1x1")]
+        + [("wgmma_taps", "wgmma", "flipped:wgmma_taps")] * 2
+        + [("wgmma_taps", "wgmma", "wgmma_classes")])}
+MP_STEP_LAUNCHES = {"spatial": STEP_LAUNCHES,
+                    "tensor": {**STEP_LAUNCHES, "pack": 6}}
+# inference against the one-process function (the serve phase's tolerance
+# on coordinates; scores 1e-3)
+MP_COORD_TOL, MP_SCORE_TOL = 1e-3 * 640, 1e-3
+# The fp32 gradients' relative L2 distance from one process: 16f's 1e-3,
+# or twice the largest distance one process's own first step takes under
+# a change of arithmetic alone (the images one ulp up; cuDNN off), where
+# that is larger.  At B=8 the step's loss has near-ties (its assignment,
+# the SPP's max pools) that such a change flips: on an H100 the images
+# one ulp up moved the gradients 1.05e-3, cuDNN off 3.2e-3, the global
+# BatchNorm's arithmetic 7.7e-3, each the one-process step against itself
+# (``python3 chip_smoke.py --grad-noise``; PERF.md section 6)
+MP_GRAD_TOL, MP_FLOOR_FACTOR = 1e-3, 2.0
+
+
+def mp_cases() -> list:
+    """(name, case, batch) of every shape the main path's 8 convs meet on a
+    rank of 16g: under --spatial 2 each on its rank's 320 input rows (at
+    640 px) and the halo rows it reads (``parallel.spatial.halo_rows``;
+    the edge ranks' zero rows make both ranks' shapes equal), under
+    --tensor 2 each on half of its output channels."""
+    from eop_tpu_torch.parallel.spatial import halo_rows
+
+    out = []
+    for name, (k, s, p, h, w, c, co) in MAIN_PATH:
+        above, below = halo_rows(k, s, p)
+        out.append((f"spatial.{name}",
+                    (k, s, p, h // 2 + above + below, w, c, co), MP_BATCH))
+        out.append((f"tensor.{name}", (k, s, p, h, w, c, co // 2), MP_BATCH))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_shapes(sink: set):
+    """Every ``phase_conv`` call of the model's convs adds its case ``(k,
+    stride, padding, H, W, C, Co)``, batch and dtype to ``sink``."""
+    from eop_tpu_torch.ops import blocks
+
+    inner = blocks._phase_conv
+
+    def recording(x, w, stride, padding, *args, **kwargs):
+        sink.add(((w.shape[0], stride, padding, *x.shape[1:], w.shape[3]),
+                  x.shape[0], str(x.dtype)))
+        return inner(x, w, stride, padding, *args, **kwargs)
+
+    blocks._phase_conv = recording
+    try:
+        yield sink
+    finally:
+        blocks._phase_conv = inner
+
+
+def mp_batches():
+    """The global batches (CPU generator: the same in every process)."""
+    from eop_tpu_torch.utils.synth import synthetic_24p_batch
+
+    g = torch.Generator().manual_seed(DP_SEED + 1)
+    return [synthetic_24p_batch(g, MP_BATCH, size=640, ngt=TRAIN_GTS)
+            for _ in range(MP_STEPS)]
+
+
+def mp_images():
+    """One letterboxed B=8 batch (uint8, 640 px) for 16g's inference."""
+    g = torch.Generator().manual_seed(DP_SEED + 2)
+    return torch.randint(0, 256, (MP_BATCH, 640, 640, 3), generator=g,
+                         dtype=torch.uint8)
+
+
+def mp_exp(compute_dtype: str = "float32"):
+    from eop_tpu_torch.exp import get_exp
+
+    exp = get_exp(exp_name="yolox_24p_s")
+    exp.compute_dtype = compute_dtype
+    exp.test_conf = 1e-5
+    return exp
+
+
+def mp_steps(compute_dtype: str, layout=None, batches=None,
+             steps: int = MP_STEPS) -> dict:
+    """``MP_STEPS`` steps of 24p-s (seeded weights, EMA) on the card: with
+    a ``layout`` the ranks laid out as it asks (``make_mesh``), the model
+    under the mesh (``convert_spatial``, the global BatchNorm,
+    ``place_state(tensor=)``), this rank's rows of each global batch
+    through ``shard_train_step``; without one, the whole batch in one
+    process.  The first step's metrics and gradients (whole), every step's
+    launches by variant and CUDA-event ms, the shapes ``phase_conv`` met,
+    the state bytes, and the state after the steps (gathered whole)."""
+    from eop_tpu_torch.losses import Loss24PConfig
+    from eop_tpu_torch.parallel import (
+        convert_global_bn,
+        convert_spatial,
+        make_mesh,
+        place_state,
+        shard_batch,
+        shard_train_step,
+        state_bytes,
+        whole_tensors,
+    )
+    from eop_tpu_torch.train.checkpoint import state_to_payload
+    from eop_tpu_torch.train.steps import (
+        create_train_state,
+        make_train_step_24p,
+    )
+
+    exp = mp_exp(compute_dtype)
+    model = exp.get_model("cuda", seed=0).train()
+    # "data": the ranks data-parallel, the layout --grad-noise compares
+    mesh = make_mesh(**MP_LAYOUTS.get(layout, {})) if layout else None
+    if mesh is not None and mesh.space is not None:
+        convert_spatial(model, mesh.space)
+    if mesh is not None and (mesh.data or mesh.space) is not None:
+        convert_global_bn(model, mesh.data,
+                          mesh.data_space if mesh.space else None)
+    state = create_train_state(
+        model, exp.get_optimizer(model, MP_BATCH, lr=DP_LR), use_ema=True,
+        with_dwa=True)
+    group = mesh.data if mesh is not None else None
+    if mesh is not None:
+        state = place_state(state, False, group, mesh.model)
+    step = shard_train_step(make_train_step_24p(
+        Loss24PConfig(num_classes=exp.num_classes), ema_decay=DP_EMA,
+        group=group), group, False, mesh)
+    out = {"steps": [], "bytes": state_bytes(state), "shapes": set()}
+    for i, (imgs, labels) in enumerate((batches or mp_batches())[:steps]):
+        if mesh is not None:
+            imgs, labels = shard_batch((imgs, labels), mesh.data_rank,
+                                       mesh.data_size, 1, mesh.space_rank,
+                                       mesh.spatial)
+        imgs, labels = imgs.cuda(), labels.cuda()
+        torch.cuda.synchronize()
+        _reset_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with recorded_shapes(out["shapes"]):
+            ev[0].record()
+            state, m = step(state, imgs, labels)
+            ev[1].record()
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        out["steps"].append({
+            "ms": ev[0].elapsed_time(ev[1]),
+            "launches": {k: counts[k] for k in STEP_LAUNCHES},
+            "variants": _variants(counts),
+            "metrics": {k: v.float().cpu() for k, v in m.items()}})
+        if i == 0:
+            grads = {n: p.grad.float() for n, p in model.named_parameters()}
+            out["grads"] = {k: v.cpu() for k, v in whole_tensors(
+                grads, model).items()}
+    payload = state_to_payload(state)
+    out["state"] = {k: v.cpu() for k, v in payload["model"].items()}
+    out["ema"] = {k: v.cpu() for k, v in {
+        **payload["ema_params"], **payload["ema_batch_stats"]}.items()}
+    return out
+
+
+def mp_infer(layout=None) -> dict:
+    """16g's inference batch through the seeded 24p-s: with a ``layout``,
+    ``get_sharded_infer_fn(mesh=)`` over the space pair or
+    ``get_tp_infer_fn`` over the model pair; without, ``get_infer_fn`` in
+    one process.  The rows, the masks, the forward launches by variant and
+    the shapes ``phase_conv`` met."""
+    from eop_tpu_torch.parallel import make_mesh
+
+    exp = mp_exp()
+    model = exp.get_model("cuda", seed=0).eval()
+    if layout is None:
+        fn = exp.get_infer_fn(model, "cuda")
+    else:
+        mesh = make_mesh(**MP_LAYOUTS[layout])
+        fn = (exp.get_sharded_infer_fn(model, "cuda", mesh=mesh)
+              if layout == "spatial" else exp.get_tp_infer_fn(model, mesh,
+                                                               "cuda"))
+    imgs = mp_images()
+    fn(imgs)   # the first call builds the packed weights
+    shapes = set()
+    torch.cuda.synchronize()
+    _reset_counts()
+    with recorded_shapes(shapes):
+        dets = fn(imgs)
+        torch.cuda.synchronize()
+    counts = _launch_counts()
+    return {"rows": dets.rows.cpu(), "valid": dets.valid.cpu(),
+            "launches": counts["forward"], "variants": _variants(counts),
+            "shapes": shapes}
+
+
+def mp_child(rank: int, port: int, out_path: str) -> int:
+    """One of 16g's ranks on ``cuda:0`` (gloo: NCCL refuses two ranks on
+    one device): for each layout, :func:`mp_steps` in fp32 and bf16 and
+    :func:`mp_infer`, saved to ``out_path``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eop_tpu_torch.parallel.dist import init_distributed
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    init_distributed("cuda:0", f"127.0.0.1:{port}", MP_WORLD, rank,
+                     timeout=datetime.timedelta(seconds=300),
+                     backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        res = {}
+        for layout in MP_LAYOUTS:
+            for d in ("float32", "bfloat16"):
+                res[layout, d] = mp_steps(d, layout)
+            res[layout, "infer"] = mp_infer(layout)
+        res["wall_s"] = time.perf_counter() - t0
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def mp_grad_floor(ref: dict) -> dict:
+    """The relative L2 distance of one process's first fp32 step's
+    gradients from ``ref``'s under a change of arithmetic alone: the
+    images one ulp up, and cuDNN off (its convs on PyTorch's own)."""
+    ulp = [(torch.nextafter(i, i + 1), lb) for i, lb in mp_batches()]
+    runs = {"images_one_ulp_up": mp_steps("float32", batches=ulp, steps=1)}
+    keep = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        runs["cudnn_off"] = mp_steps("float32", steps=1)
+    finally:
+        torch.backends.cudnn.enabled = keep
+    return {k: grad_distance(v["grads"], ref)["rel_l2"]
+            for k, v in runs.items()}
+
+
+def mp_ref_child(out_path: str) -> int:
+    """16g's one-process side: the B=8 steps in fp32 and bf16 and the
+    inference batch, then every hand-written kernel against its plain
+    version at each shape the ranks meet (:func:`mp_cases`, fp32 and bf16,
+    forward with and without the epilogue, both gradients), saved to
+    ``out_path``."""
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    t0 = time.perf_counter()
+    res = {d: mp_steps(d) for d in ("float32", "bfloat16")}
+    res["grad_floor"] = mp_grad_floor(res["float32"]["grads"])
+    res["infer"] = mp_infer()
+    res["steps_s"] = time.perf_counter() - t0
+    cases = mp_cases()
+    fwd, err32, err16 = check_phase_conv(
+        [(n, c, b, None) for n, c, b in cases], timed=False)
+    back, worst = check_phase_conv_backward(
+        [(n, c, b, WGRAD_VARIANT, None) for n, c, b in cases], timed=False)
+    res["checked"] = {"cases": [(c, b) for _, c, b in cases],
+                      "forward": fwd, "backward": back,
+                      "max_abs_err": {"forward": [err32, err16],
+                                      "backward": worst}}
+    res["wall_s"] = time.perf_counter() - t0
+    torch.save(res, out_path)
+    return 0
+
+
+def mp_start() -> dict:
+    """16g, started: its two ranks and its one-process side, as processes
+    beside whatever runs next."""
+    port = free_port()
+    outs = [tempfile.mktemp(prefix=f"chip_smoke_mp{r}_", suffix=".pt")
+            for r in range(MP_WORLD + 1)]
+    logs = [o + ".log" for o in outs]
+    cmds = [[sys.executable, os.path.abspath(__file__), "--mp-child", str(r),
+             str(port), outs[r]] for r in range(MP_WORLD)]
+    cmds.append([sys.executable, os.path.abspath(__file__), "--mp-ref-child",
+                 outs[-1]])
+    procs = [subprocess.Popen(c, cwd=ROOT, stdout=open(log, "w"),
+                              stderr=subprocess.STDOUT)
+             for c, log in zip(cmds, logs)]
+    return {"t0": time.perf_counter(), "ranks": procs[:-1], "ref": procs[-1],
+            "outs": outs, "logs": logs,
+            "procs": {f"p{i}": p for i, p in enumerate(procs)}}
+
+
+def _rows_vs(got: dict, want: dict) -> dict:
+    """Sharded inference against one process's: the masks equal, and the
+    valid rows' coordinates and scores' largest gaps."""
+    valid = want["valid"]
+    same = torch.equal(got["valid"], valid)
+    gap = (got["rows"] - want["rows"]).abs()
+    ncoord = want["rows"].shape[-1] - 3  # x, y, 24 radii; then the scores
+    coords = gap[..., :ncoord][valid].max().item() if valid.any() else 0.0
+    scores = gap[..., ncoord:][valid].max().item() if valid.any() else 0.0
+    return {"masks_equal": same, "valid_rows": int(valid.sum()),
+            "coord_max_abs": coords, "score_max_abs": scores,
+            "ok": same and bool(valid.any()) and coords <= MP_COORD_TOL
+            and scores <= MP_SCORE_TOL}
+
+
+def mp_phase(smi: str, started: dict) -> tuple:
+    """16g, after :func:`mp_start`: two ranks on ``cuda:0`` over gloo, under
+    ``--spatial 2`` then ``--tensor 2``, each against one process's B=8
+    steps from the same state, fp32 then bf16 (16f's gates: the first fp32
+    step's loss within 1e-4, ``num_fg`` equal, the gradients' relative L2
+    distance within 1e-3, or within twice what a change of arithmetic alone
+    moves one process's own step (``MP_GRAD_TOL``, ``MP_FLOOR_FACTOR``),
+    with the tensors over 1e-3 listed; bf16 within
+    ``train_card_vs_cpu``'s bf16 bounds and the cosine rule); the ranks'
+    state, gathered whole, bit-equal after the steps; every rank's step
+    launching ``MP_STEP_LAUNCHES`` by ``MP_STEP_VARIANTS`` (``small_1x1``
+    for dark2's m0.conv1 under --tensor); the shapes the kernels met those
+    of :func:`mp_cases`, each checked against the plain versions; the
+    state bytes a rank holds; sharded inference (the space pair's rows,
+    and ``shard_inference_tp``) within ``MP_COORD_TOL`` / ``MP_SCORE_TOL``
+    of one process's, masks equal.  The ranks share one card: their step
+    ms are no scaling figure."""
+    t0 = started["t0"]
+    report = {"phase": "model_parallel_ranks", "card": smi,
+              "world": MP_WORLD, "global_batch": MP_BATCH,
+              "steps": MP_STEPS, "backend": "gloo",
+              "note": "two ranks share one H100: step ms are not a scaling "
+                      "figure"}
+    procs, outs, logs = started["ranks"] + [started["ref"]], \
+        started["outs"], started["logs"]
+    try:
+        for r, p in enumerate(procs):
+            p.wait(timeout=600)
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    raise AssertionError(f"16g process {r}: exit "
+                                         f"{p.returncode}\n"
+                                         f"{f.read()[-3000:]}")
+        *ranks, one = [torch.load(o, weights_only=False) for o in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in outs + logs:
+            if os.path.exists(f):
+                os.unlink(f)
+    report["rank_wall_s"] = [r["wall_s"] for r in ranks]
+    report["one_process_wall_s"] = one["wall_s"]
+    grad_tol = max(MP_GRAD_TOL, MP_FLOOR_FACTOR * max(
+        one["grad_floor"].values()))
+    report["fp32_grad_floor"] = {**one["grad_floor"], "gate": grad_tol}
+    checked = {(tuple(c), b) for c, b in one["checked"]["cases"]}
+    report["kernels_checked"] = {
+        "shapes": len(checked), **one["checked"]["max_abs_err"]}
+    launches = {k: 0 for k in STEP_LAUNCHES}
+    variants, failed, infer_launches = {}, [], {}
+    fp32_grads = one["float32"]["grads"]
+    met = set()
+    for layout in MP_LAYOUTS:
+        for dtype in ("float32", "bfloat16"):
+            ref = one[dtype]
+            m0 = ref["steps"][0]["metrics"]
+            loss0, fg0 = float(m0["total_loss"]), float(m0["num_fg"])
+            row = {"one_process_step_ms": [s["ms"] for s in ref["steps"]],
+                   "loss_one_process": loss0, "num_fg_one_process": fg0}
+            if dtype == "bfloat16":
+                row["one_process_cosine_to_fp32"] = grad_distance(
+                    ref["grads"], fp32_grads)["cosine_median"]
+            for r, res in enumerate(ranks):
+                mine = res[layout, dtype]
+                met |= {(c, b) for c, b, _ in mine["shapes"]}
+                m = mine["steps"][0]["metrics"]
+                rel = abs(float(m["total_loss"]) - loss0) / abs(loss0)
+                mrow = row[f"rank{r}"] = {
+                    "step_ms": [s["ms"] for s in mine["steps"]],
+                    "loss": float(m["total_loss"]), "loss_rel_err": rel,
+                    "num_fg": float(m["num_fg"]),
+                    "grads": grad_distance(mine["grads"], ref["grads"]),
+                    "launches_per_step": [s["launches"] for s in
+                                          mine["steps"]],
+                    "state_bytes": list(mine["bytes"])}
+                want = MP_STEP_VARIANTS[layout]
+                bad = [i for i, s in enumerate(mine["steps"])
+                       if {k: s["variants"][k] for k in want} != want
+                       or s["launches"] != MP_STEP_LAUNCHES[layout]]
+                if bad:
+                    failed.append(
+                        f"{layout} {dtype} rank {r}: steps {bad} launched "
+                        f"{[mine['steps'][i]['variants'] for i in bad]}")
+                for s in mine["steps"]:
+                    for k in launches:
+                        launches[k] += s["launches"][k]
+                    for k, v in s["variants"].items():
+                        variants[k] = variants.get(k, 0) + v
+                finite = all(torch.isfinite(g).all()
+                             for g in mine["grads"].values())
+                if dtype == "float32":
+                    mrow["rel_l2_within_1e-3"] = (mrow["grads"]["rel_l2"]
+                                                  <= MP_GRAD_TOL)
+                    ok = (rel <= 1e-4 and mrow["num_fg"] == fg0 and finite
+                          and mrow["grads"]["rel_l2"] <= grad_tol)
+                else:
+                    mrow["cosine_to_fp32"] = grad_distance(
+                        mine["grads"], fp32_grads)["cosine_median"]
+                    ok = (rel <= 5e-2
+                          and abs(mrow["num_fg"] - fg0) <= 0.25 * fg0
+                          and finite and mrow["cosine_to_fp32"]
+                          >= row["one_process_cosine_to_fp32"] - 0.1)
+                if not ok:
+                    failed.append(f"{layout} {dtype} rank {r} against one "
+                                  "process")
+            a, b = ranks[0][layout, dtype], ranks[1][layout, dtype]
+            unequal = [k for part in ("state", "ema")
+                       for k, v in a[part].items()
+                       if not torch.equal(v, b[part][k])]
+            row["ranks_bit_equal"] = not unequal
+            if unequal:
+                failed.append(f"{layout} {dtype}: the ranks differ after "
+                              f"{MP_STEPS} steps in {unequal[:5]}")
+            report[f"{layout}_{dtype}"] = row
+        irow = report[f"{layout}_infer"] = {}
+        for r, res in enumerate(ranks):
+            got = res[layout, "infer"]
+            met |= {(c, b) for c, b, _ in got["shapes"]}
+            irow[f"rank{r}"] = {**_rows_vs(got, one["infer"]),
+                                "launches": got["launches"]}
+            infer_launches[f"rank{r}_{layout}"] = got["variants"]
+            if not irow[f"rank{r}"]["ok"] or got["launches"] != 8:
+                failed.append(f"{layout} inference rank {r}: {irow}")
+    report["tensor_state_bytes"] = ranks[0]["tensor", "float32"]["bytes"]
+    report["shapes_met"] = len(met)
+    unchecked = met - checked
+    if unchecked:
+        failed.append(f"kernels not checked at {sorted(unchecked)}")
+    serve = {}
+    for v in infer_launches.values():
+        for k, n in v.items():
+            serve[k] = serve.get(k, 0) + n
+    off = {k: n for k, n in {**variants, **serve}.items()
+           if n and k in ("forward:direct", "wgrad:cuda_cores",
+                          "dgrad:cuda_cores")}
+    if off:
+        failed.append(f"CUDA-core kernels launched: {off}")
+    report["phase_s"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"16g: {failed}\n"
+                             f"{json.dumps(report, default=str)}")
+    return report, {**launches, **variants}, serve
+
+
+@contextlib.contextmanager
+def global_bn_arithmetic():
+    """Every train-mode BatchNorm through ``global_batch_norm`` without a
+    group (the global BatchNorm's sums, E[x^2] - E[x]^2 in fp32), in place
+    of cuDNN's."""
+    from eop_tpu_torch.ops import blocks
+    from eop_tpu_torch.parallel.global_bn import global_batch_norm
+
+    plain = blocks.BatchNorm2d.forward
+
+    def forward(self, x):
+        if not self.training:
+            return plain(self, x)
+        w, b, mean, var = self.vectors()
+        y = global_batch_norm(x, w, b, mean, var, self.momentum, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked += 1
+        return y
+
+    blocks.BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        blocks.BatchNorm2d.forward = plain
+
+
+@contextlib.contextmanager
+def cudnn_off():
+    keep = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = keep
+
+
+def grad_noise_child(rank: int, port: int, out_path: str) -> int:
+    """One of ``--grad-noise``'s two ranks: the first fp32 step's gradients
+    under plain data parallelism (B=4 a rank), under --tensor 2 with dark2's
+    m0.conv1 forced back onto ``wgmma_taps``, and under --spatial 2 with
+    cuDNN off."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from eop_tpu_torch.parallel.dist import init_distributed
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    init_distributed("cuda:0", f"127.0.0.1:{port}", MP_WORLD, rank,
+                     timeout=datetime.timedelta(seconds=300),
+                     backend="gloo")
+    try:
+        res = {"data": mp_steps("float32", "data", steps=1)["grads"]}
+        with small_1x1_on_tensor_cores():
+            res["tensor_taps"] = mp_steps("float32", "tensor",
+                                          steps=1)["grads"]
+        with cudnn_off():
+            res["spatial_cudnn_off"] = mp_steps("float32", "spatial",
+                                                steps=1)["grads"]
+        torch.save(res, out_path)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def grad_noise() -> int:
+    """``python3 chip_smoke.py --grad-noise``: where 16g's fp32 gradient
+    distance comes from.  The relative L2 distance of 24p-s's first B=8
+    fp32 step's gradients (640 px, seeded weights) from one process's: the
+    same step again, with the images one ulp up, with cuDNN off, with
+    every BatchNorm in the global BatchNorm's arithmetic; two ranks of data
+    parallelism, of --tensor 2 with m0.conv1 on ``wgmma_taps``, and of
+    --spatial 2 with cuDNN off (against one process with cuDNN off)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch import _build
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build_all()
+    port = free_port()
+    outs = [tempfile.mktemp(prefix=f"chip_smoke_noise{r}_", suffix=".pt")
+            for r in range(MP_WORLD)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--grad-noise-child", str(r), str(port),
+                               outs[r]], cwd=ROOT) for r in range(MP_WORLD)]
+    try:
+        one = mp_steps("float32", steps=1)["grads"]
+        ulp = [(torch.nextafter(i, i + 1), lb) for i, lb in mp_batches()]
+        variants = {
+            "again": mp_steps("float32", steps=1)["grads"],
+            "images_one_ulp_up": mp_steps("float32", batches=ulp,
+                                          steps=1)["grads"]}
+        with cudnn_off():
+            variants["cudnn_off"] = off = mp_steps("float32",
+                                                   steps=1)["grads"]
+        with global_bn_arithmetic():
+            variants["global_bn_arithmetic"] = mp_steps("float32",
+                                                        steps=1)["grads"]
+        for p in procs:
+            if p.wait(timeout=600) != 0:
+                raise AssertionError(f"--grad-noise rank: exit {p.returncode}")
+        ranks = torch.load(outs[0], weights_only=False)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in outs:
+            if os.path.exists(f):
+                os.unlink(f)
+
+    def dist_(got, ref):
+        d = grad_distance(got, ref)
+        return {"rel_l2": d["rel_l2"], "worst_tensor": d["worst_tensor"],
+                "worst_rel_to_max": d["worst_rel_to_max"],
+                "tensors_over_1e-3": len(d["tensors_over_1e-3"])}
+
+    report = {"phase": "grad_noise", "card": smi, "batch": MP_BATCH,
+              **{f"one_process_{k}": dist_(v, one)
+                 for k, v in variants.items()},
+              "two_ranks_data": dist_(ranks["data"], one),
+              "two_ranks_tensor_taps": dist_(ranks["tensor_taps"], one),
+              "two_ranks_spatial_cudnn_off_vs_one_cudnn_off": dist_(
+                  ranks["spatial_cudnn_off"], off)}
+    emit(report)
+    return 0
+
+
+def model_parallel_only() -> int:
+    """``python3 chip_smoke.py --model-parallel``: the kernels built, then
+    16g alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch import _build
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build_all()
+    started = mp_start()
+    try:
+        report, _, _ = mp_phase(smi, started)
+    finally:
+        stop_children(started)
+    emit(report)
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -4737,14 +5394,11 @@ def backbone_phase(smi: str, backbone: str, batches: list) -> dict:
     return report
 
 
-def demo_featuremap_phase(smi: str, root: str) -> dict:
+def demo_featuremap_start(root: str) -> dict:
     """``python -m eop_tpu_torch.tools.demo_featuremap -n yolox-l --backbone
-    resnet --theta-range 30,95,30`` on a synthesized fixture, in a child in
-    which cv2, matplotlib, seaborn and tabulate do not import: every
-    sweep's images, figures, gt.json and dt.json, four AP blocks, a finite
-    activation table."""
-    import re
-
+    resnet --theta-range 30,95,30`` on a synthesized fixture, started in a
+    child in which cv2, matplotlib, seaborn and tabulate do not import
+    (beside the study's other phases)."""
     from eop_tpu_torch.utils.synth import write_featuremap_fixture
 
     fixture = write_featuremap_fixture(os.path.join(root, "fixture"))
@@ -4752,10 +5406,28 @@ def demo_featuremap_phase(smi: str, root: str) -> dict:
     cmd = [sys.executable, "-c", DEMO_CHILD, "-n", "yolox-l", "--backbone",
            "resnet", "--theta-range", "30,95,30", "--json", fixture,
            "--conf", "0.001", "output_dir", out]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                       timeout=600)
-    wall = time.perf_counter() - t0
+    logs = [os.path.join(root, f"demo.{n}") for n in ("out", "err")]
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=open(logs[0], "w"),
+                            stderr=open(logs[1], "w"))
+    return {"out": out, "proc": proc, "logs": logs,
+            "t0": time.perf_counter(), "procs": {"demo": proc}}
+
+
+def demo_featuremap_phase(smi: str, started: dict) -> dict:
+    """:func:`demo_featuremap_start`'s child, finished: every sweep's
+    images, figures, gt.json and dt.json, four AP blocks, a finite
+    activation table."""
+    import re
+
+    out, proc = started["out"], started["proc"]
+    try:
+        proc.wait(timeout=600)
+    finally:
+        stop_children(started)
+    stdout, stderr = (open(f).read() for f in started["logs"])
+    r = types.SimpleNamespace(returncode=proc.returncode, stdout=stdout,
+                              stderr=stderr)
+    wall = time.perf_counter() - started["t0"]
     sweeps = ("none", "theta_30", "theta_60", "theta_90")
     files = {}
     for sweep in sweeps:
@@ -4832,8 +5504,17 @@ def host_resize(smi: str, reps: int = 7) -> dict:
 
 def backbones_phases(smi: str, data_dir: str, root: str) -> dict:
     """The study's models at full width, then one HTTP round through
-    ``serve -n yolox-l backbone_type resnet``, then the study itself:
-    each phase's line emitted, their times returned."""
+    ``serve -n yolox-l backbone_type resnet``, beside them the study
+    itself (its child started first): each phase's line emitted, their
+    times returned."""
+    demo_started = demo_featuremap_start(root)
+    try:
+        return _backbones_phases(smi, data_dir, demo_started)
+    finally:
+        stop_children(demo_started)
+
+
+def _backbones_phases(smi: str, data_dir: str, demo_started: dict) -> dict:
     t0 = time.perf_counter()
     batches = file_batches(data_dir, BACKBONE_STEPS)
     load_s = time.perf_counter() - t0
@@ -4859,7 +5540,7 @@ def backbones_phases(smi: str, data_dir: str, root: str) -> dict:
             lines):
         raise AssertionError(f"serve_backbone: {http}")
     times["serve_backbone"] = http["phase_s"]
-    demo = demo_featuremap_phase(smi, root)
+    demo = demo_featuremap_phase(smi, demo_started)
     emit(demo)
     times["demo_featuremap"] = demo["wall_s"]
     emit(host_resize(smi))
@@ -5182,7 +5863,8 @@ def main() -> int:
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     emit({"phase": "device", "nvidia_smi": smi, **device,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "unix_time_at_t0": time.time() - (time.perf_counter() - T_START)})
 
     t0 = time.perf_counter()
     info = _build.build_all()
@@ -5273,7 +5955,7 @@ def main() -> int:
 
     data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     sys.unraisablehook = count_unraisable
-    deploy_started = dp_cli = dp_ranks = None
+    deploy_started = dp_cli = dp_ranks = mp_started = None
     try:
         img_dir, lab_dir, data_report = write_dataset(data_root)
         emit({**data_report, "card": smi})
@@ -5337,6 +6019,9 @@ def main() -> int:
                                                       zoo_ckpts)
         zoo_eval_report["phase_s"] = time.perf_counter() - t0
         emit(zoo_eval_report)
+        # 16g's ranks and its one-process side run beside the VOC,
+        # show_24p and deployment phases; then the comparison
+        mp_started = mp_start()
         # YOLOX-S on PASCAL VOC: trained with --accum 2, evaluated (also
         # --legacy), the oracle, and --testdev on the bbox dataset
         voc_report, voc_launches, voc_evals = voc_phase(
@@ -5350,6 +6035,8 @@ def main() -> int:
         # the deployment path: torch.export artifacts served, int8 PTQ
         deploy_report, deploy_launches = deploy_phase(smi, deploy_started)
         emit(deploy_report)
+        mp_report, mp_launches, mp_serve = mp_phase(smi, mp_started)
+        emit(mp_report)
         for name in ("yolov3", "yolox-nano", "yolox-tiny", "yolox-x"):
             emit(bbox_card_vs_cpu(name))
         drops.update(drop_bbox_loaders(bbox_dir, drops=1))
@@ -5359,6 +6046,7 @@ def main() -> int:
         stop_children(deploy_started)
         stop_children(dp_cli)
         stop_children(dp_ranks)
+        stop_children(mp_started)
         shutil.rmtree(data_root, ignore_errors=True)
     died = [u for u in unraisable if "killed by signal" in u]
     emit({"phase": "loader_shutdown", "card": smi, **drops,
@@ -5390,6 +6078,11 @@ def main() -> int:
                "train_remat": remat_launches["forward"],
                # 16f: the two ranks' steps on the card (fp32 and bf16)
                "train_dp": dp_launches["forward"],
+               # 16g: the two ranks' steps under --spatial 2 and --tensor
+               # 2 (fp32 and bf16), and their sharded inference
+               "train_mp": mp_launches["forward"],
+               "serve_mp": sum(n for k, n in mp_serve.items()
+                               if k.startswith("forward:")),
                # YOLOX-L: the training child's total (its steps and the
                # EMA evaluations, which launch the fused forward), and the
                # in-process bf16 steps
@@ -5416,7 +6109,9 @@ def main() -> int:
                        "train_bbox_bf16": bbox16_launches, **x_launches,
                    **zoo_launches, "train_voc": voc_launches,
                    # 16f's two ranks (fp32 and bf16 steps, both ranks)
-                   "train_dp": dp_launches}
+                   "train_dp": dp_launches,
+                   # 16g's (spatial and tensor, fp32 and bf16, both ranks)
+                   "train_mp": mp_launches}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
     # launches by variant on every path: none launches the CUDA-core direct
@@ -5428,6 +6123,7 @@ def main() -> int:
         "eval": _variants(eval_launches),
         "show_24p": _variants(show_launches),
         "serve_artifact": _variants(deploy_launches),
+        "serve_mp": mp_serve,
         **{k: v for k, (_, v) in voc_evals.items()},
         **{k: _variants(c) for k, c in train_paths.items()}})
     cuda_core_paths = {k: v for k, v in PATH_VARIANTS.items()
@@ -5714,6 +6410,17 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-child"]:
         sys.exit(dp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                           sys.argv[5]))
+    if sys.argv[1:2] == ["--mp-child"]:
+        sys.exit(mp_child(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--mp-ref-child"]:
+        sys.exit(mp_ref_child(sys.argv[2]))
+    if sys.argv[1:] == ["--model-parallel"]:
+        sys.exit(model_parallel_only())
+    if sys.argv[1:2] == ["--grad-noise-child"]:
+        sys.exit(grad_noise_child(int(sys.argv[2]), int(sys.argv[3]),
+                                  sys.argv[4]))
+    if sys.argv[1:] == ["--grad-noise"]:
+        sys.exit(grad_noise())
     if sys.argv[1:2] == ["--nccl-probe-child"]:
         sys.exit(nccl_probe_child(int(sys.argv[2]), int(sys.argv[3])))
     if sys.argv[1:2] == ["--show-24p-child"]:

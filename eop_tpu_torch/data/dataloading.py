@@ -34,12 +34,15 @@ import torch.utils.data
 from .image_io import load_decoder
 
 
-def worker_init_reset_seed(worker_id: int) -> None:
+def worker_init_reset_seed(worker_id: int, base: Optional[int] = None) -> None:
     """A fresh random seed per worker, for ``random``, ``np.random`` and the
     worker's copy of the dataset where it has ``reseed`` (the augmenting
     datasets carry their own generator, which every worker would otherwise
-    inherit in the same state)."""
-    seed = uuid.uuid4().int % 2**32
+    inherit in the same state).  With ``base`` (bound with
+    ``functools.partial``) the seed is ``base + worker_id``: the loaders of
+    the ranks that must draw the same batches (a data row's space and model
+    ranks) seed their workers alike."""
+    seed = (uuid.uuid4().int if base is None else base + worker_id) % 2**32
     random.seed(seed)
     np.random.seed(seed)
     info = torch.utils.data.get_worker_info()

@@ -93,22 +93,45 @@ class BaseExp:
         return infer
 
     def get_sharded_infer_fn(self, model, device=None, group=None,
-                             quant_scales=None, quant_min_channels=64):
+                             quant_scales=None, quant_min_channels=64,
+                             mesh=None):
         """:meth:`get_infer_fn` run data-parallel over ``group`` (the
         default process group where ``None``): every rank calls it with
         the same batch, computes its ``B / world`` rows and gets every
         row's detections back (``parallel.shard_inference``).  The
         counterpart of ``eop_tpu``'s ``get_sharded_infer_fn`` over a
-        mesh's data axis."""
+        mesh's data axis.  With ``mesh`` (``parallel.dist.make_mesh``) the
+        batch splits over its data group, and where it has a space group
+        each rank passes its height rows: ``model`` is put under that
+        group in place (``parallel.spatial.convert_spatial``), as
+        ``eop_tpu``'s over a ``(data, space)`` mesh."""
         from ..parallel.mesh import shard_inference
 
-        if group is None:
+        space = None
+        if mesh is not None:
+            group, space = mesh.data, mesh.space
+            if space is not None:
+                from ..parallel.spatial import convert_spatial
+
+                convert_spatial(model, space)
+        elif group is None:
             import torch.distributed as dist
 
             group = dist.group.WORLD if dist.is_initialized() else None
         return shard_inference(
             self.get_infer_fn(model, device, quant_scales,
-                              quant_min_channels), group)
+                              quant_min_channels), group, space)
+
+    def get_tp_infer_fn(self, model, mesh, device=None):
+        """:meth:`get_infer_fn` tensor-parallel over ``mesh``'s model group
+        (``parallel.shard_inference_tp``): ``model`` keeps this rank's
+        slices of the qualifying convs' channels, in place, and the batch
+        splits over the data group as :meth:`get_sharded_infer_fn`
+        splits it.  Every rank calls it with the same batch."""
+        from ..parallel.mesh import shard_inference_tp
+
+        return shard_inference_tp(self.get_infer_fn(model, device), model,
+                                  mesh)
 
     def get_serving_module(self, model, src_hw, device=None,
                            quant_scales=None, quant_min_channels=64):

@@ -197,7 +197,12 @@ class Exp(BaseExp):
     def wrap_train_dataset(self, dataset, batch_size, is_distributed=False,
                            no_aug=False, rank=0, world_size=1, seed=None):
         """Mosaic / MixUp around ``dataset``, the infinite rank-strided
-        sampler, the ``(mosaic, index)`` batch sampler and the workers."""
+        sampler, the ``(mosaic, index)`` batch sampler and the workers.
+        ``seed`` (None: random) seeds the augmentations and the workers
+        (``seed + worker_id``): loaders given one seed draw the same
+        batches."""
+        import functools
+
         from ..data.dataloading import data_loader, worker_init_reset_seed
         from ..data.mosaic import MosaicDetection
         from ..data.samplers import InfiniteSampler, YoloBatchSampler
@@ -210,6 +215,8 @@ class Exp(BaseExp):
             shear=self.shear, enable_mixup=self.enable_mixup,
             mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob,
             seed=seed)
+        if seed is not None:
+            dataset.reseed(seed)
         self.dataset = dataset
         if is_distributed:
             batch_size = batch_size // world_size
@@ -220,7 +227,8 @@ class Exp(BaseExp):
                                          input_dimension=self.input_size)
         return data_loader(dataset, batch_sampler=batch_sampler,
                            num_workers=self.data_num_workers,
-                           worker_init_fn=worker_init_reset_seed)
+                           worker_init_fn=functools.partial(
+                               worker_init_reset_seed, base=seed))
 
     def random_resize(self, step: int = 0):
         """A multiscale training size ``(h, w)`` drawn from (seed, step) and

@@ -18,6 +18,12 @@ every conv of ``dark2`` and ``dark3.0`` (eight at depth 0.33, twelve at
 kernel without its SiLU epilogue).  Every other conv stays ``F.conv2d``, as
 they are XLA convs in the JAX package.  ``dtype`` is every conv's compute dtype
 (``ops/blocks.py``).
+
+Under a space group (``space``, ``parallel.spatial.convert_spatial``) the
+stem through dark4 (``SPACE_REGION``) run on this rank's rows, and the
+rows are gathered before dark5, with the taps the neck reads, as
+``eop_tpu``'s ``unshard_space`` fences CSPDarknet: the neck, the head and
+the loss run whole on every rank of the group.
 """
 
 from __future__ import annotations
@@ -37,9 +43,27 @@ from ..ops.blocks import (
 )
 
 DEPTH2BLOCKS = {21: (1, 2, 2, 1), 53: (2, 8, 8, 4)}
+# the stages a space group shards: the fence stands before dark5
+SPACE_REGION = ("stem", "dark2", "dark3", "dark4")
+
+
+def _fenced(space, x, outputs, wanted):
+    """Before dark5, under a space group: ``x`` and the wanted taps with
+    their rows gathered whole (``parallel.spatial.gather_rows``); as they
+    are without one."""
+    if space is None:
+        return x, outputs
+    from ..parallel.spatial import gather_rows
+
+    whole = gather_rows(x, space)
+    return whole, {k: whole if v is x else gather_rows(v, space)
+                   for k, v in outputs.items() if k in wanted}
 
 
 class CSPDarknet(nn.Module):
+    SPACE_REGION = SPACE_REGION
+    space = None
+
     def __init__(self, dep_mul: float = 1.0, wid_mul: float = 1.0,
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5"),
                  act: str = "silu", dtype: torch.dtype = torch.float32,
@@ -80,6 +104,9 @@ class CSPDarknet(nn.Module):
         x = self.stem(x)
         outputs["stem"] = x
         for name in ("dark2", "dark3", "dark4", "dark5"):
+            if name == "dark5":
+                x, outputs = _fenced(self.space, x, outputs,
+                                     self.out_features)
             x = getattr(self, name)(x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}
@@ -111,6 +138,9 @@ class Darknet(nn.Module):
     """The YOLOv3 residual backbone, depth 21 or 53 (reference ``Darknet``):
     ``dark3``, ``dark4``, ``dark5`` have 256, 512, 512 channels."""
 
+    SPACE_REGION = SPACE_REGION
+    space = None
+
     def __init__(self, depth: int = 53, stem_out_channels: int = 32,
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5"),
                  dtype: torch.dtype = torch.float32):
@@ -134,6 +164,9 @@ class Darknet(nn.Module):
     def forward(self, x):
         outputs = {}
         for name in ("stem", "dark2", "dark3", "dark4", "dark5"):
+            if name == "dark5":
+                x, outputs = _fenced(self.space, x, outputs,
+                                     self.out_features)
             x = getattr(self, name)(x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}

@@ -61,11 +61,22 @@ class YOLOXHead(nn.Module):
             self.obj_preds.append(nn.Conv2d(hidden, 1, 1))
 
     def _pred(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        tp = getattr(conv, "tp", None)
+        if tp is not None:  # this rank's output channels, then gathered
+            from ..parallel.tensor import gather_channels, to_model
+
+            bias = conv.bias[tp.lo:tp.hi] if tp.whole_vectors else conv.bias
+            return gather_channels(self._conv(to_model(x, tp.group),
+                                              conv.weight, bias), tp)
         if self.dtype == torch.float32:
             return conv(x)
+        return self._conv(x, conv.weight, conv.bias)
+
+    def _conv(self, x, weight, bias):
+        if self.dtype == torch.float32:
+            return F.conv2d(x, weight, bias)
         dt = self.dtype
-        return (F.conv2d(x, conv.weight.to(dt))
-                + conv.bias.to(dt)[:, None, None])
+        return F.conv2d(x, weight.to(dt)) + bias.to(dt)[:, None, None]
 
     def forward(self, xin):
         outputs = []

@@ -96,28 +96,48 @@ class BatchNorm2d(nn.BatchNorm2d):
     compounds into the running statistics, the EMA and eval).  Same
     parameters, buffers and normalisation as the parent.  A bf16 input is
     normalised with fp32 statistics and buffers and comes out bf16.  Under
-    :func:`batch_stats_frozen` the buffers are not updated."""
+    :func:`batch_stats_frozen` the buffers are not updated.
+
+    ``channels = (lo, hi)`` (set by ``parallel.tensor.convert_tensor``):
+    the input holds channels ``lo`` to ``hi`` of the whole, and the
+    BatchNorm uses and updates that slice of its parameters and
+    buffers."""
+
+    channels = None
+
+    def vectors(self):
+        """(weight, bias, running_mean, running_var), sliced to
+        ``channels`` where set (views: updates reach the buffers)."""
+        vs = (self.weight, self.bias, self.running_mean, self.running_var)
+        if self.channels is None:
+            return vs
+        lo, hi = self.channels
+        return tuple(v[lo:hi] for v in vs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
-            return super().forward(x)
+            if self.channels is None:
+                return super().forward(x)
+            weight, bias, mean, var = self.vectors()
+            return F.batch_norm(x, mean, var, weight, bias, False, 0.0,
+                                self.eps)
         n = x.numel() // x.shape[1]
         if n <= 1:
             raise ValueError("batch statistics need more than one value per "
                              f"channel, got input {tuple(x.shape)}")
+        weight, bias, running_mean, running_var = self.vectors()
         frozen = stats_frozen()
         # F.batch_norm blends momentum * var * n / (n - 1) into a variance
         # buffer; hand it a scratch one and blend the biased variance (and,
         # frozen, a scratch mean too: the same kernel, no update)
-        mean = (torch.zeros_like(self.running_mean) if frozen
-                else self.running_mean)
-        var = torch.zeros_like(self.running_var)
-        y = F.batch_norm(x, mean, var, self.weight, self.bias,
+        mean = (torch.zeros_like(running_mean) if frozen else running_mean)
+        var = torch.zeros_like(running_var)
+        y = F.batch_norm(x, mean, var, weight, bias,
                          True, self.momentum, self.eps)
         if frozen:
             return y
         with torch.no_grad():
-            self.running_var.mul_(1.0 - self.momentum).add_(
+            running_var.mul_(1.0 - self.momentum).add_(
                 var, alpha=(n - 1) / n)
             self.num_batches_tracked += 1
         return y
@@ -188,7 +208,18 @@ class BaseConv(nn.Module):
     derived from the parameters once and cached while the module runs in
     eval mode without autograd; the caches follow the tensors' versions, so
     ``load_state_dict`` refreshes them.
+
+    Under a space group (``space``, ``parallel.spatial.convert_spatial``)
+    the input is this rank's rows: the conv runs on them extended by the
+    halo rows it reads, with its own padding, and keeps the rows it owns;
+    under tensor parallelism (``tp``, ``parallel.tensor.convert_tensor``)
+    it computes its slice of the output channels, BatchNorm and act
+    included, and gathers them.  Both launch the same ``phase_conv`` on
+    the new shapes.
     """
+
+    tp = None
+    space = None
 
     def __init__(self, in_channels: int, out_channels: int, ksize: int,
                  stride: int = 1, act: str = "silu", phase_conv: bool = False,
@@ -254,22 +285,72 @@ class BaseConv(nn.Module):
             self._bn_cache = (key, folded)
         return folded
 
+    def _halo(self, x: torch.Tensor, k: int, stride: int, pad: int):
+        """Under a space group: ``x`` extended by the halo rows the conv
+        reads (``parallel/spatial.py``) and ``(first, count)``, the output
+        rows this rank owns; else ``x`` and None."""
+        if self.space is None:
+            return x, None
+        from ..parallel.spatial import halo_exchange, halo_rows
+
+        above, below = halo_rows(k, stride, pad)
+        if not (above or below):
+            return x, None
+        return (halo_exchange(x, above, below, self.space),
+                (above // stride, x.shape[2] // stride))
+
+    def _fused_args(self):
+        """The eval epilogue's (scale, shift), this rank's channels of
+        them under tensor parallelism."""
+        scale, shift = self._folded_bn()
+        if self.bn.channels is not None:
+            lo, hi = self.bn.channels
+            scale, shift = scale[lo:hi], shift[lo:hi]
+        return scale, shift
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
+        tp, groups = self.tp, self.conv.groups
+        if tp is not None:
+            from ..parallel.tensor import to_model
+
+            x = to_model(x, tp.group)
+            if groups > 1:  # depthwise: this rank's channels in and out
+                x, groups = x[:, tp.lo:tp.hi], tp.hi - tp.lo
         if self.phase_conv:
             w, stride, pad = self._hwio_args()
+            x, rows = self._halo(x, w.shape[0], stride, pad)
             x_nhwc = x.contiguous(memory_format=torch.channels_last).permute(
                 0, 2, 3, 1)
             if (not self.training and not torch.is_grad_enabled()
                     and self.act_name == "silu"):
-                scale, shift = self._folded_bn()
-                return _phase_conv(x_nhwc, w, stride, pad, scale, shift,
-                                   "silu").permute(0, 3, 1, 2)
-            y = _phase_conv(x_nhwc, w, stride, pad).permute(0, 3, 1, 2)
+                y = _phase_conv(x_nhwc, w, stride, pad, *self._fused_args(),
+                                "silu")
+                return self._gathered(_own_rows(y, rows, 1).permute(
+                    0, 3, 1, 2))
+            y = _own_rows(_phase_conv(x_nhwc, w, stride, pad), rows,
+                          1).permute(0, 3, 1, 2)
         else:
             w, stride, pad = self.conv_args()
-            y = F.conv2d(x, w, None, stride, pad, groups=self.conv.groups)
-        return self.act(self.bn(y))
+            x, rows = self._halo(x, w.shape[-1], stride, pad)
+            y = _own_rows(F.conv2d(x, w, None, stride, pad, groups=groups),
+                          rows, 2)
+        return self._gathered(self.act(self.bn(y)))
+
+    def _gathered(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's output channels gathered whole under tensor
+        parallelism; ``y`` otherwise."""
+        if self.tp is None:
+            return y
+        from ..parallel.tensor import gather_channels
+
+        return gather_channels(y, self.tp)
+
+
+def _own_rows(y: torch.Tensor, rows, dim: int) -> torch.Tensor:
+    """``count`` rows of ``y`` along ``dim`` from ``first`` (``rows``), or
+    ``y`` where None: the output rows a space rank owns."""
+    return y if rows is None else y.narrow(dim, *rows)
 
 
 class DWConv(nn.Module):
@@ -345,8 +426,16 @@ class SPPBottleneck(nn.Module):
         self.conv2 = BaseConv(hidden * (len(SPP_KERNELS) + 1), out_channels, 1,
                               act=act, dtype=dtype)
 
+    # a space group where the block lies in a sharded region: the rows are
+    # gathered on conv1's output, before the pools
+    space = None
+
     def forward(self, x):
         x = self.conv1(x)
+        if self.space is not None:
+            from ..parallel.spatial import gather_rows
+
+            x = gather_rows(x, self.space)
         if torch.is_grad_enabled() and x.requires_grad:
             pools = [maxpool_same(x, m.kernel_size) for m in self.m]
         else:

@@ -15,7 +15,10 @@ NCCL on the card and gloo on the CPU:
 * :func:`init_distributed` starts the group from ``eop_tpu``'s flags
   (``--coordinator HOST:PORT --num-processes N --process-id I``) or from
   torchrun's environment, with an explicit timeout, and uses a group that
-  already exists as it is.
+  already exists as it is;
+* :func:`make_mesh` lays the ranks out as ``eop_tpu``'s ``make_mesh`` lays
+  out its devices, ``(data, space, model)`` (``--spatial``, ``--tensor``),
+  and makes the process groups of each axis (:class:`Mesh`).
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ import datetime
 import functools
 import os
 import time
-from typing import Any, Callable, List, Optional
+import socket
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,6 +50,9 @@ __all__ = [
     "time_synchronized",
     "wait_device",
     "init_distributed",
+    "Mesh",
+    "check_layout",
+    "make_mesh",
     "rank_device",
     "under_torchrun",
 ]
@@ -231,3 +238,117 @@ def init_distributed(device, coordinator: Optional[str] = None,
             kw["device_id"] = device
     dist.init_process_group(backend, timeout=timeout, **kw)
     return True
+
+
+class Mesh(NamedTuple):
+    """This rank's place in a ``(data, space, model)`` layout of the ranks
+    (``eop_tpu``'s ``make_mesh(spatial=, tensor=)``): the axes' sizes, this
+    rank's index on each, and the process groups it belongs to: ``data``
+    (the ranks holding other images, same space and model index),
+    ``space`` (the ranks holding other rows of the same images), ``model``
+    (the ranks holding other channel slices of the same rows) and
+    ``data_space`` (data x space: the ranks of one model index).  A group
+    of one rank is ``None``: that axis has nothing to reduce."""
+
+    data_size: int = 1
+    spatial: int = 1
+    tensor: int = 1
+    data_rank: int = 0
+    space_rank: int = 0
+    model_rank: int = 0
+    data: Optional[Any] = None
+    space: Optional[Any] = None
+    model: Optional[Any] = None
+    data_space: Optional[Any] = None
+
+
+def check_layout(world: int, spatial: int = 1, tensor: int = 1,
+                 hosts: Optional[Sequence] = None) -> None:
+    """Raise ``ValueError`` with ``make_mesh``'s messages where ``world``
+    ranks do not split into ``spatial x tensor`` groups, or where such a
+    group (a data row's space and model ranks) holds ranks of more than
+    one host (``hosts[r]``: rank r's host): the ranks of one image must
+    share a host, as ``eop_tpu``'s inner mesh axes must not cross one."""
+    if spatial < 1 or tensor < 1:
+        raise ValueError(f"spatial={spatial} x tensor={tensor}: the axes "
+                         "need at least one rank each")
+    inner = spatial * tensor
+    if world % inner:
+        raise ValueError(f"{world} devices do not split into "
+                         f"spatial={spatial} x tensor={tensor}")
+    if hosts is None or inner == 1:
+        return
+    for start in range(0, world, inner):
+        row = list(range(start, start + inner))
+        on = sorted({hosts[r] for r in row})
+        if len(on) > 1:
+            raise ValueError(
+                f"spatial={spatial} x tensor={tensor}: inner group {row} "
+                f"spans hosts {on}; the space/model axes must not cross "
+                "hosts")
+
+
+def rank_hosts(world: int) -> List[Any]:
+    """Each rank's host: ``rank // LOCAL_WORLD_SIZE`` where torchrun sets
+    it (ranks are numbered host after host), else each rank's host name
+    (an object collective)."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return [r // get_local_size() for r in range(world)]
+    return all_gather(socket.gethostname())
+
+
+def _groups(world: int, members: Callable[[int], List[int]], rank: int):
+    """Every group of ranks ``members(i)`` (``i`` from 0 until a rank's
+    group repeats), made on every rank in one order as ``new_group``
+    requires; returns the one holding ``rank`` (``None`` where groups have
+    one rank)."""
+    seen, mine = set(), None
+    for r in range(world):
+        ranks = tuple(members(r))
+        if ranks in seen:
+            continue
+        seen.add(ranks)
+        if len(ranks) == 1:
+            continue
+        if len(ranks) == world:
+            return dist.group.WORLD
+        g = dist.new_group(list(ranks))
+        if rank in ranks:
+            mine = g
+    return mine
+
+
+def make_mesh(spatial: int = 1, tensor: int = 1) -> Mesh:
+    """The ranks of the default process group laid out as ``eop_tpu``'s
+    ``make_mesh`` lays out its devices, ``devices.reshape(-1, spatial,
+    tensor)``: rank ``r`` is ``(data, space, model) = (r // (S T),
+    r // T % S, r % T)``, data-major.  Every rank must call it, with the
+    same arguments (it makes the groups).  Without a process group the
+    world is one rank: ``spatial=2`` raises, as ``make_mesh`` does on one
+    device.  Raises where the ranks do not split or a data row's ranks
+    span hosts (:func:`check_layout`)."""
+    world, rank = get_world_size(), get_rank()
+    check_layout(world, spatial, tensor,
+                 rank_hosts(world) if world > 1 else None)
+    s, t = spatial, tensor
+    d = world // (s * t)
+    if world == 1:
+        return Mesh()
+
+    def coords(r):
+        return r // (s * t), r // t % s, r % t
+
+    def at(dd, ss, tt):
+        return (dd * s + ss) * t + tt
+
+    groups = [
+        _groups(world, lambda r: [at(x, coords(r)[1], coords(r)[2])
+                                  for x in range(d)], rank),
+        _groups(world, lambda r: [at(coords(r)[0], x, coords(r)[2])
+                                  for x in range(s)], rank),
+        _groups(world, lambda r: [at(coords(r)[0], coords(r)[1], x)
+                                  for x in range(t)], rank),
+        _groups(world, lambda r: [at(x, y, coords(r)[2]) for x in range(d)
+                                  for y in range(s)], rank),
+    ]
+    return Mesh(d, s, t, *coords(rank), *groups)

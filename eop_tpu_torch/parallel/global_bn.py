@@ -110,7 +110,8 @@ class GlobalBatchNorm2d(BatchNorm2d):
     statistics are those of the global batch over ``group``'s ranks; eval
     mode, and a group of one rank, are ``BatchNorm2d``'s.  Under
     ``batch_stats_frozen`` (the recompute of a checkpointed forward) the
-    buffers are not updated."""
+    buffers are not updated.  With ``channels`` set (tensor parallelism)
+    it normalises that slice of its channels."""
 
     group = None
 
@@ -119,23 +120,34 @@ class GlobalBatchNorm2d(BatchNorm2d):
                 or self.group is None
                 or dist.get_world_size(self.group) == 1):
             return super().forward(x)
+        weight, bias, running_mean, running_var = self.vectors()
         if stats_frozen():
-            return global_batch_norm(x, self.weight, self.bias, eps=self.eps,
+            return global_batch_norm(x, weight, bias, eps=self.eps,
                                      group=self.group)
-        y = global_batch_norm(x, self.weight, self.bias, self.running_mean,
-                              self.running_var, self.momentum, self.eps,
-                              self.group)
+        y = global_batch_norm(x, weight, bias, running_mean, running_var,
+                              self.momentum, self.eps, self.group)
         with torch.no_grad():
             self.num_batches_tracked += 1
         return y
 
 
-def convert_global_bn(model: nn.Module, group) -> nn.Module:
+def convert_global_bn(model: nn.Module, group,
+                      region_group=None) -> nn.Module:
     """Make every ``BatchNorm2d`` of ``model`` a :class:`GlobalBatchNorm2d`
     over ``group``, in place (the same module objects, parameters, buffers
-    and state_dict keys).  Returns ``model``."""
+    and state_dict keys).  ``region_group``, where given, is the group of
+    the BatchNorms in a space group's sharded region
+    (``parallel.spatial.region_modules``: stem through dark4), which hold
+    this rank's rows of its images: data x space there, the data group
+    after the fence.  No BatchNorm reduces over a model group: per-channel
+    statistics do not cross channel slices.  Returns ``model``."""
+    region = set()
+    if region_group is not None:
+        from .spatial import region_modules
+
+        region = {id(m) for r in region_modules(model) for m in r.modules()}
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.__class__ = GlobalBatchNorm2d
-            m.group = group
+            m.group = region_group if id(m) in region else group
     return model

@@ -1,5 +1,4 @@
-"""Data parallelism over processes (counterpart of the data-axis parts of
-``eop_tpu/parallel/mesh.py``).
+"""Parallelism over processes (counterpart of ``eop_tpu/parallel/mesh.py``).
 
 ``eop_tpu`` jits one program over a device mesh and GSPMD makes every
 reduction global.  The port runs one process per GPU and makes the same
@@ -18,17 +17,24 @@ step is, the single-device step on the global batch:
 * :func:`shard_inference` runs each rank's share of a batch and gathers
   the rows.
 
-``make_mesh``, ``image_spec``, ``param_specs`` and the sharding
-constraints have no counterpart: the process group is the mesh, a rank
-holds its rows, and ``fully_shard`` decides the parameter layout.  The
-spatial and tensor axes (``--spatial``, ``--tensor``,
-``shard_inference_tp``) are not ported (ROADMAP.md queue 1 item 7).
+The space and model axes (``--spatial``, ``--tensor``; the layout of the
+ranks is ``parallel.dist.make_mesh``'s :class:`~.dist.Mesh`): a space rank
+holds rows of its data row's images (``shard_batch``, halo exchanges and
+the fence in ``parallel/spatial.py``), a model rank a slice of the
+qualifying convs' output channels (``parallel/tensor.py``, placed by
+``place_state(tensor=)``).  ``shard_train_step`` then sums the gradients
+of the sharded region (stem through dark4) over the space ranks, averages
+every gradient over the data ranks, and sums the gradients of the vectors
+held whole and used sliced over the model ranks; ``shard_inference_tp``
+runs a tensor-parallel model.  ``image_spec``, ``param_specs`` and the
+sharding constraints have no counterpart: a rank holds its rows and
+channels, and ``fully_shard`` decides the data axis's parameter layout.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -36,13 +42,16 @@ import torch.nn as nn
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..utils.logger import logger
-from .dist import get_rank, get_world_size
+from .dist import Mesh, get_rank, get_world_size
+from .spatial import region_modules, shard_rows
+from .tensor import convert_tensor, reduce_partial, slice_factor
 
 __all__ = [
     "average_gradients",
     "place_state",
     "shard_batch",
     "shard_inference",
+    "shard_inference_tp",
     "shard_train_step",
     "state_bytes",
     "state_to_host",
@@ -64,14 +73,19 @@ def _tree_map(fn: Callable, tree: Any) -> Any:
     return tree
 
 
-def shard_batch(batch, rank: int, world: int, accum: int = 1):
+def shard_batch(batch, rank: int, world: int, accum: int = 1,
+                space_rank: int = 0, spatial: int = 1):
     """Rank ``rank``'s rows of a global batch (tensors or arrays with the
     batch first, alone or in dicts / tuples): ``eop_tpu``'s data-axis
     sharding of each micro-batch.  The global batch ``[B]`` splits into
     ``accum`` micro-batches of ``B / accum`` rows (``_accum_scan``'s
     ``[accum, B / accum]`` reshape), each sharded over the ranks, so a rank
     holds ``B / world`` rows: its share of micro-batch 0, then of 1, ...,
-    which the step's ``chunk(accum)`` takes apart again."""
+    which the step's ``chunk(accum)`` takes apart again.  With ``spatial``
+    space ranks, the 4-D leaves (NHWC images) keep space rank
+    ``space_rank``'s height rows (``parallel.spatial.row_split``), in every
+    micro-batch, as ``constrain_accum`` keeps them height-sharded; the
+    labels stay whole."""
 
     def rows(x):
         b = x.shape[0]
@@ -79,8 +93,9 @@ def shard_batch(batch, rank: int, world: int, accum: int = 1):
             raise ValueError(f"batch {b} does not split into accum={accum} "
                              f"x world={world}")
         per = b // (accum * world)
-        return x.reshape(accum, world, per, *x.shape[1:])[:, rank].reshape(
+        x = x.reshape(accum, world, per, *x.shape[1:])[:, rank].reshape(
             accum * per, *x.shape[1:])
+        return shard_rows(x, space_rank, spatial) if x.ndim == 4 else x
 
     return _tree_map(rows, batch)
 
@@ -89,39 +104,82 @@ def _grads(params) -> list:
     return [p.grad for p in params if p.grad is not None]
 
 
-def average_gradients(params, group) -> None:
-    """Replace each gradient by its mean over ``group``'s ranks, in one
-    ``all_reduce`` of the flattened gradients (a bucket per dtype)."""
-    world = dist.get_world_size(group)
+def average_gradients(params, group, divisor: Optional[int] = None) -> None:
+    """Replace each gradient by its sum over ``group``'s ranks divided by
+    ``divisor`` (the group's size: the mean), in one ``all_reduce`` of the
+    flattened gradients (a bucket per dtype).  DTensor gradients (under
+    ``fsdp``) take their local shards."""
+    divisor = dist.get_world_size(group) if divisor is None else divisor
     by_dtype: Dict[torch.dtype, list] = {}
     for g in _grads(params):
+        g = _local(g)
         by_dtype.setdefault(g.dtype, []).append(g)
     for grads in by_dtype.values():
         flat = _flatten_dense_tensors(grads)
         dist.all_reduce(flat, group=group)
-        flat.div_(world)
+        if divisor != 1:
+            flat.div_(divisor)
         for g, avg in zip(grads, _unflatten_dense_tensors(flat, grads)):
             g.copy_(avg)
 
 
-def shard_train_step(step_fn: Callable, group=None,
-                     fsdp: bool = False) -> Callable:
+def data_mesh(group=None) -> Mesh:
+    """The :class:`~.dist.Mesh` of data parallelism alone over ``group``."""
+    if group is None:
+        return Mesh()
+    return Mesh(data_size=dist.get_world_size(group),
+                data_rank=dist.get_rank(group), data=group, data_space=group)
+
+
+def reduce_gradients(model: nn.Module, mesh: Mesh,
+                     fsdp: bool = False) -> None:
+    """The gradients of a step over ``mesh`` made the global batch's, in
+    place, after the backward: the sharded region's (stem through dark4,
+    ``parallel.spatial.region_modules``) summed over the space ranks and
+    every one averaged over the data ranks, in one ``all_reduce`` over
+    data x space (the gradients after the fence, the same on every space
+    rank, are averaged over it); under ``fsdp`` (the model given to
+    :func:`place_state` with a data group) ``fully_shard``'s
+    reduce-scatter has averaged over the data ranks, and the local shards
+    are reduced over the space ranks alone.  Then the vectors held whole
+    and used sliced are summed over the model ranks and their BatchNorm
+    statistics gathered (``parallel.tensor.reduce_partial``)."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    region = set()
+    if mesh.space is not None:
+        region = {id(p) for m in region_modules(model)
+                  for p in m.parameters()}
+    inner = [p for p in params if id(p) in region]
+    outer = [p for p in params if id(p) not in region]
+    if fsdp and mesh.data is not None:
+        group, data = mesh.space, 1
+    else:
+        group, data = mesh.data_space, mesh.data_size
+    if group is not None:
+        average_gradients(inner, group, data)
+        average_gradients(outer, group, data * mesh.spatial)
+    reduce_partial(model)
+
+
+def shard_train_step(step_fn: Callable, group=None, fsdp: bool = False,
+                     mesh: Optional[Mesh] = None) -> Callable:
     """``step(state, images, labels)`` of ``make_train_step_*`` (made with
-    the same ``group``) run data-parallel over ``group``: after the
-    micro-batches' backward and before the optimizer step, the gradients
-    are averaged over the ranks, which, with every rank's loss scaled by
-    the world size, is the global batch's gradient.  Under ``fsdp`` (the
-    model given to :func:`place_state`) ``fully_shard``'s reduce-scatter
-    averages them in the backward and nothing is added.  Without a group
-    the step is ``step_fn``."""
-    if group is None or fsdp:
+    the same ``group``: the data group) run in parallel over ``group``, or
+    over ``mesh``'s axes: after the micro-batches' backward and before the
+    optimizer step, :func:`reduce_gradients`, which, with every rank's
+    loss scaled by the data group's size, gives the global batch's
+    gradient.  Under ``fsdp`` (the model given to :func:`place_state`)
+    ``fully_shard``'s reduce-scatter averages over the data ranks in the
+    backward.  Without any group the step is ``step_fn``."""
+    mesh = mesh if mesh is not None else data_mesh(group)
+    by_fsdp = fsdp and mesh.data is not None
+    if (mesh.data_space is None or by_fsdp) and mesh.space is None and (
+            mesh.model is None):
         return step_fn
 
     def step(state, images, labels):
-        params = [p for g in state.optimizer.param_groups
-                  for p in g["params"]]
         hook = state.optimizer.register_step_pre_hook(
-            lambda *_: average_gradients(params, group))
+            lambda *_: reduce_gradients(state.model, mesh, fsdp))
         try:
             return step_fn(state, images, labels)
         finally:
@@ -136,37 +194,73 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 def state_bytes(state) -> Tuple[int, int]:
     """(bytes this rank holds, bytes of the whole state) over the model's
-    parameters and buffers, the momentum, the EMA and the DWA state."""
-    tensors = [*state.model.parameters(), *state.model.buffers()]
-    tensors += [s["momentum_buffer"] for s in state.optimizer.state.values()
-                if s.get("momentum_buffer") is not None]
+    parameters and buffers, the momentum, the EMA and the DWA state; a
+    tensor-parallel slice counts whole in the second."""
+    model = state.model
+    named = [*model.named_parameters(), *model.named_buffers()]
+    names = {id(p): n for n, p in model.named_parameters()}
+    named += [(names.get(id(p)), s["momentum_buffer"])
+              for p, s in state.optimizer.state.items()
+              if s.get("momentum_buffer") is not None]
     for d in (state.ema_params, state.ema_batch_stats):
-        tensors += list((d or {}).values())
+        named += list((d or {}).items())
     if state.dwa is not None:
-        tensors += list(state.dwa)
-    local = sum(_local(t).numel() * t.element_size() for t in tensors)
-    total = sum(t.numel() * t.element_size() for t in tensors)
+        named += [(None, t) for t in state.dwa]
+    local = sum(_local(t).numel() * t.element_size() for _, t in named)
+    total = sum(t.numel() * t.element_size() * slice_factor(model, n)
+                for n, t in named)
     return local, total
 
 
-def place_state(state, fsdp: bool = False, group=None):
-    """Place a ``TrainState`` for data parallelism over ``group``, in
-    place, once before the first step.  ``fsdp`` (ZeRO-style, as
-    ``eop_tpu``'s ``--fsdp``): ``fully_shard`` of the model over the
-    group's ranks (parameters as ``DTensor`` shards, gathered for each
-    forward and backward, gradients reduce-scattered); the momentum and the
-    EMA parameters and statistics are sharded like the parameters.
-    Otherwise everything stays replicated.  Logs the share of the state's
-    bytes held off this rank, and warns where ``fsdp`` shards nothing (no
-    group, or one rank)."""
+def _take_slices(state, record) -> None:
+    """The momentum and the EMA of the tensors :func:`convert_tensor`
+    sliced cut to this rank's slice, as the tensors themselves."""
+    rank = dist.get_rank(record.group)
+
+    def cut(name, t):
+        whole = record.shards[name]
+        if tuple(t.shape) != tuple(whole):
+            return t
+        n = whole[0] // record.size
+        return t[rank * n:(rank + 1) * n].clone()
+
+    for field in ("ema_params", "ema_batch_stats"):
+        d = getattr(state, field)
+        if d is not None:
+            setattr(state, field, {k: cut(k, v) if k in record.shards else v
+                                   for k, v in d.items()})
+    for name, p in state.model.named_parameters():
+        s = state.optimizer.state.get(p, {})
+        if name in record.shards and s.get("momentum_buffer") is not None:
+            s["momentum_buffer"] = cut(name, s["momentum_buffer"])
+
+
+def place_state(state, fsdp: bool = False, group=None, tensor=None):
+    """Place a ``TrainState`` for parallelism, in place, once before the
+    first step (after any checkpoint is loaded into it).  ``tensor`` (a
+    model group): the qualifying convs compute this rank's slice of their
+    output channels, and the leaves ``eop_tpu``'s ``_leaf_spec`` shards
+    over the model axis, with their momentum and EMA, keep only this
+    rank's slice (``parallel.tensor.convert_tensor``).  ``fsdp``
+    (ZeRO-style, as ``eop_tpu``'s ``--fsdp``): ``fully_shard`` of the model
+    over ``group``'s ranks, the data group (parameters as ``DTensor``
+    shards, gathered for each forward and backward, gradients
+    reduce-scattered); the momentum and the EMA parameters and statistics
+    are sharded like the parameters; a channel slice is sharded further,
+    as any other leaf.  Otherwise everything stays replicated.  Logs the
+    share of the state's bytes held off this rank, and warns where
+    ``fsdp`` shards nothing (no group, or one rank)."""
     world = get_world_size(group) if group is not None else 1
+    if tensor is not None:
+        _take_slices(state, convert_tensor(state.model, tensor))
     if fsdp and group is not None:
         _fully_shard(state, group)
     local, total = state_bytes(state)
     off = 1.0 - local / total if total else 0.0
+    tp = get_world_size(tensor) if tensor is not None else 1
     msg = (f"place_state: {off:.1%} of state bytes sharded off the rank "
            f"({local} of {total} bytes on each rank; world {world}, "
-           f"fsdp={fsdp})")
+           f"fsdp={fsdp}, tensor {tp})")
     if fsdp and off == 0.0:
         logger.warning(msg + ": fsdp shards nothing without a group of "
                        "more than one rank; the state stays replicated")
@@ -235,21 +329,31 @@ def sync_batch_stats(model: nn.Module, group=None) -> nn.Module:
     return model
 
 
-def shard_inference(infer_fn: Callable, group=None) -> Callable:
-    """A batched ``infer_fn`` (a batch -> a tensor or a named tuple of
-    tensors with the batch first) run data-parallel: each rank computes
+def shard_inference(infer_fn: Callable, group=None,
+                    space=None) -> Callable:
+    """A batched ``infer_fn`` (an NHWC batch -> a tensor or a named tuple
+    of tensors with the batch first) run data-parallel over ``group``
+    (``None``: this process computes the whole batch): each rank computes
     its ``B / world`` contiguous rows, and the rows come back gathered in
-    order on every rank (one ``all_gather`` per output)."""
+    order on every rank (one ``all_gather`` per output).  With a ``space``
+    group each rank passes its height rows of those images
+    (``parallel.spatial.row_split``) to ``infer_fn``, whose model must be
+    under that group (``parallel.spatial.convert_spatial``): its outputs
+    are whole after the fence, the same on every space rank."""
 
     def run(imgs):
-        world, rank = get_world_size(group), get_rank(group)
-        if world == 1:
-            return infer_fn(imgs)
+        world, rank = ((get_world_size(group), get_rank(group))
+                       if group is not None else (1, 0))
         b = imgs.shape[0]
         if b % world:
             raise ValueError(f"batch {b} does not split over {world} ranks")
         per = b // world
-        out = infer_fn(imgs[rank * per:(rank + 1) * per])
+        local = imgs[rank * per:(rank + 1) * per]
+        if space is not None:
+            local = shard_rows(local, get_rank(space), get_world_size(space))
+        out = infer_fn(local)
+        if world == 1:
+            return out
 
         def gathered(t):
             parts = [torch.empty_like(t) for _ in range(world)]
@@ -259,3 +363,21 @@ def shard_inference(infer_fn: Callable, group=None) -> Callable:
         return _tree_map(gathered, out)
 
     return run
+
+
+def shard_inference_tp(infer_fn: Callable, model: nn.Module,
+                       mesh: Mesh) -> Callable:
+    """Tensor-parallel inference (``eop_tpu``'s ``shard_inference_tp``):
+    ``model`` (the one ``infer_fn`` runs) keeps this rank's channel slices
+    over ``mesh.model`` (``parallel.tensor.convert_tensor``, in place; the
+    per-rank weight memory drops by the model group's size), and under
+    ``mesh.space`` its rows; the batch is then split over ``mesh.data`` as
+    :func:`shard_inference` splits it.  Every rank of the mesh calls the
+    returned function with the same batch."""
+    from .spatial import convert_spatial
+
+    if mesh.model is not None:
+        convert_tensor(model, mesh.model)
+    if mesh.space is not None:
+        convert_spatial(model, mesh.space)
+    return shard_inference(infer_fn, mesh.data, mesh.space)

@@ -26,9 +26,13 @@ Several processes, one per GPU (``-b`` is the global batch):
         --coordinator HOST:PORT --num-processes N --process-id I
 
 (``--platform cpu|gpu`` picks the device as ``--device`` does.)
-``--spatial``, ``--tensor`` and ``--profile-port`` are accepted and raise
-``NotImplementedError`` (ROADMAP.md queue 1 items 7 and 8);
-``--no-prewarm`` is accepted and does nothing.
+``--spatial S`` shards each image's rows over S ranks and ``--tensor T``
+the qualifying convs' output channels over T ranks, as ``eop_tpu``'s mesh
+does (the world splits into data x S x T; ``-b`` splits over the data
+ranks); a world that does not split raises ``ValueError``.
+``--profile-port`` is accepted and raises ``NotImplementedError``
+(ROADMAP.md queue 1 item 8); ``--no-prewarm`` is accepted and does
+nothing.
 """
 
 from __future__ import annotations
@@ -63,10 +67,11 @@ def make_parser():
 
 def add_parallel_args(parser) -> None:
     """``eop_tpu``'s parallel, platform and profiling options of both train
-    command lines: ``--fsdp``, ``--multi-host`` with ``--coordinator``,
-    ``--num-processes`` and ``--process-id``, and ``--platform`` work
-    (:func:`launched`); ``--spatial``, ``--tensor`` and ``--profile-port``
-    raise ``NotImplementedError`` when set
+    command lines: ``--fsdp``, ``--spatial``, ``--tensor``,
+    ``--multi-host`` with ``--coordinator``, ``--num-processes`` and
+    ``--process-id``, and ``--platform`` work (:func:`launched`,
+    ``train/trainer.py::Parallel``); ``--profile-port`` raises
+    ``NotImplementedError`` when set
     (``train/trainer.py::reject_unported``); ``--no-prewarm`` does
     nothing."""
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
@@ -77,9 +82,17 @@ def add_parallel_args(parser) -> None:
                              "per shape, so the port has no prewarm "
                              "(ROADMAP.md queue 1, not ported on purpose)")
     parser.add_argument("--spatial", type=int, default=1,
-                        help="not ported: raises (ROADMAP.md queue 1 item 7)")
+                        help="shard each image's rows over this many ranks "
+                             "(halo rows exchanged around every conv of the "
+                             "stem through dark4, gathered before dark5); "
+                             "the world must split into data x spatial x "
+                             "tensor")
     parser.add_argument("--tensor", type=int, default=1,
-                        help="not ported: raises (ROADMAP.md queue 1 item 7)")
+                        help="shard the output channels of the convs whose "
+                             "kernel divides over this many ranks (with at "
+                             "least 256 elements, as eop_tpu's param_specs); "
+                             "the world must split into data x spatial x "
+                             "tensor")
     parser.add_argument("--profile-port", type=int, default=None,
                         help="not ported: raises (ROADMAP.md queue 1 item 8)")
     parser.add_argument("--fsdp", action="store_true",
@@ -116,7 +129,8 @@ def launched(args):
     and is destroyed at the end.  ``--coordinator``, ``--num-processes``
     and ``--process-id`` without ``--multi-host`` raise ``SystemExit``.
     The options that are not ported raise first, before any data is
-    read."""
+    read; so do ``--spatial`` / ``--tensor`` that do not split the world
+    (in the trainer's ``Parallel.of``)."""
     import torch.distributed as dist
 
     from ..parallel.dist import init_distributed, under_torchrun

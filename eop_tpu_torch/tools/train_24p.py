@@ -12,9 +12,11 @@ runs on the CPU.  Checkpoints and the log go to ``output_dir/exp_name``.
 Several processes, one per GPU, under torchrun or with ``--multi-host
 --coordinator HOST:PORT --num-processes N --process-id I`` (``-b`` is the
 global batch; ``--fsdp`` shards the state), as ``tools/train.py`` says.
-``--spatial``, ``--tensor`` and ``--profile-port`` are accepted and raise
-``NotImplementedError`` before any data is read (ROADMAP.md queue 1 items
-7 and 8); ``--no-prewarm`` is accepted and does nothing.
+``--spatial S`` / ``--tensor T`` shard each image's rows / the qualifying
+convs' output channels over S / T ranks of each data row (the world splits
+into data x S x T); ``--profile-port`` is accepted and raises
+``NotImplementedError`` before any data is read (ROADMAP.md queue 1 item
+8); ``--no-prewarm`` is accepted and does nothing.
 """
 
 from __future__ import annotations

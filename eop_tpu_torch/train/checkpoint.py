@@ -15,23 +15,42 @@ import torch
 
 from ..losses import DWAState
 from ..parallel.mesh import state_to_host
+from ..parallel.tensor import whole_tensors
 from .steps import TrainState
 
 
 def state_to_payload(state: TrainState) -> Dict[str, Any]:
     """The ``TrainState`` as plain containers of whole tensors and numbers.
-    Under FSDP the shards are gathered (``parallel.state_to_host``), a
-    collective that every rank joins before rank 0 writes; the keys are the
-    model's attribute names either way, so the file loads strictly into a
-    model on one device."""
-    return state_to_host({
-        "model": state.model.state_dict(),
+    Under FSDP the shards are gathered (``parallel.state_to_host``), and
+    under tensor parallelism the channel slices
+    (``parallel.tensor.whole_tensors``): collectives that every rank joins
+    before rank 0 writes; the keys are the model's attribute names either
+    way, so the file loads strictly into a model on one device."""
+    model = state.model
+    payload = state_to_host({
+        "model": model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
         "ema_params": state.ema_params,
         "ema_batch_stats": state.ema_batch_stats,
         "dwa": state.dwa._asdict() if state.dwa is not None else None,
         "step": int(state.step),
     })
+    if getattr(model, "tensor_parallel", None) is None:
+        return payload
+    for field in ("model", "ema_params", "ema_batch_stats"):
+        payload[field] = whole_tensors(payload[field], model)
+    # the momentum, numbered in parameter-group order
+    names = {id(p): n for n, p in model.named_parameters()}
+    order = [names[id(p)] for g in state.optimizer.param_groups
+             for p in g["params"]]
+    momentum = {order[i]: s["momentum_buffer"]
+                for i, s in payload["optimizer"]["state"].items()
+                if s.get("momentum_buffer") is not None}
+    whole = whole_tensors(momentum, model)
+    for i, s in payload["optimizer"]["state"].items():
+        if order[i] in whole:
+            s["momentum_buffer"] = whole[order[i]]
+    return payload
 
 
 def _ckpt_path(save_dir: str, name: str) -> str:

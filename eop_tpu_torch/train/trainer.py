@@ -36,9 +36,14 @@ batch; ``args.fsdp`` shards the parameters, the momentum and the EMA
 checkpoints; the checkpoint's state is gathered on every rank first.  The
 multiscale size comes from (seed, step), the same on every rank.  Each
 rank evaluates its strided share of the validation set and the detections
-are gathered before every rank scores them.  ``--spatial``, ``--tensor``
-and ``--profile-port`` are not ported (ROADMAP.md queue 1 items 7 and 8)
-and raise where asked for; the XLA bucket prewarm is not ported.
+are gathered before every rank scores them.  ``args.spatial`` /
+``args.tensor`` lay the ranks out as ``eop_tpu``'s mesh
+(``parallel.dist.make_mesh``: data, space, model): a data row's space and
+model ranks load the same images (the loader keyed by the data rank, its
+augmentations by one shared seed), a space rank trains on its height
+rows, a model rank on its slices of the qualifying convs' channels
+(``Parallel``).  ``--profile-port`` is not ported (ROADMAP.md queue 1
+item 8) and raises where asked for; the XLA bucket prewarm is not ported.
 """
 
 from __future__ import annotations
@@ -62,9 +67,18 @@ from ..utils.metric import (
     device_mem_usage,
     fetch_metrics,
 )
-from ..parallel.dist import get_rank, get_world_size, rank_device
+from ..parallel.dist import (
+    Mesh,
+    get_rank,
+    get_world_size,
+    make_mesh,
+    rank_device,
+    shared_random_seed,
+)
 from ..parallel.global_bn import convert_global_bn
 from ..parallel.mesh import place_state, shard_train_step, state_to_host
+from ..parallel.spatial import convert_spatial, shard_rows
+from ..parallel.tensor import whole_tensors
 from ..utils.weights import train_state_from_jax
 from .checkpoint import (
     load_checkpoint,
@@ -76,15 +90,14 @@ from .steps import create_train_state, eval_weights, make_train_step_bbox
 
 # the options of eop_tpu's train command lines that the port does not
 # have, their defaults, and the ROADMAP.md queue 1 item that holds each
-_UNPORTED_ARGS = {"spatial": (1, 7), "tensor": (1, 7),
-                  "profile_port": (None, 8)}
+_UNPORTED_ARGS = {"profile_port": (None, 8)}
 
 
 def reject_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first of ``args``' spatial,
-    tensor or profiling options set off its default, and the ROADMAP.md
-    item that holds it (queue 1 item 7: spatial and tensor sharding; item
-    8: the live profiler)."""
+    """Raise ``NotImplementedError`` naming the first of ``args``' options
+    that the port does not have (the live profiler's ``profile_port``) set
+    off its default, and the ROADMAP.md item that holds it (queue 1 item
+    8)."""
     for name, (default, item) in _UNPORTED_ARGS.items():
         if getattr(args, name, default) != default:
             raise NotImplementedError(
@@ -94,14 +107,17 @@ def reject_unported(args) -> None:
 
 class Parallel(NamedTuple):
     """This process's place in the run: its device (``cuda:LOCAL_RANK``
-    on a card), rank and world size, the process group (``None`` without
-    one: this process alone) and whether to shard the state (``fsdp``)."""
+    on a card), rank and world size, the data group (``None`` without
+    one: this process's images are the batch), whether to shard the state
+    (``fsdp``) and the layout of the ranks (``mesh``: the data, space and
+    model groups of ``--spatial`` / ``--tensor``)."""
 
     device: torch.device
     rank: int
     world: int
     group: Optional[object]
     fsdp: bool
+    mesh: Mesh = Mesh()
 
     @property
     def is_main(self) -> bool:
@@ -109,30 +125,58 @@ class Parallel(NamedTuple):
 
     @classmethod
     def of(cls, args) -> "Parallel":
-        """From ``args.device`` and ``args.fsdp`` and the default process
-        group, where one has been started (``init_distributed``)."""
-        group = dist.group.WORLD if (dist.is_available()
-                                     and dist.is_initialized()) else None
+        """From ``args.device``, ``args.fsdp``, ``args.spatial`` and
+        ``args.tensor`` and the default process group, where one has been
+        started (``init_distributed``).  ``spatial`` / ``tensor`` that do
+        not split the ranks raise ``ValueError`` (``make_mesh``)."""
+        mesh = make_mesh(int(getattr(args, "spatial", 1) or 1),
+                         int(getattr(args, "tensor", 1) or 1))
         return cls(rank_device(resolve_device(getattr(args, "device", None))),
-                   get_rank(), get_world_size(), group,
-                   bool(getattr(args, "fsdp", False)))
+                   get_rank(), get_world_size(), mesh.data,
+                   bool(getattr(args, "fsdp", False)), mesh)
+
+    @property
+    def data_rank(self) -> int:
+        return self.mesh.data_rank
+
+    @property
+    def data_world(self) -> int:
+        return self.mesh.data_size
 
     def check_batch(self, batch_size: int) -> None:
-        if batch_size % self.world:
+        if batch_size % self.data_world:
             raise ValueError(f"the global batch {batch_size} does not split "
-                             f"over {self.world} ranks")
+                             f"over {self.data_world} data ranks")
+
+    def loader_seed(self) -> Optional[int]:
+        """The augmentations' seed where a data row has several ranks (one
+        draw shared by every rank, plus the data rank: the ranks of a data
+        row draw the same batches); None (random) otherwise."""
+        if self.mesh.spatial * self.mesh.tensor == 1:
+            return None
+        return (shared_random_seed() + self.data_rank) % 2**31
 
     def model(self, model):
-        """``model`` with its BatchNorm over the global batch."""
-        if self.group is not None:
-            convert_global_bn(model, self.group)
+        """``model`` under the mesh: its rows over the space group
+        (``convert_spatial``) and its BatchNorm over the global batch (the
+        sharded region's over data x space)."""
+        mesh = self.mesh
+        if mesh.space is not None:
+            convert_spatial(model, mesh.space)
+        if mesh.data is not None or mesh.space is not None:
+            convert_global_bn(model, mesh.data,
+                              mesh.data_space if mesh.space else None)
         return model
 
+    def rows(self, images):
+        """This rank's height rows of an NHWC batch under a space group."""
+        return shard_rows(images, self.mesh.space_rank, self.mesh.spatial)
+
     def step(self, step_fn):
-        return shard_train_step(step_fn, self.group, self.fsdp)
+        return shard_train_step(step_fn, self.group, self.fsdp, self.mesh)
 
     def place(self, state):
-        return place_state(state, self.fsdp, self.group)
+        return place_state(state, self.fsdp, self.group, self.mesh.model)
 
 
 class Trainer:
@@ -214,15 +258,16 @@ class Trainer:
         par.check_batch(args.batch_size)
         # args.batch_size is the global batch: each rank loads its share
         self.train_loader = exp.get_data_loader(
-            args.batch_size, is_distributed=par.world > 1, no_aug=self.no_aug,
-            cache_img=getattr(args, "cache", False), rank=par.rank,
-            world_size=par.world)
+            args.batch_size, is_distributed=par.data_world > 1,
+            no_aug=self.no_aug, cache_img=getattr(args, "cache", False),
+            rank=par.data_rank, world_size=par.data_world,
+            seed=par.loader_seed())
         self.iters_per_epoch = len(self.train_loader)
         model = par.model(exp.get_model(self.device, seed=exp.seed or 0)
                           .train())
         self._dropouts = dropouts(model)
         for d in self._dropouts:
-            d.shard = (par.rank, par.world)
+            d.shard = (par.data_rank, par.data_world)
         optimizer = exp.get_optimizer(model, args.batch_size,
                                       self.iters_per_epoch)
         jax_state = getattr(args, "jax_state", None)
@@ -302,6 +347,7 @@ class Trainer:
                                                 non_blocking=True)
             if self.tsize != tuple(self.input_size):
                 imgs, labels = self.exp.preprocess(imgs, labels, self.tsize)
+            imgs = self.par.rows(imgs)
             data_time = time.perf_counter() - t0
             for d in self._dropouts:  # DenseNet's masks: (seed, step)
                 d.reseed(step_seed(self.exp.seed or 0,
@@ -371,8 +417,10 @@ class Trainer:
         """A separate eval-mode model carrying the EMA parameters and batch
         statistics where ``exp.ema``, else the live ones (built at the first
         evaluation and loaded anew at each; gathered on every rank under
-        FSDP)."""
-        weights = state_to_host(eval_weights(self.state, self.exp.ema))
+        FSDP, and the channel slices under tensor parallelism)."""
+        weights = whole_tensors(
+            state_to_host(eval_weights(self.state, self.exp.ema)),
+            self.state.model)
         if self._eval_model is None:
             self._eval_model = self.exp.get_model(self.device)
         self._eval_model.load_state_dict(weights, strict=True)

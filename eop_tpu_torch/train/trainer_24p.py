@@ -12,7 +12,10 @@ Data parallel over processes as the bbox ``Trainer`` is
 batch (the learning rate follows it), each rank loads its share, a step is
 the one-process step on the global batch, ``args.fsdp`` shards the state,
 rank 0 alone writes the log file, tensorboard and the checkpoints (the
-state gathered on every rank first).  Every rank evaluates with the
+state gathered on every rank first); ``args.spatial`` / ``args.tensor``
+shard each image's rows / the qualifying convs' channels over a data
+row's ranks, which load the same images (the loader keyed by the data
+rank).  Every rank evaluates with the
 gathered weights, and ``Evaluator24P`` scores the whole set on each, as
 ``eop_tpu``'s does.
 
@@ -33,6 +36,7 @@ import torch
 
 from ..losses import Loss24PConfig
 from ..parallel.mesh import state_to_host
+from ..parallel.tensor import whole_tensors
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import CandidateDropMonitor, fetch_metrics
 from .checkpoint import (
@@ -50,7 +54,8 @@ class Trainer24P:
 
     ``args`` attributes: ``batch_size`` (the global batch); optional
     ``lr``, ``accum``, ``resume``, ``ckpt``, ``start_epoch``, ``eval``,
-    ``device`` (the card unless ``"cpu"``), ``fsdp``.  ``hook``, where set
+    ``device`` (the card unless ``"cpu"``), ``fsdp``, ``spatial``,
+    ``tensor``.  ``hook``, where set
     before ``train()``, is handed to ``make_train_step_24p`` as its
     ``hook``.
     """
@@ -76,8 +81,8 @@ class Trainer24P:
         # args.batch_size is the global batch: each rank loads its share
         par.check_batch(args.batch_size)
         self.train_loader = exp.get_data_loader(
-            args.batch_size, is_distributed=par.world > 1, rank=par.rank,
-            world_size=par.world)
+            args.batch_size, is_distributed=par.data_world > 1,
+            rank=par.data_rank, world_size=par.data_world)
         self.iters_per_epoch = len(self.train_loader)
 
         self.host_fetches = 0  # metric transfers to the host
@@ -140,7 +145,7 @@ class Trainer24P:
                     self.device, torch.float32, non_blocking=True)
                 labels = torch.as_tensor(labels).to(
                     self.device, torch.float32, non_blocking=True)
-                state, metrics = step_fn(state, imgs, labels)
+                state, metrics = step_fn(state, par.rows(imgs), labels)
                 if self.tblogger is not None:
                     tb_pending.append((global_step, metrics))
                 if (i + 1) % exp.print_interval == 0:
@@ -203,8 +208,11 @@ class Trainer24P:
         model's mode, autograd state and weights stay as they are.  Built at
         the first evaluation and loaded anew at each: the in-place loads
         move the tensor versions that key its packed and folded weights.
-        Under FSDP the weights are gathered on every rank first."""
-        weights = state_to_host(eval_weights(state, self.exp.ema))
+        Under FSDP, and the channel slices under tensor parallelism, the
+        weights are gathered on every rank first."""
+        weights = whole_tensors(state_to_host(eval_weights(state,
+                                                           self.exp.ema)),
+                                state.model)
         if self._eval_model is None:
             self._eval_model = self.exp.get_model(self.device)
         self._eval_model.load_state_dict(weights, strict=True)

@@ -21,15 +21,18 @@ import torch
 import torch.distributed as dist
 
 from eop_tpu_torch.parallel import dist as pdist
+from eop_tpu_torch.parallel.dist import make_mesh
 from eop_tpu_torch.parallel.global_bn import convert_global_bn
 from eop_tpu_torch.parallel.mesh import (
     place_state,
     shard_batch,
     shard_inference,
+    shard_inference_tp,
     shard_train_step,
     state_bytes,
     sync_batch_stats,
 )
+from eop_tpu_torch.parallel.spatial import convert_spatial
 
 TIMEOUT_S = 90
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -167,7 +170,8 @@ def batches_of(spec):
     return [(i.to(dtype), lb.to(dtype)) for i, lb in spec["batches"]]
 
 
-def make_step(spec, group):
+def make_step(spec, mesh):
+    """The spec's step, run over ``mesh`` (``None``: one process)."""
     from eop_tpu_torch.losses import Loss24PConfig, YoloxLossConfig
     from eop_tpu_torch.train.steps import (
         make_train_step_24p,
@@ -175,6 +179,7 @@ def make_step(spec, group):
     )
 
     c = spec["model"]["num_classes"]
+    group = mesh.data if mesh is not None else None
     if spec["family"] == "24p":
         step = make_train_step_24p(Loss24PConfig(num_classes=c),
                                    ema_decay=spec["ema_decay"],
@@ -184,34 +189,103 @@ def make_step(spec, group):
                                                     use_l1=True),
                                     ema_decay=spec["ema_decay"],
                                     accum_steps=spec["accum"], group=group)
-    return shard_train_step(step, group, spec["fsdp"])
+    return shard_train_step(step, group, spec["fsdp"], mesh)
 
 
 def job_steps(inp, rank, world):
-    """For each run of the payload: its state, ``convert_global_bn``,
-    ``place_state`` and the data-parallel step on this rank's rows of each
-    global batch; the metrics, the state gathered whole, and the bytes."""
-    from eop_tpu_torch.train.checkpoint import save_checkpoint, state_to_payload
+    """For each run of the payload: the ranks laid out as its ``spatial``
+    and ``tensor`` ask (``make_mesh``; data parallel without them), its
+    state under the mesh (``convert_spatial``, ``convert_global_bn``,
+    ``place_state``) and the step on this rank's rows of each global
+    batch; the metrics, the state gathered whole, the bytes and the
+    rank's place.  Then the payload's ``infer`` specs (:func:`run_infer`)
+    and its ``loader`` spec (:func:`draw_batches`)."""
+    from eop_tpu_torch.train.checkpoint import (
+        save_checkpoint,
+        state_to_payload,
+    )
 
-    group = dist.group.WORLD
     out = {}
     for name, spec in inp["runs"].items():
+        mesh = make_mesh(spec.get("spatial", 1), spec.get("tensor", 1))
         state = build_state(spec)
-        convert_global_bn(state.model, group)
-        state = place_state(state, spec["fsdp"], group)
+        if mesh.space is not None:
+            convert_spatial(state.model, mesh.space)
+        convert_global_bn(state.model, mesh.data,
+                          mesh.data_space if mesh.space else None)
+        state = place_state(state, spec["fsdp"], mesh.data, mesh.model)
         placed = state_bytes(state)
-        step = make_step(spec, group)
+        step = make_step(spec, mesh)
         metrics = []
         for imgs, labels in batches_of(spec):
-            local = shard_batch((imgs, labels), rank, world, spec["accum"])
+            local = shard_batch((imgs, labels), mesh.data_rank,
+                                mesh.data_size, spec["accum"],
+                                mesh.space_rank, mesh.spatial)
             state, m = step(state, *local)
             metrics.append({k: v.detach().clone() for k, v in m.items()})
         payload = state_to_payload(state)
         if rank == 0 and spec.get("ckpt_dir"):
             save_checkpoint(payload, False, spec["ckpt_dir"], name)
         out[name] = {"metrics": metrics, "state": payload,
-                     "bytes_placed": placed, "bytes_after": state_bytes(state)}
+                     "bytes_placed": placed, "bytes_after": state_bytes(state),
+                     "coords": (mesh.data_rank, mesh.space_rank,
+                                mesh.model_rank)}
+    for name, spec in inp.get("infer", {}).items():
+        out[name] = run_infer(spec)
+    if "loader" in inp:
+        out["loader"] = draw_batches(inp["loader"])
     return out
+
+
+def run_infer(spec):
+    """One batch through sharded inference on ``spec``'s mesh: ``exp``
+    (an exp's ``get_sharded_infer_fn(mesh=)``, detections) or ``tp``
+    (``shard_inference_tp`` of the decoded head maps), on the spec's
+    weights."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.models.yolox import YOLOX, inference_outputs
+
+    mesh = make_mesh(spec.get("spatial", 1), spec.get("tensor", 1))
+    if spec["kind"] == "exp":
+        exp = get_exp(exp_name=spec["exp_name"])
+        exp.merge(spec["opts"])
+        model = exp.get_model("cpu")
+        model.load_state_dict(spec["weights"])
+        fn = exp.get_sharded_infer_fn(model.eval(), "cpu", mesh=mesh)
+        return fn(spec["imgs"])
+    model = YOLOX(**spec["model"]).to(memory_format=torch.channels_last)
+    model.load_state_dict(spec["weights"])
+    model.eval()
+
+    def body(imgs):
+        with torch.no_grad():
+            return inference_outputs(model(imgs.permute(0, 3, 1, 2))[0])
+
+    return shard_inference_tp(body, model, mesh)(spec["imgs"])
+
+
+def draw_batches(spec):
+    """Two batches of the bbox exp's mosaic loader, built as the trainer
+    builds it under ``spec``'s ``spatial`` / ``tensor`` (keyed by the data
+    rank, the augmentations by one shared seed), with this rank's place."""
+    from types import SimpleNamespace
+
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.train.trainer import Parallel
+
+    par = Parallel.of(SimpleNamespace(device="cpu", fsdp=False, **{
+        k: spec[k] for k in ("spatial", "tensor")}))
+    exp = get_exp(exp_name="yolox-s")
+    exp.merge(spec["opts"])
+    loader = exp.get_data_loader(
+        spec["batch"], is_distributed=par.data_world > 1,
+        rank=par.data_rank, world_size=par.data_world,
+        seed=par.loader_seed())
+    it = iter(loader)
+    batches = [next(it)[:2] for _ in range(2)]
+    del it
+    return {"coords": (par.data_rank, par.mesh.space_rank,
+                       par.mesh.model_rank), "batches": batches}
 
 
 def jittered(dets):
@@ -253,8 +327,42 @@ def job_eval(inp, rank, world):
             "sharded": exp.get_sharded_infer_fn(model, "cpu")(inp["imgs"])}
 
 
+def job_zoo(inp, rank, world):
+    """For each model of the payload and each layout (``spatial`` /
+    ``tensor``), a float64 forward of the payload's images under the
+    layout (this rank's rows, or its channel slices) and the input
+    gradient of the maps' sum of squares (the space ranks' rows summed):
+    the head maps and the whole input's gradient."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.parallel.spatial import convert_spatial, shard_rows
+    from eop_tpu_torch.parallel.tensor import convert_tensor
+
+    out = {}
+    for name in inp["models"]:
+        for layout in ("spatial", "tensor"):
+            mesh = make_mesh(**{layout: world})
+            exp = get_exp(exp_name=name)
+            exp.merge(inp["opts"])
+            model = to_float64(exp.get_model("cpu", seed=0)).eval()
+            if mesh.space is not None:
+                convert_spatial(model, mesh.space)
+            else:
+                convert_tensor(model, mesh.model)
+            x = inp["imgs"].double().requires_grad_()
+            local = shard_rows(x.permute(0, 2, 3, 1), mesh.space_rank,
+                               mesh.spatial).permute(0, 3, 1, 2)
+            maps = model(local)[0]
+            (dx,) = torch.autograd.grad(sum(m.square().sum() for m in maps),
+                                        x)
+            if mesh.space is not None:
+                dist.all_reduce(dx, group=mesh.space)
+            out[name, layout] = {"maps": [m.detach() for m in maps],
+                                 "dx": dx}
+    return out
+
+
 JOBS = {"bn": job_bn, "objects": job_objects, "steps": job_steps,
-        "eval": job_eval}
+        "eval": job_eval, "zoo": job_zoo}
 
 
 def main() -> None:

@@ -85,14 +85,16 @@ def test_train_across_the_switch_resume_and_eval(coco_dir, tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--tensor", "2"], ["--fsdp"],
                                   ["--spatial", "2"], ["--multi-host"]])
 def test_unported_train_options_raise(coco_dir, tmp_path, flag):
-    """``--tensor`` and ``--spatial`` raise naming ROADMAP's item;
-    ``--multi-host`` without ``--coordinator`` or torchrun's environment
-    raises naming them; ``--fsdp`` in one process trains (it shards
-    nothing without a group) and its checkpoint loads strictly."""
+    """``--tensor 2`` and ``--spatial 2`` in one process raise
+    ``make_mesh``'s "do not split" ``ValueError`` (one rank does not split
+    into two, as one device does not in ``eop_tpu``); ``--multi-host``
+    without ``--coordinator`` or torchrun's environment raises naming
+    them; ``--fsdp`` in one process trains (it shards nothing without a
+    group) and its checkpoint loads strictly."""
     argv = (["-n", "yolox-s", "-b", "2", "--data-dir", coco_dir, "--device",
              "cpu"] + flag + TINY + ["output_dir", str(tmp_path)])
     if flag[0] in ("--tensor", "--spatial"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="1 devices do not split"):
             train_cli.main(argv)
     elif flag[0] == "--multi-host":
         with pytest.raises(ValueError, match="--coordinator.*torchrun"):

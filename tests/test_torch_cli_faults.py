@@ -7,9 +7,10 @@ held here on the CPU:
   built), ``demo_featuremap -c`` and ``show_24p -w``; a file of neither
   form still raises ``load_state_dict``'s error;
 * ``train`` and ``train_24p`` parse ``eop_tpu``'s ``--no-prewarm`` (it does
-  nothing) and its parallel and profiling flags: ``--spatial``,
-  ``--tensor`` and ``--profile-port`` raise the named
-  ``NotImplementedError`` before any data is read, the others work;
+  nothing) and its parallel and profiling flags: ``--profile-port`` raises
+  the named ``NotImplementedError`` and, in one process, ``--spatial 2``
+  and ``--tensor 2`` raise ``make_mesh``'s "do not split" ``ValueError``,
+  before any data is read; the others work;
 * ``serve --batch`` defaults to 16, as ``eop_tpu``'s ``tools/serve.py``.
 """
 
@@ -207,10 +208,12 @@ def _strict_load(cli, out):
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])
 @pytest.mark.parametrize("cli", ["train", "train_24p"])
 def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
-    """Each flag parses with ``eop_tpu``'s default.  ``--spatial``,
-    ``--tensor`` and ``--profile-port`` raise ``NotImplementedError``
-    naming themselves and their ROADMAP item before any data is read (the
-    data directories do not exist).  The others work: ``--coordinator``,
+    """Each flag parses with ``eop_tpu``'s default.  ``--profile-port``
+    raises ``NotImplementedError`` naming itself and its ROADMAP item, and
+    ``--spatial 2`` / ``--tensor 2`` raise ``make_mesh``'s ``ValueError``
+    (one process does not split into two space or model ranks, as one
+    device does not in ``eop_tpu``), before any data is read (the data
+    directories do not exist).  The others work: ``--coordinator``,
     ``--num-processes`` and ``--process-id`` without ``--multi-host`` stop
     before any data is read, naming it; ``--fsdp`` (no group: it warns that
     it shards nothing), ``--multi-host`` (a group of one over gloo,
@@ -234,10 +237,15 @@ def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
     assert default == {"spatial": 1, "tensor": 1, "fsdp": False,
                        "multi_host": False}.get(name)
     out = str(tmp_path / "out")
-    if name in ("spatial", "tensor", "profile_port"):
-        item = 8 if name == "profile_port" else 7
+    if name == "profile_port":
         with pytest.raises(NotImplementedError,
-                           match=rf"{name}=.*queue 1 item {item}"):
+                           match=rf"{name}=.*queue 1 item 8"):
+            main([*flag, "--device", "cpu", *argv, "output_dir", out])
+        assert not os.path.exists(out)
+        return
+    if name in ("spatial", "tensor"):
+        with pytest.raises(ValueError, match=rf"1 devices do not split into "
+                           rf".*{name}=2"):
             main([*flag, "--device", "cpu", *argv, "output_dir", out])
         assert not os.path.exists(out)
         return

@@ -73,7 +73,9 @@ def test_every_module_imports_without_jax():
                  "tools.export_serving",
                  # data parallelism over processes
                  "parallel", "parallel.dist", "parallel.global_bn",
-                 "parallel.mesh"):
+                 "parallel.mesh",
+                 # spatial and tensor sharding
+                 "parallel.spatial", "parallel.tensor"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]

@@ -6,7 +6,10 @@
 * both ranks exit cleanly and log the same finite global-batch loss;
 * the log file and the checkpoints are rank 0's alone, and the checkpoint
   loads strictly into a one-device model;
-* the ranks' loaders draw disjoint halves of the dataset.
+* the ranks' loaders draw disjoint halves of the dataset;
+* ``train_24p --spatial 2`` and ``train --tensor 2`` over two processes
+  (``--multi-host``): both ranks log the same losses and the checkpoint
+  loads strictly into a one-device model.
 """
 
 import itertools
@@ -21,7 +24,7 @@ import torch
 
 from eop_tpu_torch.exp import get_exp
 from eop_tpu_torch.tools.eval import eval_weights
-from eop_tpu_torch.utils.synth import write_24p_dataset
+from eop_tpu_torch.utils.synth import write_24p_dataset, write_coco_dataset
 
 from _torch_dist_child import free_port
 
@@ -138,3 +141,46 @@ def test_rank_loaders_draw_disjoint_halves(files):
         drawn.append(set(itertools.islice(iter(sampler), 4)))
     assert drawn[0].isdisjoint(drawn[1])
     assert drawn[0] | drawn[1] == set(range(8))
+
+
+@pytest.mark.parametrize("cli", ["train_24p --spatial 2", "train --tensor 2"])
+def test_spatial_and_tensor_command_lines(files, tmp_path, cli):
+    """Two ranks on one data row: one image's rows over the space pair, or
+    the convs' channels over the model pair; one step of B=4 (24p) or an
+    epoch of two steps of B=2 (bbox: mosaic switched off, its evaluation
+    run)."""
+    img_dir, lab_dir = files
+    tool, flag, value = cli.split()
+    if tool == "train":
+        coco = write_coco_dataset(str(tmp_path / "coco"), 4, 2, (64, 64),
+                                  num_classes=3, seed=2)
+        args = ["-n", "yolox-s", "-b", "2", "--data-dir", coco]
+        opts = TINY + ["max_epoch", "1", "no_aug_epochs", "0",
+                       "multiscale_range", "0"]
+    else:
+        args = ["-b", "4", "--data-dir", img_dir, "--label-dir", lab_dir,
+                "--max-epoch", "1"]
+        opts = TINY
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = tmp_path / "out"
+    cmds = [[sys.executable, "-m", f"eop_tpu_torch.tools.{tool}", *args,
+             flag, value, "--device", "cpu", "--multi-host",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(i), *opts, "output_dir", str(out)]
+            for i in range(2)]
+    outs = _run(cmds, env)
+    if tool == "train_24p":
+        per_rank = [_losses(o) for o in outs]
+        assert len(per_rank[0]) == 2 and per_rank[0] == per_rank[1]
+        assert all(math.isfinite(v) for v in per_rank[0])
+        ckpt = next((out / "yolox_24p").glob("*_ckpt.pth"))
+        _strict_load(str(ckpt))
+    else:
+        losses = [re.findall(r"total_loss: ([-\d.naif]+)", o) for o in outs]
+        assert losses[0] and losses[0] == losses[1], losses
+        assert "tensor 2" in outs[0]
+        exp = get_exp(exp_name="yolox-s")
+        exp.merge(TINY[:6])
+        exp.get_model("cpu").load_state_dict(eval_weights(
+            str(out / "yolox_s" / "latest_ckpt.pth")), strict=True)
