@@ -63,9 +63,9 @@
     oracle whose detections are the labels, on the card, which must score
     AP 1 through the native COCO matcher;
 13. runs the two command lines, ``python -m eop_tpu_torch.tools.train_24p
-    ... --eval compute_dtype bfloat16`` and ``python -m
-    eop_tpu_torch.tools.eval`` on its checkpoint, and checks each prints an
-    AP line;
+    ... --eval --profile-port PORT compute_dtype bfloat16`` (with 16h's
+    attach) and ``python -m eop_tpu_torch.tools.eval`` on its checkpoint,
+    and checks each prints an AP line;
 14. drops the training loader with batches in flight a few more times;
 15. the bbox family at full width, YOLOX-L (depth 1.0, width 1.0, 80
     classes, 640 px): holds the kernels at YOLOX-L's 12 early-conv shapes
@@ -219,9 +219,39 @@
     ``get_sharded_infer_fn`` over the space pair and ``get_tp_infer_fn``
     over the model pair against one process's ``get_infer_fn`` (masks
     equal, coordinates within the serve phase's 0.64 px, scores 1e-3);
+16h. the user's tools: ``python -m eop_tpu_torch.tools.demo`` in children
+    where cv2 does not import, started beside the cli phase, over 3 seeded
+    720x1280 baseline JPEGs and a PNG: 24p-s from the seeded weights in
+    the reference's form, YOLOX-L with its seeded weights, 24p-s with
+    ``--int8`` (``--conf 1e-5``): every written file decodes at its
+    input's size; each image's rows against ``get_infer_fn`` (or
+    ``get_quant_infer_fn`` calibrated on the same 4 images) in this
+    process on the same preprocessed image and weights (equal counts,
+    coordinates within 0.64 px, scores within 1e-3); each image's
+    launches by variant one forward's (8, YOLOX-L's 12, 6 under int8) and
+    no gradient; the int8 line's conv count that of ``ops/quant.py``; the
+    ms an image; ``-p clip.mp4`` exits non-zero naming OpenCV.  ``python
+    -m eop_tpu_torch.tools.profile_train`` (24p-s, bf16, B=32, 640 px) in a
+    child beside the bbox dataset's writers: its first-step and step lines
+    and both tables printed, the traced steps' launches 8/8/7/7 a step,
+    each hand kernel's calls in the trace equal to the counters that count
+    it.  The cli phase's ``train_24p`` runs ``CLI_EPOCHS`` one-step epochs
+    under ``--profile-port``, and ``python -m
+    eop_tpu_torch.tools.profile_train --attach`` asks it for a capture of
+    ``ATTACH_MS`` once it listens: the tables printed with the hand
+    kernels, the trainer's launch counters over the recorded steps
+    8/8/7/7 a step and equal to the kernels' calls in the trace, the
+    trainer's exit 0 and AP line.  YOLOX-L's training child logs ``Model
+    summary: `` once, equal to ``get_model_info`` of YOLOX-L on the CPU at
+    640 px;
 17. checks that no loader worker died in any of the file phases, and that
     no path launched the CUDA-core ``direct`` forward or the ``cuda_cores``
     weight or data gradient.
+
+``python3 chip_smoke.py --demo`` runs only 16h's demo, ``--profile`` only
+its ``tools.profile_train`` and the cli phase with the attach (on phase
+10's files); ``--demo-child OUT -- ARGS`` and ``--profile-child OUT --
+ARGS`` are their children.
 
 ``python3 chip_smoke.py --show-24p-child OUT -- ARGS`` is 16d's child:
 ``tools.show_24p``'s ``main(ARGS)`` without cv2, its rows, times and
@@ -2353,22 +2383,31 @@ def drop_loaders(img_dir: str, lab_dir: str, drops: int = 6,
 
 
 def run_cli(smi: str, img_dir: str, lab_dir: str):
-    """The two command lines as users run them: train 24p-s for one epoch
-    (one iteration) in bf16 (``compute_dtype bfloat16``) with an evaluation,
+    """The two command lines as users run them: train 24p-s for
+    ``CLI_EPOCHS`` epochs (one iteration each) in bf16 (``compute_dtype
+    bfloat16``) with an evaluation at the end, under ``--profile-port``,
+    while ``python -m eop_tpu_torch.tools.profile_train --attach`` asks it
+    for a capture of ``ATTACH_MS`` (its tables with the hand kernels, whose
+    calls equal the trainer's launch counters over the recorded steps);
     then evaluate its checkpoint (fp32 weights) in fp32."""
     import re
+
+    from eop_tpu_torch.utils.profiler import op_table
 
     out = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     ap_line = re.compile(r"AP50:95\s*=\s*([0-9.]+)\s+AP50\s*=\s*([0-9.]+)")
     report = {"phase": "cli", "card": smi}
+    port = free_port()
     try:
         for name, cmd in (
                 ("train_24p", [
                     sys.executable, "-m", "eop_tpu_torch.tools.train_24p",
                     "-f", "load_train/yolox_24p_train.py", "-b",
                     str(TRAIN_BATCH), "--data-dir", img_dir, "--label-dir",
-                    lab_dir, "--max-epoch", "1", "--eval", "eval_interval",
-                    "1", "compute_dtype", "bfloat16", "output_dir", out]),
+                    lab_dir, "--max-epoch", str(CLI_EPOCHS), "--eval",
+                    "--profile-port", str(port), "eval_interval",
+                    str(CLI_EPOCHS), "compute_dtype", "bfloat16",
+                    "output_dir", out]),
                 ("eval", None)):
             if cmd is None:
                 ckpt_dir = os.path.join(out, "yolox_24p")
@@ -2381,23 +2420,89 @@ def run_cli(smi: str, img_dir: str, lab_dir: str):
                        str(EVAL_BATCH), "--data-dir", img_dir, "--label-dir",
                        lab_dir]
             t0 = time.perf_counter()
-            r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                               timeout=600)
+            # files, not pipes: nothing reads them while the attach runs
+            logs = [os.path.join(out, f"{name}.{k}") for k in ("out", "err")]
+            with open(logs[0], "w") as fo, open(logs[1], "w") as fe:
+                proc = subprocess.Popen(cmd, cwd=ROOT, stdout=fo, stderr=fe)
+            try:
+                if name == "train_24p":
+                    report["attach"] = cli_attach(proc, port, out)
+                proc.wait(timeout=600)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=60)
+            stdout, stderr = (open(f).read() for f in logs)
             report[f"{name}_wall_s"] = time.perf_counter() - t0
-            report[f"{name}_rc"] = r.returncode
+            report[f"{name}_rc"] = proc.returncode
             # loader workers that ended abnormally when the loader stopped
-            report[f"{name}_worker_aborts"] = r.stderr.count(
+            report[f"{name}_worker_aborts"] = stderr.count(
                 "killed by signal")
-            hits = ap_line.findall(r.stdout + r.stderr)
-            if r.returncode != 0 or not hits:
+            hits = ap_line.findall(stdout + stderr)
+            if proc.returncode != 0 or not hits:
                 raise AssertionError(
-                    f"{name}: rc {r.returncode}, no AP line\n"
-                    f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+                    f"{name}: rc {proc.returncode}, no AP line\n"
+                    f"{stdout[-3000:]}\n{stderr[-3000:]}")
             report[f"{name}_ap50_95"], report[f"{name}_ap50"] = (
                 float(v) for v in hits[-1])
+        attach = report["attach"]
+        attach["profiled_vs_counted"] = profiled_vs_counted(
+            op_table(attach["logdir"], top=10 ** 6), attach["launches"])
+        versus, steps = attach["profiled_vs_counted"], attach["steps"]
+        if not (attach["rc"] == 0 and attach["tables_printed"]
+                and steps == 1 and attach["hand_kernels_in_table"]
+                and {k: attach["launches"][k] for k in STEP_LAUNCHES}
+                == STEP_LAUNCHES
+                and versus and all(a == b for a, b in versus.values())):
+            raise AssertionError(f"cli: the attach {attach}")
     finally:
         shutil.rmtree(out, ignore_errors=True)
     return report
+
+
+def cli_attach(trainer, port: int, out: str) -> dict:
+    """``python -m eop_tpu_torch.tools.profile_train --attach
+    127.0.0.1:PORT --duration-ms ATTACH_MS`` against the training command
+    line ``trainer`` once it listens on ``port``: its exit code, printed
+    tables, recorded steps, window and the trainer's launch counters over
+    them (from the answer, which it also writes under ``out``)."""
+    import re
+    import socket
+
+    deadline = time.perf_counter() + 300
+    while True:
+        try:
+            socket.create_connection(("127.0.0.1", port), 1).close()
+            break
+        except OSError:
+            if trainer.poll() is not None or time.perf_counter() > deadline:
+                raise AssertionError(f"train_24p never listened on {port}: "
+                                     f"rc {trainer.poll()}")
+            time.sleep(0.2)
+    logdir = os.path.join(out, "live_trace")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "eop_tpu_torch.tools.profile_train",
+         "--attach", f"127.0.0.1:{port}", "--duration-ms", str(ATTACH_MS),
+         "--top", "40", "--logdir", logdir],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    head = re.search(r"live trace \((\d+) ms window, (\d+) steps in "
+                     r"([0-9.]+) ms\)", r.stdout)
+    launches = re.search(r"launches over the recorded steps: (.*)$",
+                         r.stdout, re.M)
+    table = r.stdout.split("--- device time top ops ---")[-1]
+    return {"rc": r.returncode, "wall_s": time.perf_counter() - t0,
+            "logdir": logdir,
+            "steps": int(head.group(2)) if head else 0,
+            "window_ms": float(head.group(3)) if head else float("inf"),
+            "tables_printed": all(f"--- device time {t} ---" in r.stdout
+                                  for t in ("by category", "top ops")),
+            "hand_kernels_in_table": [k for k in PROFILED_KERNELS
+                                      if f"ms  {k}" in table],
+            "launches": ({k: int(n) for k, n in (
+                kv.rsplit(" ", 1) for kv in launches.group(1).split(", "))}
+                if launches else {}),
+            "stderr_tail": r.stderr[-1500:] if r.returncode else ""}
 
 # ---------------------------------------------------------------------------
 # 16f: data parallelism on the one card
@@ -3557,7 +3662,10 @@ def train_bbox(smi: str, data_dir: str, out_dir: str):
     }
     checkpoints = sorted(os.listdir(os.path.join(out_dir, "yolox_l")))
     report["checkpoints"] = checkpoints
+    # the trainer's summary once, as the CPU counts YOLOX-L at 640 px
+    report.update(model_summary_check(log))
     if (n != 2 * iters or bad or not all(np.isfinite(losses))
+            or not report["model_summary_ok"]
             or any(v != 0 for v in l1[:iters])
             or not all(v > 0 for v in l1[iters:])
             or len(aps) != 2 or not report["switch_logged"]
@@ -4763,6 +4871,401 @@ INT8_GEO_REL, INT8_SCORE_ATOL = 0.15, 0.05
 PTQ_LINE = r"int8 PTQ: (\d+) convs quantized \(min_channels=(\d+)\)"
 
 
+# 21: the user's tools (tools.demo, tools.profile_train, --profile-port)
+DEMO_JPEGS, DEMO_PNGS = 3, 1
+DEMO_HW = (720, 1280)
+DEMO_CONF = "1e-5"
+# a forward's launches by variant on each demo run: 24p-s's 8 early convs,
+# 6 under int8 at the default gate (DEPLOY_FORWARD_INT8), YOLOX-L's 12
+DEMO_FORWARD = {
+    "demo_24p": {f"forward:{k}": v for k, v in SHOW_FORWARD.items()},
+    "demo_l": {k: v for k, v in forward_variants(YOLOX_L_PATH).items() if v},
+    "demo_int8": {f"forward:{k}": v for k, v in DEPLOY_FORWARD_INT8.items()},
+}
+DEMO_LINE = r"(\d+) images, (\d+) detections, ([0-9.]+) ms/img"
+DEMO_PTQ_LINE = r"int8 PTQ: (\d+) convs on the int8 path"
+# the coordinates and scores of a demo's rows against get_infer_fn's
+DEMO_XY_TOL, DEMO_SCORE_TOL = 0.64, 1e-3
+# tools.profile_train: steps a timed pass, steps traced
+PROFILE_STEPS, PROFILE_TRACED = 5, 2
+# the cli phase's train_24p under --profile-port: epochs of one step (a
+# capture asked before the end of the fourth is armed at a step's end, the
+# next step is its warm-up, the one after recorded) and the attach's
+# window, which one step outlasts
+CLI_EPOCHS, ATTACH_MS = 6, 1
+
+
+def demo_child(out_path: str, argv) -> int:
+    """``python3 chip_smoke.py --demo-child OUT -- ARGS``: run
+    ``eop_tpu_torch.tools.demo``'s ``main(ARGS)`` in this process under
+    ``logger.catch``, where cv2 does not import (the card's machine may
+    have it), with the launch counts from 0; record each
+    image's rows, written file, ``detect`` ms and launches, and write them
+    with the counts to OUT as JSON."""
+    sys.modules["cv2"] = None
+    from eop_tpu_torch.tools import demo
+    from eop_tpu_torch.utils.logger import catch
+
+    _reset_counts()
+    per_call = []
+    detect = demo.Demo.detect
+
+    def counted(self, infer, frame):
+        before = _launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = detect(self, infer, frame)
+        torch.cuda.synchronize()
+        per_call.append({"detect_ms": 1e3 * (time.perf_counter() - t0),
+                         "launches": {k: n - before[k] for k, n in
+                                      _launch_counts().items()
+                                      if n - before[k]}})
+        return out
+
+    demo.Demo.detect = counted
+    t0 = time.perf_counter()
+    d = catch(demo.main)(list(argv))  # as its __main__ runs it
+    report = {"wall_s": time.perf_counter() - t0,
+              "images": [{"file": r["file"], "path": r["path"],
+                          "ratio": r["ratio"], "rows": r["rows"].tolist(),
+                          **c} for r, c in zip(d.results, per_call)],
+              "counts": _launch_counts()}
+    with open(out_path, "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def demo_start(root: str) -> dict:
+    """The demo's inputs (3 seeded 720x1280 baseline JPEGs and a PNG of
+    ``utils/synth.py``, the seeded 24p-s in the reference's ``{"model":
+    state_dict}`` form), then its command lines at once, each in a
+    :func:`demo_child`: 24p-s from that file, YOLOX-L with its seeded
+    weights, 24p-s with ``--int8``; and ``-p clip.mp4``, which must fail
+    naming OpenCV."""
+    from eop_tpu_torch.utils.synth import (synthetic_24p_image, write_jpeg,
+                                           write_png)
+
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    rng = np.random.RandomState(21)
+    for i in range(DEMO_JPEGS + DEMO_PNGS):
+        img = synthetic_24p_image(rng, DEMO_HW)[0]
+        if i < DEMO_JPEGS:
+            write_jpeg(os.path.join(img_dir, f"frame{i}.jpg"), img)
+        else:
+            write_png(os.path.join(img_dir, f"frame{i}.png"), img)
+    pth = os.path.join(root, "yolox_24p_s_ref.pth")
+    torch.save({"model": serving_exp().get_model("cpu").state_dict()}, pth)
+    clip = os.path.join(root, "clip.mp4")
+    with open(clip, "wb") as f:
+        f.write(b"\0" * 64)
+    runs = {"demo_24p": ["-n", "yolox_24p_s", "-w", pth],
+            "demo_l": ["-n", "yolox-l"],
+            "demo_int8": ["-n", "yolox_24p_s", "-w", pth, "--int8"]}
+    procs, logs = {}, {}
+    for name, args in runs.items():
+        logs[name] = os.path.join(root, f"{name}.log")
+        out = open(logs[name], "w")
+        procs[name] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--demo-child", os.path.join(root, f"{name}.json"), "--", *args,
+             "-p", img_dir, "--conf", DEMO_CONF, "--save-dir",
+             os.path.join(root, name)],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+        out.close()
+    logs["video"] = os.path.join(root, "video.log")
+    with open(logs["video"], "w") as out:
+        procs["video"] = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--demo-child", os.path.join(root, "video.json"), "--", "-n",
+             "yolox_24p_s", "-p", clip, "--save-dir",
+             os.path.join(root, "video")],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    return {"procs": procs, "logs": logs, "root": root, "img_dir": img_dir,
+            "pth": pth, "runs": runs, "t0": time.perf_counter()}
+
+
+def demo_phase(smi: str, started: dict):
+    """The demo's command lines (:func:`demo_start`) checked: every
+    written file decodes at its input's size; each image's rows against
+    ``get_infer_fn`` (``get_quant_infer_fn`` calibrated on the same 4
+    images under ``--int8``) in this process on the same preprocessed
+    image and weights: equal counts, coordinates within the serve phase's
+    0.64 px, scores within 1e-3; each image's launches by variant those of
+    one forward (:data:`DEMO_FORWARD`) and nothing else; ``--int8``'s conv
+    count that of ``ops/quant.py`` for 24p-s; ``-p clip.mp4`` exiting
+    non-zero, naming OpenCV.  Returns the report and each run's launch
+    counts."""
+    import re
+
+    from eop_tpu_torch.data.augment import preproc
+    from eop_tpu_torch.data.image_io import imread
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.ops import quant
+    from eop_tpu_torch.tools.eval import eval_weights
+
+    t_phase = time.perf_counter()
+    procs, logs = started["procs"], started["logs"]
+    texts = {}
+    for name in started["runs"]:
+        texts[name] = _child_output(procs[name], logs[name], name)
+    procs["video"].wait(timeout=600)
+    with open(logs["video"]) as f:
+        video_log = f.read()
+    children_s = time.perf_counter() - started["t0"]
+    files = sorted(os.listdir(started["img_dir"]))
+    raws = {f: imread(os.path.join(started["img_dir"], f)) for f in files}
+    report = {"phase": "demo", "card": smi, "images": files,
+              "height": DEMO_HW[0], "width": DEMO_HW[1], "conf": DEMO_CONF,
+              "children_s": children_s}
+    counts, ok = {}, True
+    for name, args in started["runs"].items():
+        with open(os.path.join(started["root"], f"{name}.json")) as f:
+            child = json.load(f)
+        exp = get_exp(exp_name=args[1])
+        exp.test_conf = float(DEMO_CONF)
+        model = exp.get_model("cuda")
+        if "-w" in args:
+            model.load_state_dict(eval_weights(started["pth"]), strict=True)
+        batches = {f: preproc(raws[f], exp.test_size)[0][None]
+                   for f in files}
+        n_quant = None
+        if "--int8" in args:
+            infer, scales = exp.get_quant_infer_fn(
+                model, [batches[f] for f in files[:4]])
+            n_quant = len(quant.quantized_keys(model, scales, 64))
+        else:
+            infer = exp.get_infer_fn(model, "cuda")
+        width = 29 if "24p" in args[1] else 7
+        per_image = []
+        for img in child["images"]:
+            dets = infer(batches[img["file"]])
+            here = dets.rows[0][dets.valid[0]].cpu().numpy()
+            got = np.asarray(img["rows"], np.float32).reshape(-1, width)
+            same = got.shape == here.shape
+            xy = slice(0, 26) if width == 29 else slice(0, 4)
+            written = imread(img["path"])
+            per_image.append({
+                "file": img["file"], "detections": len(got),
+                "detections_in_process": len(here),
+                "rows_bit_equal": bool(same and np.array_equal(got, here)),
+                "xy_max_abs_diff": (float(np.abs(got[:, xy] - here[:, xy])
+                                          .max()) if same and len(got)
+                                    else None),
+                "score_max_abs_diff": (float(np.abs(
+                    got[:, xy.stop:xy.stop + 2]
+                    - here[:, xy.stop:xy.stop + 2]).max())
+                    if same and len(got) else None),
+                "classes_equal": bool(same and np.array_equal(
+                    got[:, -1], here[:, -1])),
+                "written_shape": list(written.shape),
+                "input_shape": list(raws[img["file"]].shape),
+                "detect_ms": img["detect_ms"], "launches": img["launches"],
+                "variants": {k: n for k, n in img["launches"].items()
+                             if ":" in k},
+                "backward_launches": sum(img["launches"].get(k, 0) for k in
+                                         ("wgrad", "dgrad", "pack"))})
+        line = re.search(DEMO_LINE, texts[name])
+        ptq = re.search(DEMO_PTQ_LINE, texts[name])
+        run = {"command": " ".join(args), "child_wall_s": child["wall_s"],
+               "ms_per_image_printed": float(line.group(3)) if line else None,
+               # per image after the first, the forward and the NMS (the
+               # first builds cuDNN's plans)
+               "detect_ms_median": float(np.median(
+                   [p["detect_ms"] for p in per_image[1:]])),
+               "launches_by_variant": _variants(child["counts"]),
+               "per_image": per_image}
+        if n_quant is not None:
+            run.update(convs_quantized=n_quant,
+                       convs_printed=int(ptq.group(1)) if ptq else None)
+        want = DEMO_FORWARD[name]
+        run_ok = (
+            line is not None and int(line.group(1)) == len(files)
+            and len(per_image) == len(files)
+            and all(p["detections"] == p["detections_in_process"] > 0
+                    and p["xy_max_abs_diff"] <= DEMO_XY_TOL
+                    and p["score_max_abs_diff"] <= DEMO_SCORE_TOL
+                    and p["classes_equal"]
+                    and p["written_shape"] == p["input_shape"]
+                    and p["variants"] == want
+                    and p["backward_launches"] == 0 for p in per_image)
+            and (n_quant is None or run["convs_printed"] == n_quant > 0))
+        run["ok"] = run_ok
+        ok = ok and run_ok
+        report[name] = run
+        counts[name] = child["counts"]
+        del model, infer
+    report["video"] = {"rc": procs["video"].returncode,
+                       "names_opencv": "needs OpenCV" in video_log,
+                       "logged_by_catch": "uncaught exception in main"
+                       in video_log, "tail": video_log[-400:]}
+    ok = ok and report["video"]["rc"] != 0 and report["video"]["names_opencv"]
+    report["phase_s"] = time.perf_counter() - t_phase
+    if not ok:
+        raise AssertionError(f"demo: {report}")
+    return report, counts
+
+
+def profile_child(out_path: str, argv) -> int:
+    """``python3 chip_smoke.py --profile-child OUT -- ARGS``: run
+    ``eop_tpu_torch.tools.profile_train``'s ``main(ARGS)`` in this process
+    with the launch counts from 0, and write what it returns with the
+    trace's whole table by kernel name to OUT as JSON."""
+    from eop_tpu_torch.tools import profile_train
+    from eop_tpu_torch.utils.profiler import op_table
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = profile_train.main(list(argv))
+    out.update(wall_s=time.perf_counter() - t0, counts=_launch_counts(),
+               kernels=op_table(out["logdir"], top=10 ** 6))
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def profile_start(root: str) -> dict:
+    """``tools.profile_train`` as a user runs it (24p-s in bf16, B=32, 640
+    px, one seeded batch) in a :func:`profile_child`."""
+    log = os.path.join(root, "profile.log")
+    out = open(log, "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--profile-child", os.path.join(root, "profile.json"), "--",
+         "--batch", str(TRAIN_BATCH), "--size", "640", "--steps",
+         str(PROFILE_STEPS), "--trace-steps", str(PROFILE_TRACED), "--top",
+         "12", "--logdir", os.path.join(root, "trace")],
+        cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    out.close()
+    return {"procs": {"profile": proc}, "log": log, "root": root,
+            "t0": time.perf_counter()}
+
+
+def profiled_vs_counted(kernels, launches: dict) -> dict:
+    """Each hand kernel's calls in a profile (rows ``(name, ms, calls)``)
+    beside the launch counters that count it (:data:`PROFILED_KERNELS`):
+    ``{kernel: [calls, counted]}`` for the kernels either saw."""
+    calls = {name: n for name, _, n in kernels}
+    out = {}
+    for kernel, keys in PROFILED_KERNELS.items():
+        counted = sum(launches.get(k, 0) for k in keys)
+        if counted or calls.get(kernel):
+            out[kernel] = [calls.get(kernel, 0), counted]
+    return out
+
+
+def profile_phase(smi: str, started: dict):
+    """:func:`profile_start`'s child checked: the first-step line, the
+    step line and both tables printed; the traced steps' launches those of
+    ``PROFILE_TRACED`` training steps (8/8/7/7 each); each hand kernel's
+    calls in the trace equal to the counters that count it.  Returns the
+    report and the traced steps' launch counts."""
+    import re
+
+    t_phase = time.perf_counter()
+    text = _child_output(started["procs"]["profile"], started["log"],
+                         "profile_train")
+    with open(os.path.join(started["root"], "profile.json")) as f:
+        child = json.load(f)
+    launches = child["launches"]
+    versus = profiled_vs_counted(child["kernels"], launches)
+    busy = sum(ms for _, ms, _ in child["kernels"])
+    own = sum(ms for name, ms, _ in child["kernels"]
+              if name in PROFILED_KERNELS)
+    report = {
+        "phase": "profile_train", "card": smi, "model": "yolox_24p_s",
+        "compute_dtype": "bfloat16", "batch": TRAIN_BATCH, "size": 640,
+        "child_s": time.perf_counter() - started["t0"],
+        "first_step_s": child["first_step_s"], "step_ms": child["step_ms"],
+        "images_per_s": child["images_per_s"],
+        "traced_steps": PROFILE_TRACED, "launches": launches,
+        "profiled_vs_counted": versus,
+        "by_category": child["tables"]["by category"],
+        "top_ops": child["tables"]["top ops"][:8],
+        "traced_device_ms": busy, "hand_kernels_ms": own,
+        "printed": {"first_step": bool(re.search(
+            r"^compile\+first step: [0-9.]+s$", text, re.M)),
+            "step": bool(re.search(r"^train step: [0-9.]+ ms", text, re.M)),
+            "tables": all(f"--- device time {t} (sum over "
+                          f"{PROFILE_TRACED} steps) ---" in text
+                          for t in ("by category", "top ops"))}}
+    want = {k: PROFILE_TRACED * v for k, v in STEP_LAUNCHES.items()}
+    ok = (all(report["printed"].values())
+          and {k: launches[k] for k in want} == want
+          and versus and all(a == b for a, b in versus.values())
+          and versus.get("conv_rows_kernel", [0])[0] == PROFILE_TRACED)
+    report["phase_s"] = time.perf_counter() - t_phase
+    if not ok:
+        raise AssertionError(f"profile_train: {report}\n{text[-3000:]}")
+    counts = {k: launches.get(k, 0) for k in _launch_counts()}
+    return report, counts
+
+
+def model_summary_check(log: str, name: str = "yolox-l") -> dict:
+    """The ``Model summary: `` lines of a bbox training run's log against
+    ``get_model_info`` of the exp's model on the CPU at 640 px."""
+    import re
+
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.utils.model_utils import get_model_info
+
+    exp = get_exp(exp_name=name)
+    cpu = get_model_info(exp.get_model("cpu"), exp.test_size)
+    lines = re.findall(r"Model summary: (.*)", log)
+    return {"model_summary": lines, "model_summary_cpu": cpu,
+            "model_summary_ok": lines == [cpu]}
+
+
+def demo_only() -> int:
+    """``python3 chip_smoke.py --demo``: the demo's command lines and
+    checks alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch import _build
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build_all()
+    root = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    started = None
+    try:
+        started = demo_start(root)
+        emit(demo_phase(smi, started)[0])
+    finally:
+        stop_children(started)
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
+def profile_only() -> int:
+    """``python3 chip_smoke.py --profile``: ``tools.profile_train`` alone,
+    then the cli phase on phase 10's files with the attach."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    from eop_tpu_torch import _build
+    from eop_tpu_torch.utils.device import set_fp32_precision
+
+    set_fp32_precision(torch.device("cuda"))
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    _build.build_all()
+    root = tempfile.mkdtemp(prefix="chip_smoke_profile_")
+    started = None
+    try:
+        started = profile_start(root)
+        emit(profile_phase(smi, started)[0])
+        img_dir, lab_dir, _ = write_dataset(os.path.join(root, "data"))
+        emit(run_cli(smi, img_dir, lab_dir))
+    finally:
+        stop_children(started)
+        shutil.rmtree(root, ignore_errors=True)
+    return 0
+
+
 def _child(cmd: list, log: str):
     """``python -m CMD`` in the repository, its output in the file ``log``."""
     out = open(log, "w")
@@ -5956,6 +6459,7 @@ def main() -> int:
     data_root = tempfile.mkdtemp(prefix="chip_smoke_data_")
     sys.unraisablehook = count_unraisable
     deploy_started = dp_cli = dp_ranks = mp_started = None
+    demo_started = profile_started = None
     try:
         img_dir, lab_dir, data_report = write_dataset(data_root)
         emit({**data_report, "card": smi})
@@ -5971,14 +6475,24 @@ def main() -> int:
         # 16f's world-1 command lines run beside the cli phase's too
         dp_cli = dp_cli_start(img_dir, lab_dir,
                               tempfile.mkdtemp(dir=data_root))
+        # the demo's command lines too
+        demo_started = demo_start(tempfile.mkdtemp(dir=data_root))
         cli_report = run_cli(smi, img_dir, lab_dir)
         emit(cli_report)
+        demo_report, demo_launches = demo_phase(smi, demo_started)
+        emit(demo_report)
         # 16f: the world-1 command lines' evaluations
         dp_cli_evals(dp_cli)
         drops = drop_loaders(img_dir, lab_dir, drops=1)
         # the bbox family: YOLOX-L from COCO files
         bbox_dir = os.path.join(data_root, "coco")
+        # tools.profile_train beside the bbox dataset's writers (the host's
+        # cores are theirs, the card the profiler's)
+        profile_started = profile_start(tempfile.mkdtemp(dir=data_root))
         emit({**write_bbox_dataset(bbox_dir), "card": smi})
+        profile_report, profile_launches = profile_phase(smi,
+                                                         profile_started)
+        emit(profile_report)
         bbox_out = os.path.join(data_root, "bbox_out")
         # 16f's two ranks run beside YOLOX-L's training child; then the
         # one-process reference and the comparison
@@ -6047,6 +6561,8 @@ def main() -> int:
         stop_children(dp_cli)
         stop_children(dp_ranks)
         stop_children(mp_started)
+        stop_children(demo_started)
+        stop_children(profile_started)
         shutil.rmtree(data_root, ignore_errors=True)
     died = [u for u in unraisable if "killed by signal" in u]
     emit({"phase": "loader_shutdown", "card": smi, **drops,
@@ -6101,7 +6617,10 @@ def main() -> int:
                "show_24p": show_launches["forward"],
                # the deployment phase: 24p-s's fp32 and int8 artifacts and
                # live functions in this process, YOLOX-L's artifact
-               "serve_artifact": deploy_launches["forward"]}
+               "serve_artifact": deploy_launches["forward"],
+               # tools.demo's three runs (24p-s, YOLOX-L, 24p-s --int8), a
+               # forward an image
+               **{k: c["forward"] for k, c in demo_launches.items()}}
     train_paths = {"train": repeat_launches, "train_files": files_launches,
                    "train_bf16": train16_launches,
                    "train_remat": remat_launches,
@@ -6111,7 +6630,13 @@ def main() -> int:
                    # 16f's two ranks (fp32 and bf16 steps, both ranks)
                    "train_dp": dp_launches,
                    # 16g's (spatial and tensor, fp32 and bf16, both ranks)
-                   "train_mp": mp_launches}
+                   "train_mp": mp_launches,
+                   # tools.profile_train's traced steps, and the steps the
+                   # attach recorded in the cli phase's train_24p (its
+                   # launch counters, from the answer)
+                   "profile_train": profile_launches,
+                   "cli_attach": {k: cli_report["attach"]["launches"].get(
+                       k, 0) for k in profile_launches}}
     train_launches = {k: sum(c[k] for c in train_paths.values())
                       for k in STEP_LAUNCHES}
     # launches by variant on every path: none launches the CUDA-core direct
@@ -6122,6 +6647,7 @@ def main() -> int:
         "serve_bf16": _variants(serve16_launches),
         "eval": _variants(eval_launches),
         "show_24p": _variants(show_launches),
+        **{k: _variants(c) for k, c in demo_launches.items()},
         "serve_artifact": _variants(deploy_launches),
         "serve_mp": mp_serve,
         **{k: v for k, (_, v) in voc_evals.items()},
@@ -6313,12 +6839,17 @@ def main() -> int:
         "source": "eop_tpu_torch/csrc/phase_conv.cu",
         "replaces": "eop_tpu/ops/pallas/conv_small_c.py:181",
         "launches": sum(v for k, v in by_path.items()
-                        if k.startswith(("serve", "eval", "show"))),
+                        if k.startswith(("serve", "eval", "show", "demo"))),
         "launches_train": train_launches["forward"],
         "launches_by_path": by_path,
         # wgmma_taps and wgmma_rows (phase_conv.cu), direct
         # (phase_conv_direct.cu), on every path
         "launches_by_variant": by_variant("forward"),
+        # each hand kernel's calls in tools.profile_train's trace and in
+        # the attach's, beside the launch counters that count it
+        "profiled_vs_counted": {
+            "profile_train": profile_report["profiled_vs_counted"],
+            "cli_attach": cli_report["attach"]["profiled_vs_counted"]},
         "max_abs_err": max(err32, l_err32, z_err32),
         "max_abs_err_bf16": max(err16, l_err16, z_err16),
         # per forward at B=8, 640 px: the 8 main-path convs summed; "ms" is
@@ -6437,5 +6968,13 @@ if __name__ == "__main__":
         sys.exit(kernel_accuracy(sys.argv[2:]))
     if sys.argv[1:] == ["--backbones"]:
         sys.exit(backbones_only())
+    if sys.argv[1:2] == ["--demo-child"]:
+        sys.exit(demo_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:2] == ["--profile-child"]:
+        sys.exit(profile_child(sys.argv[2], sys.argv[4:]))
+    if sys.argv[1:] == ["--demo"]:
+        sys.exit(demo_only())
+    if sys.argv[1:] == ["--profile"]:
+        sys.exit(profile_only())
     sys.exit(probe_worker_exit() if sys.argv[1:] == ["--probe-worker-exit"]
              else main())

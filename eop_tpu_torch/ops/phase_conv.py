@@ -55,6 +55,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import _get_current_dispatch_mode
+from torch.utils.flop_counter import conv_flop_count, register_flop_formula
 
 
 def _phase_geometry(k: int, padding: int) -> Tuple[int, int, int]:
@@ -946,6 +948,29 @@ def _phase_conv_fake(x, w, stride, padding, scale, shift, act, force_direct):
     return x.new_empty((x.shape[0], ho, wo, w.shape[3]))
 
 
+@register_flop_formula(torch.ops.eop_tpu_torch.phase_conv)
+def _phase_conv_flops(x_shape, w_shape, *args, out_shape=None,
+                      **kwargs) -> int:
+    """``FlopCounterMode``'s count of the operator: that of the conv it
+    computes, as ``aten.convolution`` is counted (2 k*k*C*Co*Ho*Wo a
+    batch element), whichever kernel or plain version runs it."""
+    b, _, _, c = x_shape
+    k, _, _, co = w_shape
+    return conv_flop_count([b, c, *x_shape[1:3]], [co, c, k, k],
+                           [b, co, *out_shape[1:3]])
+
+
+def _conv_meta(x: torch.Tensor, w: torch.Tensor, stride: int,
+               padding: int) -> torch.Tensor:
+    """On meta tensors, the conv that ``phase_conv`` computes, as
+    ``F.conv2d``: the output's shape, and one conv for a counter of
+    ``F.conv2d``'s calls (``utils/model_utils.py::count_macs``)."""
+    _check_args(x, w, stride, padding)
+    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None, stride,
+                 padding)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None,
@@ -960,7 +985,10 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     (:class:`PhaseConvFunction`); with it, a CUDA call under autograd raises.
     Without autograd, under ``torch.export``, the call is the operator
     ``eop_tpu_torch::phase_conv`` (:func:`phase_conv_op`), one node of the
-    graph; eagerly it runs that operator's implementation directly.
+    graph; eagerly it runs that operator's implementation directly, but
+    without autograd under a dispatch mode such as ``FlopCounterMode`` it
+    calls the operator, which counts as its conv there; on meta tensors it
+    computes that conv with ``F.conv2d`` (:func:`_conv_meta`).
 
     ``_direct`` sends a CUDA call without autograd to the CUDA-core
     ``direct`` kernel whatever the shape, for comparisons.
@@ -974,9 +1002,16 @@ def phase_conv(x: torch.Tensor, w: torch.Tensor, stride: int, padding: int,
     first three by variant; ``.last_variant``, ``.last_wgrad_variant`` and
     ``.last_dgrad_variant`` name the kernels of the last launches.
     """
-    cpu = x.device.type == "cpu" and w.device.type == "cpu"
     wants_grad = torch.is_grad_enabled() and (x.requires_grad
                                               or w.requires_grad)
+    if not wants_grad and _get_current_dispatch_mode() is not None:
+        # e.g. FlopCounterMode, which counts the operator as its conv
+        # (_phase_conv_flops), not the plain version's phase conv
+        return phase_conv_op(x, w, stride, padding, scale, shift, act,
+                             _direct)
+    if x.device.type == "meta":
+        return _conv_meta(x, w, stride, padding)
+    cpu = x.device.type == "cpu" and w.device.type == "cpu"
     no_epilogue = scale is None and shift is None and act is None
     _check_args(x, w, stride, padding)
     if not cpu:

@@ -149,4 +149,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from ..utils.logger import catch
+
+    catch(main)()

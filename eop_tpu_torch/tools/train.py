@@ -30,9 +30,9 @@ Several processes, one per GPU (``-b`` is the global batch):
 the qualifying convs' output channels over T ranks, as ``eop_tpu``'s mesh
 does (the world splits into data x S x T; ``-b`` splits over the data
 ranks); a world that does not split raises ``ValueError``.
-``--profile-port`` is accepted and raises ``NotImplementedError``
-(ROADMAP.md queue 1 item 8); ``--no-prewarm`` is accepted and does
-nothing.
+``--profile-port PORT`` has rank 0 answer live profiling requests on PORT
+(``tools.profile_train --attach HOST:PORT``; ``utils/profiler.py``);
+``--no-prewarm`` is accepted and does nothing.
 """
 
 from __future__ import annotations
@@ -70,9 +70,8 @@ def add_parallel_args(parser) -> None:
     command lines: ``--fsdp``, ``--spatial``, ``--tensor``,
     ``--multi-host`` with ``--coordinator``, ``--num-processes`` and
     ``--process-id``, and ``--platform`` work (:func:`launched`,
-    ``train/trainer.py::Parallel``); ``--profile-port`` raises
-    ``NotImplementedError`` when set
-    (``train/trainer.py::reject_unported``); ``--no-prewarm`` does
+    ``train/trainer.py::Parallel``), and so does ``--profile-port``
+    (``utils/profiler.py::ProfileServer``); ``--no-prewarm`` does
     nothing."""
     parser.add_argument("--device", choices=["cuda", "cpu"], default=None,
                         help="cuda (default; cuda:LOCAL_RANK under several "
@@ -94,7 +93,11 @@ def add_parallel_args(parser) -> None:
                              "the world must split into data x spatial x "
                              "tensor")
     parser.add_argument("--profile-port", type=int, default=None,
-                        help="not ported: raises (ROADMAP.md queue 1 item 8)")
+                        help="rank 0 answers live profiling requests on "
+                             "this port (GET /capture?duration_ms=N, or "
+                             "tools.profile_train --attach HOST:PORT): "
+                             "torch.profiler over the steps of the window, "
+                             "after one warm-up step")
     parser.add_argument("--fsdp", action="store_true",
                         help="shard the parameters, the momentum and the EMA "
                              "over the ranks (fully_shard): gathered for "
@@ -128,16 +131,13 @@ def launched(args):
     (``parallel.dist.init_distributed``: NCCL on the card, gloo on the CPU)
     and is destroyed at the end.  ``--coordinator``, ``--num-processes``
     and ``--process-id`` without ``--multi-host`` raise ``SystemExit``.
-    The options that are not ported raise first, before any data is
-    read; so do ``--spatial`` / ``--tensor`` that do not split the world
-    (in the trainer's ``Parallel.of``)."""
+    ``--spatial`` / ``--tensor`` that do not split the world raise
+    before any data is read (in the trainer's ``Parallel.of``)."""
     import torch.distributed as dist
 
     from ..parallel.dist import init_distributed, under_torchrun
-    from ..train.trainer import reject_unported
     from ..utils.device import resolve_device
 
-    reject_unported(args)
     if args.platform is not None:
         if args.platform not in PLATFORMS:
             raise ValueError(f"--platform {args.platform!r}: the port runs on "
@@ -192,4 +192,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from ..utils.logger import catch
+
+    catch(main)()

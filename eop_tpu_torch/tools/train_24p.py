@@ -14,9 +14,9 @@ Several processes, one per GPU, under torchrun or with ``--multi-host
 global batch; ``--fsdp`` shards the state), as ``tools/train.py`` says.
 ``--spatial S`` / ``--tensor T`` shard each image's rows / the qualifying
 convs' output channels over S / T ranks of each data row (the world splits
-into data x S x T); ``--profile-port`` is accepted and raises
-``NotImplementedError`` before any data is read (ROADMAP.md queue 1 item
-8); ``--no-prewarm`` is accepted and does nothing.
+into data x S x T); ``--profile-port PORT`` has rank 0 answer live
+profiling requests on PORT (``tools.profile_train --attach HOST:PORT``);
+``--no-prewarm`` is accepted and does nothing.
 """
 
 from __future__ import annotations
@@ -84,4 +84,6 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from ..utils.logger import catch
+
+    catch(main)()

@@ -42,8 +42,9 @@ are gathered before every rank scores them.  ``args.spatial`` /
 model ranks load the same images (the loader keyed by the data rank, its
 augmentations by one shared seed), a space rank trains on its height
 rows, a model rank on its slices of the qualifying convs' channels
-(``Parallel``).  ``--profile-port`` is not ported (ROADMAP.md queue 1
-item 8) and raises where asked for; the XLA bucket prewarm is not ported.
+(``Parallel``).  ``args.profile_port`` has rank 0 answer live profiling
+requests on that port (``utils/profiler.py::ProfileServer``, which the
+loop hands every step boundary); the XLA bucket prewarm is not ported.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ from ..utils.metric import (
     device_mem_usage,
     fetch_metrics,
 )
+from ..utils.model_utils import get_model_info
+from ..utils.profiler import profile_server
 from ..parallel.dist import (
     Mesh,
     get_rank,
@@ -87,23 +90,6 @@ from .checkpoint import (
     state_to_payload,
 )
 from .steps import create_train_state, eval_weights, make_train_step_bbox
-
-# the options of eop_tpu's train command lines that the port does not
-# have, their defaults, and the ROADMAP.md queue 1 item that holds each
-_UNPORTED_ARGS = {"profile_port": (None, 8)}
-
-
-def reject_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the first of ``args``' options
-    that the port does not have (the live profiler's ``profile_port``) set
-    off its default, and the ROADMAP.md item that holds it (queue 1 item
-    8)."""
-    for name, (default, item) in _UNPORTED_ARGS.items():
-        if getattr(args, name, default) != default:
-            raise NotImplementedError(
-                f"{name}={getattr(args, name)!r}: not ported "
-                f"(ROADMAP.md queue 1 item {item})")
-
 
 class Parallel(NamedTuple):
     """This process's place in the run: its device (``cuda:LOCAL_RANK``
@@ -188,11 +174,12 @@ class Trainer:
     unless ``"cpu"``), ``jax_state`` (a JAX ``TrainState`` as numpy trees,
     the form ``utils.weights.train_state_from_jax`` takes, to start from).
     ``hook``, where set before ``train()``, is handed to the step functions
-    (``make_train_step_bbox``).
+    (``make_train_step_bbox``); ``profile_port`` (rank 0 listens there for
+    live profiling requests, ``utils/profiler.py::profile_server``).
+    Rank 0 logs ``Model summary: `` (``get_model_info``) once, at start.
     """
 
     def __init__(self, exp, args):
-        reject_unported(args)
         self.exp = exp
         self.args = args
         self.par = Parallel.of(args)
@@ -203,6 +190,7 @@ class Trainer:
         self.start_epoch = 0
         self.best_ap = 0.0
         self.hook = None
+        self.profiler = None
         self.host_fetches = 0
         self.meter = MeterBuffer(window_size=exp.print_interval)
         self.drop_monitor = CandidateDropMonitor(logger)
@@ -228,14 +216,20 @@ class Trainer:
     # ------------------------------------------------------------------
 
     def train(self):
-        self.before_train()
+        self.profiler = profile_server(self.args, self.is_main,
+                                       self.file_name)
         try:
-            for self.epoch in range(self.start_epoch, self.max_epoch):
-                self.before_epoch()
-                self.train_one_epoch()
-                self.after_epoch()
+            self.before_train()
+            try:
+                for self.epoch in range(self.start_epoch, self.max_epoch):
+                    self.before_epoch()
+                    self.train_one_epoch()
+                    self.after_epoch()
+            finally:
+                self.after_train()
         finally:
-            self.after_train()
+            if self.profiler is not None:
+                self.profiler.close()
         return self.state
 
     def before_train(self):
@@ -263,8 +257,14 @@ class Trainer:
             rank=par.data_rank, world_size=par.data_world,
             seed=par.loader_seed())
         self.iters_per_epoch = len(self.train_loader)
-        model = par.model(exp.get_model(self.device, seed=exp.seed or 0)
-                          .train())
+        model = exp.get_model(self.device, seed=exp.seed or 0).train()
+        if self.is_main:
+            # counted on the meta device before the layout converts the
+            # model: every layout prints the one-process figure, and no
+            # kernel launches
+            logger.info("Model summary: "
+                        + get_model_info(model, exp.test_size))
+        model = par.model(model)
         self._dropouts = dropouts(model)
         for d in self._dropouts:
             d.shard = (par.data_rank, par.data_world)
@@ -353,6 +353,8 @@ class Trainer:
                 d.reseed(step_seed(self.exp.seed or 0,
                                    self.progress_in_iter))
             self.state, metrics = step_fn(self.state, imgs, labels)
+            if self.profiler is not None:
+                self.profiler.step()
             pending.append((self.progress_in_iter, metrics))
             self.meter.update(iter_time=time.perf_counter() - t0,
                               data_time=data_time)

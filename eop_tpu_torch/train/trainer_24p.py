@@ -39,6 +39,7 @@ from ..parallel.mesh import state_to_host
 from ..parallel.tensor import whole_tensors
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import CandidateDropMonitor, fetch_metrics
+from ..utils.profiler import profile_server
 from .checkpoint import (
     load_checkpoint,
     load_ckpt_partial,
@@ -46,7 +47,7 @@ from .checkpoint import (
     state_to_payload,
 )
 from .steps import create_train_state, eval_weights, make_train_step_24p
-from .trainer import Parallel, reject_unported
+from .trainer import Parallel
 
 
 class Trainer24P:
@@ -55,13 +56,13 @@ class Trainer24P:
     ``args`` attributes: ``batch_size`` (the global batch); optional
     ``lr``, ``accum``, ``resume``, ``ckpt``, ``start_epoch``, ``eval``,
     ``device`` (the card unless ``"cpu"``), ``fsdp``, ``spatial``,
-    ``tensor``.  ``hook``, where set
+    ``tensor``, ``profile_port`` (rank 0 listens there for live profiling
+    requests, ``utils/profiler.py::profile_server``).  ``hook``, where set
     before ``train()``, is handed to ``make_train_step_24p`` as its
     ``hook``.
     """
 
     def __init__(self, exp, args):
-        reject_unported(args)
         self.exp = exp
         self.args = args
         self.par = par = Parallel.of(args)
@@ -71,6 +72,7 @@ class Trainer24P:
         self.input_size = exp.input_size
         self.start_epoch = 0
         self.hook = None
+        self.profiler = None
         self._eval_model = None
         self.drop_monitor = CandidateDropMonitor(logger)
         self.file_name = os.path.join(exp.output_dir, exp.exp_name)
@@ -97,6 +99,15 @@ class Trainer24P:
                 pass
 
     def train(self):
+        self.profiler = profile_server(self.args, self.is_main,
+                                       self.file_name)
+        try:
+            return self._train()
+        finally:
+            if self.profiler is not None:
+                self.profiler.close()
+
+    def _train(self):
         exp, args, par = self.exp, self.args, self.par
         model = par.model(exp.get_model(self.device, seed=exp.seed or 0)
                           .train())
@@ -146,6 +157,8 @@ class Trainer24P:
                 labels = torch.as_tensor(labels).to(
                     self.device, torch.float32, non_blocking=True)
                 state, metrics = step_fn(state, par.rows(imgs), labels)
+                if self.profiler is not None:
+                    self.profiler.step()
                 if self.tblogger is not None:
                     tb_pending.append((global_step, metrics))
                 if (i + 1) % exp.print_interval == 0:

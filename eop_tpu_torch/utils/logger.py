@@ -1,5 +1,6 @@
 """Logging setup (counterpart of ``eop_tpu/utils/logger.py``): a stderr
-sink, and a file sink on rank 0."""
+sink, and a file sink on rank 0; ``catch``, which logs a main's uncaught
+exception before it propagates."""
 
 from __future__ import annotations
 
@@ -30,3 +31,23 @@ def setup_logger(save_dir=None, filename: str = "log.txt", rank: int = 0):
         fh.setFormatter(logging.Formatter(_FORMAT))
         logger.addHandler(fh)
     return logger
+
+
+def catch(fn):
+    """``fn`` wrapped so that an uncaught exception is logged with its
+    traceback through this logger, then raised again unchanged (so the
+    exit code and the message are Python's own); ``SystemExit`` and
+    ``KeyboardInterrupt`` pass untouched.  ``eop_tpu`` wraps its mains in
+    its ``catch`` (the reference decorates them with loguru's
+    ``logger.catch``)."""
+    import functools
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        try:
+            return fn(*args, **kwargs)
+        except Exception:
+            logger.exception("uncaught exception in %s", fn.__name__)
+            raise
+
+    return wrapper

@@ -7,6 +7,8 @@ import os
 import re
 import subprocess
 import sys
+import threading
+import time
 import types
 from pathlib import Path
 
@@ -18,7 +20,10 @@ from eop_tpu_torch.tools import eval as eval_cli
 from eop_tpu_torch.tools import train_24p as train_cli
 from eop_tpu_torch.train.checkpoint import load_checkpoint
 from eop_tpu_torch.train.trainer_24p import Trainer24P
+from eop_tpu_torch.utils import profiler
 from eop_tpu_torch.utils.synth import write_24p_dataset
+
+from _torch_dist_child import free_port
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,7 +83,7 @@ def test_train_then_eval_command_lines_on_the_cpu(files, tmp_path):
                      re.MULTILINE)
 
 
-def test_command_lines_need_a_card_or_the_cpu(files, monkeypatch):
+def test_command_lines_need_a_card_or_the_cpu(files, monkeypatch, tmp_path):
     img_dir, lab_dir = files
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     data = ["--data-dir", img_dir, "--label-dir", lab_dir, *TINY]
@@ -91,14 +96,36 @@ def test_command_lines_need_a_card_or_the_cpu(files, monkeypatch):
             main(["-f", "load_eval/yolox_24p_eval.py", "--device", "cpu"])
     # eop_tpu's parallel flags: --fsdp still needs the card (or --device
     # cpu), --multi-host a coordinator or torchrun's environment, and the
-    # live profiler is not ported (ROADMAP's item)
+    # live profiler's listener the card too, which is looked for first
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main(["--fsdp", "-b", "2", *data])
     with pytest.raises(ValueError, match="--coordinator"):
         train_cli.main(["--multi-host", "-b", "2", "--device", "cpu", *data])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        train_cli.main(["--profile-port", "9012", "-b", "2", "--device",
-                        "cpu", *data])
+    port = free_port()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_cli.main(["--profile-port", str(port), "-b", "2", *data])
+    # on the CPU the flag trains, and an attach asked meanwhile answers
+    answers = {}
+
+    def ask():
+        while not answers:
+            try:
+                answers["live"] = profiler.attach(f"127.0.0.1:{port}", 1,
+                                                  timeout=120)
+            except OSError:  # not listening yet
+                time.sleep(0.05)
+
+    asker = threading.Thread(target=ask)
+    asker.start()
+    try:
+        train_cli.main(["--profile-port", str(port), "-b", "2", "--device",
+                        "cpu", "--max-epoch", "2", *data, "output_dir",
+                        str(tmp_path)])
+    finally:
+        answers.setdefault("stop", True)
+        asker.join(timeout=60)
+    assert answers["live"]["steps"] >= 1
+    assert answers["live"]["tables"]["by category"]
 
 
 def test_eval_weights_prefer_the_ema(tmp_path):

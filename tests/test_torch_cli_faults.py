@@ -7,14 +7,16 @@ held here on the CPU:
   built), ``demo_featuremap -c`` and ``show_24p -w``; a file of neither
   form still raises ``load_state_dict``'s error;
 * ``train`` and ``train_24p`` parse ``eop_tpu``'s ``--no-prewarm`` (it does
-  nothing) and its parallel and profiling flags: ``--profile-port`` raises
-  the named ``NotImplementedError`` and, in one process, ``--spatial 2``
-  and ``--tensor 2`` raise ``make_mesh``'s "do not split" ``ValueError``,
-  before any data is read; the others work;
+  nothing) and its parallel and profiling flags: in one process
+  ``--spatial 2`` and ``--tensor 2`` raise ``make_mesh``'s "do not split"
+  ``ValueError`` before any data is read; the others work, and under
+  ``--profile-port`` an attach answers while the run trains;
 * ``serve --batch`` defaults to 16, as ``eop_tpu``'s ``tools/serve.py``.
 """
 
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from eop_tpu_torch.tools import eval as eval_cli
 from eop_tpu_torch.tools import train as train_cli
 from eop_tpu_torch.tools import train_24p as train_24p_cli
 from eop_tpu_torch.tools.eval import eval_weights
+from eop_tpu_torch.utils import profiler
 from eop_tpu_torch.utils.synth import (
     write_coco_dataset,
     write_24p_dataset,
@@ -193,6 +196,33 @@ def train_data(tmp_path_factory):
     return coco, write_24p_dataset(str(root / "d24p"), 2, (64, 64), seed=4)
 
 
+class attach_meanwhile(dict):
+    """``utils/profiler.attach`` to ``127.0.0.1:port`` from a thread, asked
+    as soon as the port listens; its answer under ``"live"``."""
+
+    def __init__(self, port):
+        super().__init__()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._ask, args=(port,))
+        self._thread.start()
+
+    def _ask(self, port):
+        while not self._done.is_set():
+            try:
+                self["live"] = profiler.attach(f"127.0.0.1:{port}", 1,
+                                               timeout=120)
+                return
+            except OSError:  # not listening yet
+                time.sleep(0.05)
+            except RuntimeError as e:
+                self["refused"] = str(e)
+                return
+
+    def join(self):
+        self._done.set()
+        self._thread.join(timeout=60)
+
+
 def _strict_load(cli, out):
     """The run's checkpoint loads strictly into the exp's model."""
     exp = (get_exp(exp_name="yolox-s") if cli == "train"
@@ -208,8 +238,7 @@ def _strict_load(cli, out):
 @pytest.mark.parametrize("flag", UNPORTED, ids=[f[0] for f in UNPORTED])
 @pytest.mark.parametrize("cli", ["train", "train_24p"])
 def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
-    """Each flag parses with ``eop_tpu``'s default.  ``--profile-port``
-    raises ``NotImplementedError`` naming itself and its ROADMAP item, and
+    """Each flag parses with ``eop_tpu``'s default.
     ``--spatial 2`` / ``--tensor 2`` raise ``make_mesh``'s ``ValueError``
     (one process does not split into two space or model ranks, as one
     device does not in ``eop_tpu``), before any data is read (the data
@@ -217,8 +246,9 @@ def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
     ``--num-processes`` and ``--process-id`` without ``--multi-host`` stop
     before any data is read, naming it; ``--fsdp`` (no group: it warns that
     it shards nothing), ``--multi-host`` (a group of one over gloo,
-    destroyed at the end) and ``--platform cpu`` (no ``--device``) each
-    train one step whose checkpoint loads strictly, and ``--platform tpu``
+    destroyed at the end), ``--platform cpu`` (no ``--device``) and
+    ``--profile-port`` (an attach asked meanwhile answers with its tables)
+    each train whose checkpoint loads strictly, and ``--platform tpu``
     raises."""
     missing = str(tmp_path / "missing")
     coco, (img_dir, lab_dir) = train_data
@@ -237,12 +267,6 @@ def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
     assert default == {"spatial": 1, "tensor": 1, "fsdp": False,
                        "multi_host": False}.get(name)
     out = str(tmp_path / "out")
-    if name == "profile_port":
-        with pytest.raises(NotImplementedError,
-                           match=rf"{name}=.*queue 1 item 8"):
-            main([*flag, "--device", "cpu", *argv, "output_dir", out])
-        assert not os.path.exists(out)
-        return
     if name in ("spatial", "tensor"):
         with pytest.raises(ValueError, match=rf"1 devices do not split into "
                            rf".*{name}=2"):
@@ -258,8 +282,19 @@ def test_parallel_flags_raise_by_name(cli, flag, tmp_path, train_data):
              "multi_host": ["--multi-host", "--coordinator",
                             f"127.0.0.1:{free_port()}", "--num-processes",
                             "1", "--process-id", "0", "--device", "cpu"],
-             "platform": ["--platform", "cpu"]}[name]
+             "platform": ["--platform", "cpu"],
+             "profile_port": ["--profile-port", str(free_port()), "--device",
+                              "cpu"]}[name]
+    if name == "profile_port":
+        # the one step of max_epoch 1 arms the capture, a second is its
+        # warm-up and a third is recorded
+        answers = attach_meanwhile(int(given[1]))
+        opts = [*opts, "max_epoch", "3"]
     main([*given, *real, *opts, "output_dir", out])
+    if name == "profile_port":
+        answers.join()
+        assert answers["live"]["steps"] >= 1, answers
+        assert answers["live"]["tables"]["top ops"]
     assert not torch.distributed.is_initialized()
     _strict_load(cli, out)
     log = "".join(open(os.path.join(d, f)).read()

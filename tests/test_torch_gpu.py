@@ -1774,3 +1774,41 @@ def test_global_batch_norm_on_card_matches_batchnorm(cuda, dtype, tol):
         assert err <= 1e-5 * want.abs().max().item(), err
     torch.testing.assert_close(rm, ref.running_mean, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rv, ref.running_var, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_model_summary_on_the_card_equals_the_cpu(cuda):
+    """get_model_info counts on the meta device: the card's model gives the
+    CPU's string and launches no kernel."""
+    from eop_tpu_torch.exp import get_exp
+    from eop_tpu_torch.utils.model_utils import get_model_info
+
+    exp = get_exp(exp_name="yolox_24p_s")
+    before = pc.phase_conv.launches
+    on_card = get_model_info(exp.get_model(cuda), exp.test_size)
+    assert pc.phase_conv.launches == before
+    assert on_card == get_model_info(exp.get_model("cpu"), exp.test_size)
+
+
+@pytest.mark.gpu
+def test_profiled_step_names_the_hand_kernels(cuda, tmp_path):
+    """tools.profile_train at B=2, 640 px: each hand kernel's calls in the
+    trace equal the launch counters over the traced steps (8 / 8 / 7 / 7
+    a step)."""
+    from eop_tpu_torch.tools import profile_train
+    from eop_tpu_torch.utils.profiler import op_table
+
+    out = profile_train.main(["--batch", "2", "--size", "640", "--steps",
+                              "1", "--trace-steps", "2", "--logdir",
+                              str(tmp_path)])
+    launches = out["launches"]
+    assert {k: launches[k] for k in ("forward", "wgrad", "dgrad", "pack")} \
+        == {"forward": 16, "wgrad": 16, "dgrad": 14, "pack": 14}
+    calls = {n: c for n, _, c in op_table(str(tmp_path), top=10 ** 6)}
+    assert calls.get("conv_rows_kernel") == launches["forward:wgmma_rows"]
+    assert calls.get("conv_taps_kernel") == (
+        launches["forward:wgmma_taps"]
+        + launches.get("dgrad:flipped:wgmma_taps", 0))
+    assert calls.get("wgrad_tc_kernel") == launches["wgrad:wgmma"]
+    assert calls.get("dgrad_tc_kernel") == launches["dgrad:wgmma_classes"]
+    assert calls.get("pack_taps_kernel") == launches["pack"]

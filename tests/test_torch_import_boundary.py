@@ -1,7 +1,8 @@
 """The port stands alone: no module of eop_tpu_torch imports JAX, flax or
 the eop_tpu package, so it runs where JAX is not installed; nor PIL or
-tabulate, and OpenCV, matplotlib and seaborn only inside functions (the
-decoder of other formats, ``vis``'s labels), never at module level,
+tabulate, and OpenCV, matplotlib, seaborn and tensorboardX only inside
+functions (the decoder of other formats, ``vis``'s labels, the trainers'
+event files), never at module level,
 because the H100 hosts it targets may have none of them.  chip_smoke.py
 and tests/_torch_dist_child.py (the multi-process tests' ranks) keep to
 the same rules."""
@@ -19,7 +20,7 @@ import eop_tpu_torch
 PKG_DIR = Path(eop_tpu_torch.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "eop_tpu",
              "PIL", "tabulate")
-NOT_AT_MODULE_LEVEL = ("cv2", "matplotlib", "seaborn")
+NOT_AT_MODULE_LEVEL = ("cv2", "matplotlib", "seaborn", "tensorboardX")
 
 
 def _forbidden(name: str) -> bool:
@@ -75,7 +76,11 @@ def test_every_module_imports_without_jax():
                  "parallel", "parallel.dist", "parallel.global_bn",
                  "parallel.mesh",
                  # spatial and tensor sharding
-                 "parallel.spatial", "parallel.tensor"):
+                 "parallel.spatial", "parallel.tensor",
+                 # the user's tools and the profiler
+                 "utils.demo_utils", "tools.demo", "utils.logger",
+                 "tools.make_synth_datasets", "utils.profiler",
+                 "tools.profile_train"):
         assert f"eop_tpu_torch.{name}" in out["imported"], name
     bad = [m for m in out["modules"]
            if _forbidden(m) or m.split(".")[0] in NOT_AT_MODULE_LEVEL]
